@@ -1,0 +1,22 @@
+"""mystereomatching_tpu_torch — the stereo pipeline on PyTorch and CUDA.
+
+The port of ``mystereomatching_tpu`` (JAX on a TPU) to PyTorch with
+hand-written CUDA kernels for Hopper (``csrc/``). Module names mirror the
+JAX package's. This package imports torch and never jax; the JAX package
+is the reference it is tested against.
+
+Ported so far: the default preset's cost -> CBCA -> 4-path SGM -> WTA path
+(``default_config(do_refine=False)``).
+"""
+
+from mystereomatching_tpu_torch.config import MatchConfig, default_config
+from mystereomatching_tpu_torch.pipeline import StereoPipeline, match_pair
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "MatchConfig",
+    "default_config",
+    "StereoPipeline",
+    "match_pair",
+]

@@ -1,0 +1,48 @@
+// Kernel D: winner-take-all over the disparity axis.
+//
+// Replaces the TPU kernel `_wta_kernel` in
+// mystereomatching_tpu/ops/pallas_kernels.py (called through `wta_pallas`
+// from `wta.wta`).
+//
+// What it computes: out[v, u] = the first d achieving min_d vol[d, v, u]
+// (max for choose_small = 0), int32 [H, W], as jnp.argmin / torch.argmin.
+//
+// What bounds it on the H100: memory. It reads the [D, H, W] volume once
+// (4 D bytes a pixel) and writes 4 bytes a pixel.
+//
+// Design: one thread per pixel, looping over d with a strict comparison
+// so that the first occurrence wins. Threads of a warp are neighbours
+// along W, so every disparity plane is read coalesced.
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+__global__ void wta_kernel(const float* __restrict__ vol, int32_t* __restrict__ out,
+                           int nd, long long hw, int choose_small) {
+  const long long p = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (p >= hw) return;
+  float best = vol[p];
+  int arg = 0;
+  for (int d = 1; d < nd; ++d) {
+    const float c = vol[d * hw + p];
+    if (choose_small ? c < best : c > best) {
+      best = c;
+      arg = d;
+    }
+  }
+  out[p] = arg;
+}
+
+}  // namespace
+
+// vol: [D, H, W] float32; out: [H, W] int32.
+extern "C" int mysm_wta(const float* vol, int32_t* out, int nd, int h, int w,
+                        int choose_small, void* stream) {
+  const long long hw = static_cast<long long>(h) * w;
+  const int threads = 256;
+  wta_kernel<<<static_cast<unsigned>((hw + threads - 1) / threads), threads, 0,
+               static_cast<cudaStream_t>(stream)>>>(vol, out, nd, hw, choose_small);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,34 @@
+"""Cost aggregation (L2): cross-based cost aggregation (CBCA).
+
+Counterpart of ``aggregation.cbca`` in ``mystereomatching_tpu/ops/
+aggregation.py``, following its CPU branch: iteration i runs an H pass
+then a V pass when i is even, V then H when odd (cbca_core
+cpp:5605-5616). The first pass is an arm-bounded sum; the second sums the
+volume and the first pass's support count together and divides
+(genfinalVm_cbca cpp:3969-3992). Both passes are CUDA kernel B on a CUDA
+tensor (``arms.arm_bounded_sum`` / ``arms.arm_bounded_sum_area``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mystereomatching_tpu_torch.ops.arms import arm_bounded_sum, arm_bounded_sum_area
+
+_H, _W = 1, 2  # axes of a [D, H, W] volume
+
+
+def cbca(vol: torch.Tensor, arms_int: torch.Tensor, iterations: int = 2,
+         max_arm: int = 34) -> torch.Tensor:
+    """vol: [D, H, W] float32; arms_int: [4, D, H, W] int8 intersected arms
+    (left, right, up, down). Returns the aggregated [D, H, W] volume."""
+    arm_l, arm_r, arm_u, arm_d = arms_int.unbind(0)
+    horizontal = (_W, arm_l, arm_r)
+    vertical = (_H, arm_u, arm_d)
+    for it in range(iterations):
+        first, second = (horizontal, vertical) if it % 2 == 0 else (vertical, horizontal)
+        ax1, an1, ap1 = first
+        ax2, an2, ap2 = second
+        vol = arm_bounded_sum(vol, an1, ap1, ax1, max_arm)
+        vol = arm_bounded_sum_area(vol, an1, ap1, an2, ap2, ax2, max_arm)
+    return vol

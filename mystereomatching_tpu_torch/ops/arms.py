@@ -1,0 +1,174 @@
+"""Cross-based support arms and arm-bounded 1-D sums.
+
+Counterpart of ``mystereomatching_tpu/ops/arms.py``: ``cross_arms`` /
+``build_arms`` in ``two_level`` mode, ``_border_floor``, ``intersect_arms``
+and the arm-bounded sums CBCA runs. Arm growth is CUDA kernel A
+(``csrc/arms_grow.cu``) and the arm-bounded sums are kernel B
+(``csrc/arm_taps.cu``); their plain torch versions sit beside the functions
+that dispatch to them.
+
+Arm rule (calHorVerDis cpp:3009-3024): the arm in direction a reaches
+length k iff for every j <= k, p + j a is inside the image,
+max_c |I(p + j a) - I(p + (j-1) a)| <= neigh_thresh and
+max_c |I(p + j a) - I(p)| <= sched[j-1]. The arm is then raised to
+min(min_arm, distance to the border) (cpp:3030-3041).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from mystereomatching_tpu_torch.ops import cuda_kernels as ck
+from mystereomatching_tpu_torch.ops.volume import shifted_stack, valid_mask
+
+# the reference's cross channel order (cpp:2976-2995): left, right, up, down
+DIRECTIONS = ((0, -1), (0, 1), (-1, 0), (1, 0))
+
+_PAD_FAIL = 10000.0  # off-image colour that fails every threshold
+
+
+def _shift(img: torch.Tensor, dv: int, du: int, k: int, fill: float) -> torch.Tensor:
+    """img[v + k dv, u + k du] of an [H, W, C] image, ``fill`` off-image."""
+    h, w = img.shape[:2]
+    ov, ou = dv * k, du * k
+    out = torch.full_like(img, fill)
+    if abs(ov) >= h or abs(ou) >= w:
+        return out
+    out[max(0, -ov): h - max(0, ov), max(0, -ou): w - max(0, ou)] = \
+        img[max(0, ov): h - max(0, -ov), max(0, ou): w - max(0, -ou)]
+    return out
+
+
+def border_floor(h: int, w: int, dv: int, du: int, min_arm: int, device) -> torch.Tensor:
+    """min(min_arm, distance to the border in direction (dv, du)), [H, W]."""
+    v = torch.arange(h, dtype=torch.int32, device=device)[:, None].expand(h, w)
+    u = torch.arange(w, dtype=torch.int32, device=device)[None, :].expand(h, w)
+    big = torch.full((h, w), 1 << 30, dtype=torch.int32, device=device)
+    dist_v = v if dv < 0 else (h - 1 - v if dv > 0 else big)
+    dist_u = u if du < 0 else (w - 1 - u if du > 0 else big)
+    return torch.clamp(torch.minimum(dist_v, dist_u), max=min_arm)
+
+
+def grow_arms_plain(img: torch.Tensor, sched: Sequence[float],
+                    neigh_thresh: float, min_arm: int) -> torch.Tensor:
+    """Plain torch arm growth: [H, W, 3] -> int32 [4, H, W] (L, R, U, D)."""
+    img = img.to(torch.float32)
+    h, w = img.shape[:2]
+    arms = []
+    for dv, du in DIRECTIONS:
+        alive = torch.ones((h, w), dtype=torch.bool, device=img.device)
+        arm = torch.zeros((h, w), dtype=torch.int32, device=img.device)
+        prev = img
+        for k in range(1, len(sched) + 1):
+            cur = _shift(img, dv, du, k, _PAD_FAIL)
+            anchor_ok = (cur - img).abs().amax(-1) <= sched[k - 1]
+            chain_ok = (cur - prev).abs().amax(-1) <= neigh_thresh
+            alive &= anchor_ok & chain_ok
+            arm += alive.to(torch.int32)
+            prev = cur
+        arms.append(torch.maximum(arm, border_floor(h, w, dv, du, min_arm, img.device)))
+    return torch.stack(arms)
+
+
+def grow_arms(img: torch.Tensor, sched: Sequence[float], neigh_thresh: float,
+              min_arm: int) -> torch.Tensor:
+    """Cross arms of an [H, W, 3] image, int32 [4, H, W] (L, R, U, D)."""
+    img = img.to(torch.float32).contiguous()
+    if ck.on_cuda(img):
+        return ck.arms_grow(img, sched, neigh_thresh, min_arm)
+    return grow_arms_plain(img, sched, neigh_thresh, min_arm)
+
+
+def cross_arms(img: torch.Tensor, l_in: int = 17, l_out: int = 34,
+               c_in: int = 20, c_out: int = 6, min_arm: int = 1) -> torch.Tensor:
+    """Two-level arms: anchor threshold c_in up to l_in, c_out beyond."""
+    sched = [float(c_in if k <= l_in else c_out) for k in range(1, l_out + 1)]
+    return grow_arms(img, sched, float(c_in), min_arm)
+
+
+def build_arms(img: torch.Tensor, cfg) -> torch.Tensor:
+    """The calArms family; only the default ``two_level`` mode is ported."""
+    if cfg.cbca_arm_mode != "two_level":
+        raise NotImplementedError(
+            f"cbca_arm_mode {cfg.cbca_arm_mode!r} is not ported yet")
+    return cross_arms(img, cfg.cbca_cross_l, cfg.cbca_cross_l_out,
+                      cfg.cbca_c_thresh, cfg.cbca_c_thresh_out, cfg.cbca_min_arm)
+
+
+def intersect_arms(arms_l: torch.Tensor, arms_r: torch.Tensor, num_disp: int,
+                   lor: int) -> torch.Tensor:
+    """Per-disparity arm intersection (genTrueHorVerArms, cpp:2794-2845).
+
+    out[dir, d, v, u] = min(ref[dir, v, u], other[dir, v, u -/+ d]) with
+    entries whose matching pixel is off-image set to 0. Arms are clamped
+    to 127 and narrowed to int8. Returns [4, D, H, W] int8.
+    """
+    ref, oth = (arms_l, arms_r) if lor == 0 else (arms_r, arms_l)
+    ref8 = torch.clamp(ref, max=127).to(torch.int8)
+    oth8 = torch.clamp(oth, max=127).to(torch.int8)
+    sh = shifted_stack(oth8, num_disp, lor).transpose(0, 1)    # [4, D, H, W]
+    ok = valid_mask(arms_l.shape[-1], num_disp, lor, arms_l.device)
+    out = torch.where(ok[None], torch.minimum(ref8[:, None], sh),
+                      torch.zeros((), dtype=torch.int8, device=sh.device))
+    return out.contiguous()
+
+
+def arm_bounded_sum_plain(vol: torch.Tensor, arm_neg: torch.Tensor,
+                          arm_pos: torch.Tensor, axis: int,
+                          max_arm: int) -> torch.Tensor:
+    """Plain torch arm-bounded sum of ``vol`` over [x - arm_neg, x + arm_pos]
+    along ``axis``, with the arms capped at ``max_arm``.
+
+    The taps are added in ascending offset from -max_arm to +max_arm,
+    masked taps adding 0.0 — the JAX CPU path's order
+    (``arms._arm_bounded_reduce_taps``), so the sums are bit-identical.
+    """
+    n = vol.shape[axis]
+    pad = [0, 0] * (vol.ndim - 1 - axis) + [max_arm, max_arm]
+    padded = F.pad(vol, pad)
+    out = torch.zeros_like(vol)
+    for k in range(-max_arm, max_arm + 1):
+        shifted = padded.narrow(axis, k + max_arm, n)
+        mask = (k >= -arm_neg) & (k <= arm_pos)
+        out = out + torch.where(mask, shifted, 0.0)
+    return out
+
+
+def arm_bounded_sum(vol: torch.Tensor, arm_neg: torch.Tensor,
+                    arm_pos: torch.Tensor, axis: int, max_arm: int) -> torch.Tensor:
+    """Arm-bounded sum of a [D, H, W] volume along H (axis 1) or W (axis 2);
+    arms are int8 [D, H, W]."""
+    if ck.on_cuda(vol):
+        return ck.arm_taps(vol, arm_neg, arm_pos, axis, max_arm)
+    return arm_bounded_sum_plain(vol, arm_neg, arm_pos, axis, max_arm)
+
+
+def _area(arm_neg: torch.Tensor, arm_pos: torch.Tensor, max_arm: int) -> torch.Tensor:
+    return (torch.clamp(arm_neg, max=max_arm) + torch.clamp(arm_pos, max=max_arm)
+            + 1).to(torch.float32)
+
+
+def arm_bounded_sum_area_plain(vol: torch.Tensor, an1: torch.Tensor,
+                               ap1: torch.Tensor, arm_neg: torch.Tensor,
+                               arm_pos: torch.Tensor, axis: int,
+                               max_arm: int) -> torch.Tensor:
+    """Plain torch CBCA second pass: the arm-bounded sums of ``vol`` and of
+    the first pass's support count min(an1,m) + min(ap1,m) + 1, divided."""
+    stacked = torch.stack([vol, _area(an1, ap1, max_arm)])
+    s = arm_bounded_sum_plain(stacked, arm_neg[None], arm_pos[None], axis + 1,
+                              max_arm)
+    return s[0] / torch.clamp(s[1], min=1.0)
+
+
+def arm_bounded_sum_area(vol: torch.Tensor, an1: torch.Tensor, ap1: torch.Tensor,
+                         arm_neg: torch.Tensor, arm_pos: torch.Tensor, axis: int,
+                         max_arm: int) -> torch.Tensor:
+    """CBCA's second pass along H (axis 1) or W (axis 2): sum / area, where
+    an1/ap1 are the first pass's arms; all arms int8 [D, H, W]."""
+    if ck.on_cuda(vol):
+        return ck.arm_taps(vol, arm_neg, arm_pos, axis, max_arm, an1=an1, ap1=ap1)
+    return arm_bounded_sum_area_plain(vol, an1, ap1, arm_neg, arm_pos, axis,
+                                      max_arm)

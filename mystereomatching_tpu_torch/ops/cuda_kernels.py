@@ -1,0 +1,213 @@
+"""Hand-written CUDA kernels for Hopper: build, bindings, launch wrappers.
+
+Counterpart of ``mystereomatching_tpu/ops/pallas_kernels.py``. The sources
+are ``csrc/*.cu`` (CUDA C++ for ``sm_90a``, one file a kernel, each with a
+note on the TPU kernel it replaces). At first use they are compiled with
+``nvcc`` into one shared library with a plain C interface under
+``build/cuda/`` at the repository root, keyed by a hash of the sources
+and flags, and loaded with ctypes.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates the
+output, launches on torch's current stream, raises if the launch failed,
+and adds one to its entry of :data:`launches`. Wrappers take CUDA tensors
+only; the op modules run their plain torch versions for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+from typing import Optional, Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
+# -fmad=false keeps a*b+c as two rounded operations, as torch computes it
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# launches of each kernel since the last reset_launches()
+launches = {"arms_grow": 0, "arm_taps": 0, "sgm_scan": 0, "wta": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "mysm_arms_grow": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "mysm_arm_taps": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mysm_sgm_scan": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "mysm_wta": [_P, _P, _I, _I, _I, _I, _P],
+}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; other devices raise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libmysm_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> str:
+    """Compile the kernels unless a library of the same sources exists.
+
+    Returns nvcc's report (registers and spills per kernel) when it ran,
+    else "". Raises if nvcc is missing or fails."""
+    so = library_path()
+    if so.exists():
+        return ""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [str(Path(CUDA_HOME) / "bin" / "nvcc"), *NVCC_FLAGS, "-o", str(tmp),
+           *map(str, _sources())]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+    os.replace(tmp, so)
+    return res.stdout + res.stderr
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        build()
+        lib = ctypes.CDLL(str(library_path()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(t: torch.Tensor, what: str, dtype: torch.dtype, shape=None,
+           device=None) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{what}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: must be contiguous")
+    if t.numel() == 0:
+        raise ValueError(f"{what}: must not be empty")
+
+
+def _launch(name: str, fn, *args) -> None:
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    launches[name] += 1
+
+
+def arms_grow(img: torch.Tensor, sched: Sequence[float], neigh_thresh: float,
+              min_arm: int) -> torch.Tensor:
+    """Kernel A. img: [H, W, 3] float32 -> int32 [4, H, W] arms (L, R, U, D)."""
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"arms_grow: expected [H, W, 3], got {tuple(img.shape)}")
+    _check(img, "arms_grow img", torch.float32)
+    if not sched:
+        raise ValueError("arms_grow: empty threshold schedule")
+    lib = _load()
+    h, w = img.shape[:2]
+    with torch.cuda.device(img.device):
+        sched_t = torch.tensor(list(sched), dtype=torch.float32, device=img.device)
+        out = torch.empty((4, h, w), dtype=torch.int32, device=img.device)
+        _launch("arms_grow", lib.mysm_arms_grow, img.data_ptr(), sched_t.data_ptr(),
+                out.data_ptr(), h, w, len(sched), float(neigh_thresh), int(min_arm))
+    return out
+
+
+def arm_taps(vol: torch.Tensor, arm_neg: torch.Tensor, arm_pos: torch.Tensor,
+             axis: int, max_arm: int, an1: Optional[torch.Tensor] = None,
+             ap1: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel B. Arm-bounded sum of vol [D, H, W] float32 along H (axis 1)
+    or W (axis 2) with int8 [D, H, W] arms; with an1/ap1 (area mode) the
+    sum is divided by the summed support count of those first-pass arms."""
+    if vol.ndim != 3 or axis not in (1, 2):
+        raise ValueError(f"arm_taps: expected [D, H, W] and axis 1 or 2, got "
+                         f"{tuple(vol.shape)}, axis {axis}")
+    if not 0 <= max_arm <= 127:
+        raise ValueError(f"arm_taps: max_arm {max_arm} outside [0, 127]")
+    if (an1 is None) != (ap1 is None):
+        raise ValueError("arm_taps: area mode needs both an1 and ap1")
+    _check(vol, "arm_taps vol", torch.float32)
+    arms = [arm_neg, arm_pos] + ([an1, ap1] if an1 is not None else [])
+    for a in arms:
+        _check(a, "arm_taps arms", torch.int8, vol.shape, vol.device)
+    lib = _load()
+    d, h, w = vol.shape
+    with torch.cuda.device(vol.device):
+        out = torch.empty_like(vol)
+        _launch("arm_taps", lib.mysm_arm_taps, vol.data_ptr(), arm_neg.data_ptr(),
+                arm_pos.data_ptr(), an1.data_ptr() if an1 is not None else None,
+                ap1.data_ptr() if ap1 is not None else None, out.data_ptr(),
+                d, h, w, int(axis == 2), int(max_arm))
+    return out
+
+
+def sgm_scan(vol: torch.Tensor, pscale: torch.Tensor, p1: float, p2: float,
+             axis: int, reverse: bool) -> torch.Tensor:
+    """Kernel C. SGM path costs of vol [G, D, H, W] float32 (D <= 256)
+    scanned along H (axis 2) or W (axis 3), from the far end when
+    ``reverse``; pscale: [G, H, W] float32 penalty scale."""
+    if vol.ndim != 4 or axis not in (2, 3):
+        raise ValueError(f"sgm_scan: expected [G, D, H, W] and axis 2 or 3, got "
+                         f"{tuple(vol.shape)}, axis {axis}")
+    g, d, h, w = vol.shape
+    if d > 256:
+        raise ValueError(f"sgm_scan: D={d} exceeds 256")
+    _check(vol, "sgm_scan vol", torch.float32)
+    _check(pscale, "sgm_scan pscale", torch.float32, (g, h, w), vol.device)
+    lib = _load()
+    with torch.cuda.device(vol.device):
+        out = torch.empty_like(vol)
+        _launch("sgm_scan", lib.mysm_sgm_scan, vol.data_ptr(), pscale.data_ptr(),
+                out.data_ptr(), g, d, h, w, int(axis == 3), int(bool(reverse)),
+                float(p1), float(p2))
+    return out
+
+
+def wta(vol: torch.Tensor, choose_small: bool = True) -> torch.Tensor:
+    """Kernel D. First-occurrence argmin (argmax unless choose_small) over
+    D of vol [D, H, W] float32 -> int32 [H, W]."""
+    if vol.ndim != 3:
+        raise ValueError(f"wta: expected [D, H, W], got {tuple(vol.shape)}")
+    _check(vol, "wta vol", torch.float32)
+    lib = _load()
+    d, h, w = vol.shape
+    with torch.cuda.device(vol.device):
+        out = torch.empty((h, w), dtype=torch.int32, device=vol.device)
+        _launch("wta", lib.mysm_wta, vol.data_ptr(), out.data_ptr(), d, h, w,
+                int(bool(choose_small)))
+    return out

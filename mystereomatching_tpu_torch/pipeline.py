@@ -1,0 +1,139 @@
+"""End-to-end stereo pipeline: cost -> CBCA -> SGM -> WTA.
+
+Counterpart of ``mystereomatching_tpu/pipeline.py`` for the stages ported
+so far: the default censusGrad cost, cross arms, CBCA, 4-path SGM and WTA
+on the left and right volumes, i.e. the preset ``census_grad_cbca_sgm``
+with ``do_refine=False``. A configuration that needs any other stage
+raises ``NotImplementedError`` naming it.
+
+PyTorch runs eagerly: :class:`StereoPipeline` only validates the
+configuration and moves the inputs to its device. On a CUDA device the
+four kernel-backed ops launch their CUDA kernels; on the CPU they run
+their plain torch versions.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from mystereomatching_tpu_torch.config import MatchConfig, as_port_config
+from mystereomatching_tpu_torch.ops import aggregation as agg_ops
+from mystereomatching_tpu_torch.ops import arms as arms_ops
+from mystereomatching_tpu_torch.ops import cost as cost_ops
+from mystereomatching_tpu_torch.ops import sgm as sgm_ops
+from mystereomatching_tpu_torch.ops import wta as wta_ops
+
+
+def to_gray(img: torch.Tensor) -> torch.Tensor:
+    """RGB -> gray as the reference reads it (libpng's rgb_to_gray):
+    (9797 R + 19234 G + 3737 B) >> 15, float32 [H, W]. cvtColor-style
+    rounding would flip about half the pixels by one level."""
+    r, g, b = (img[..., c].to(torch.int32) for c in range(3))
+    return ((9797 * r + 19234 * g + 3737 * b) >> 15).to(torch.float32)
+
+
+def check_supported(cfg: MatchConfig) -> None:
+    """Raise NotImplementedError for a stage this package does not run yet."""
+    unported = [
+        (cfg.do_refine, "do_refine=True (LRC, region vote, proper interpolation, median)"),
+        (cfg.cost != "census_grad", f"cost {cfg.cost!r}"),
+        (cfg.aggregation != "cbca", f"aggregation {cfg.aggregation!r}"),
+        (cfg.cbca_double_win, "cbca_double_win"),
+        (cfg.optimization != "sgm", f"optimization {cfg.optimization!r}"),
+        (cfg.sgm_scan_num != 4, f"{cfg.sgm_scan_num}-path SGM"),
+        (cfg.do_vmtop, "do_vmtop"),
+        (cfg.d_stream_block != 0, "d_stream_block"),
+        (cfg.sub_ipol, "sub_ipol"),
+        (cfg.uniq_check, "uniq_check"),
+        (cfg.pyramid_levels > 1, "pyramid_levels > 1"),
+        (cfg.vol_dtype != "float32", f"vol_dtype {cfg.vol_dtype!r}"),
+    ]
+    missing = [name for hit, name in unported if hit]
+    if missing:
+        raise NotImplementedError("not ported yet: " + ", ".join(missing))
+
+
+def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
+    """L1 + L2: the CBCA-aggregated cost volumes of the needed views.
+
+    Returns (vols, arms_pair): vols is {0: volL, 1: volR} (volR only when
+    the LR check is on); arms_pair is the two images' [4, H, W] cross arms.
+    """
+    gl, gr = to_gray(left), to_gray(right)
+    n_imgs = 2 if (cfg.compute_both_volumes and cfg.do_lr_consis) else 1
+    arms_pair = tuple(arms_ops.build_arms(img, cfg) for img in (left, right))
+    vols = {}
+    for lor in range(n_imgs):
+        vol = cost_ops.compute_cost_volume(left, right, gl, gr, cfg, lor,
+                                           arms=arms_pair[lor])
+        arms_int = arms_ops.intersect_arms(arms_pair[0], arms_pair[1],
+                                           cfg.num_disp, lor)
+        vols[lor] = agg_ops.cbca(vol, arms_int, cfg.cbca_iterations,
+                                 max_arm=cfg.arm_l_out)
+    return vols, arms_pair
+
+
+def optimize(vols, left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
+    """L3: SGM over all volumes together, then WTA on each.
+
+    Returns (d_left, d_right or None, vol_left after optimization)."""
+    images = {0: left, 1: right}
+    lors = sorted(vols)
+    out = sgm_ops.sgm_multi(
+        [vols[i] for i in lors], [images[i] for i in lors],
+        num_directions=cfg.sgm_scan_num, p1=cfg.sgm_p1_eff, p2=cfg.sgm_p2_eff,
+        cor_dif_thres=cfg.sgm_cor_dif_thres, redu_coeff=cfg.sgm_redu_coeff)
+    vols = dict(zip(lors, out))
+    dl = wta_ops.wta(vols[0], cfg.choose_small)
+    dr = wta_ops.wta(vols[1], cfg.choose_small) if 1 in vols else None
+    return dl, dr, vols[0]
+
+
+def match_pair(left: torch.Tensor, right: torch.Tensor,
+               cfg: MatchConfig) -> Dict[str, torch.Tensor]:
+    """The pipeline on [H, W, 3] RGB tensors (uint8 or float) on one device.
+
+    Returns 'disparity' (float32 [H, W]) and 'disp_left_raw' /
+    'disp_right_raw' (int32 WTA maps; the right one when the LR check is
+    on). Without refinement 'disparity' is the left WTA map.
+    """
+    cfg = as_port_config(cfg).validate()
+    check_supported(cfg)
+    left = left.to(torch.float32)
+    right = right.to(torch.float32)
+    vols, _ = compute_volumes(left, right, cfg)
+    dl, dr, _ = optimize(vols, left, right, cfg)
+    out = {"disp_left_raw": dl}
+    if dr is not None:
+        out["disp_right_raw"] = dr
+    out["disparity"] = dl.to(torch.float32)
+    return out
+
+
+class StereoPipeline:
+    """The pipeline bound to one configuration and one device.
+
+    ``StereoPipeline(cfg, device="cuda")`` raises when CUDA is not
+    available; inputs (numpy arrays or tensors) are moved to the device.
+    """
+
+    def __init__(self, cfg: MatchConfig, device="cpu"):
+        self.cfg = as_port_config(cfg).validate()
+        check_supported(self.cfg)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("StereoPipeline: device 'cuda' requested but CUDA "
+                               "is not available")
+        if self.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"StereoPipeline: unsupported device {self.device}")
+
+    def _tensor(self, img) -> torch.Tensor:
+        if isinstance(img, np.ndarray):
+            img = torch.from_numpy(np.ascontiguousarray(img))
+        return img.to(self.device)
+
+    def __call__(self, left, right) -> Dict[str, torch.Tensor]:
+        return match_pair(self._tensor(left), self._tensor(right), self.cfg)

@@ -1,0 +1,89 @@
+"""The CUDA kernels against their plain torch versions, on the card.
+
+Marked ``cuda``: each test asks for the ``cuda`` fixture, which skips when
+torch sees no CUDA device. Run them on a machine with an NVIDIA GPU and
+nvcc with ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
+(the repository's conftest imports jax, which that machine need not have);
+the kernels are built on first use. Every comparison is exact (``torch.equal``): the
+kernels keep their plain versions' operation order and are built with
+-fmad=false.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import mystereomatching_tpu_torch as port
+from mystereomatching_tpu_torch.data import make_synthetic_pair
+from mystereomatching_tpu_torch.ops import arms, sgm, wta
+from mystereomatching_tpu_torch.ops import cuda_kernels as ck
+
+pytestmark = pytest.mark.cuda
+
+M = 34
+SCHED = [20.0 if k <= 17 else 6.0 for k in range(1, M + 1)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _t(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+@pytest.mark.parametrize("shape", [(45, 70), (9, 50), (1, 1)])
+def test_arms_grow_kernel(cuda, shape):
+    rng = np.random.default_rng(shape[0])
+    base = np.kron(rng.integers(0, 256, (-(-shape[0] // 30), -(-shape[1] // 30), 3)),
+                   np.ones((30, 30, 1)))[:shape[0], :shape[1]]
+    img = _t(np.clip(np.round(base + rng.normal(0, 2.0, base.shape)), 0, 255)
+             .astype(np.float32), cuda)
+    assert torch.equal(ck.arms_grow(img, SCHED, 20.0, 1),
+                       arms.grow_arms_plain(img, SCHED, 20.0, 1))
+
+
+@pytest.mark.parametrize("axis", [1, 2])
+@pytest.mark.parametrize("area", [False, True])
+def test_arm_taps_kernel(cuda, axis, area):
+    rng = np.random.default_rng(axis + 2 * area)
+    vol = _t(rng.random((7, 33, 41)).astype(np.float32), cuda)
+    an1, ap1, an, ap = (_t(rng.integers(0, 40, (7, 33, 41)).astype(np.int8), cuda)
+                        for _ in range(4))
+    if area:
+        got = ck.arm_taps(vol, an, ap, axis, M, an1=an1, ap1=ap1)
+        want = arms.arm_bounded_sum_area_plain(vol, an1, ap1, an, ap, axis, M)
+    else:
+        got = ck.arm_taps(vol, an, ap, axis, M)
+        want = arms.arm_bounded_sum_plain(vol, an, ap, axis, M)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nd", [1, 32, 37, 60, 256])
+@pytest.mark.parametrize("axis,reverse", [(2, False), (2, True), (3, False), (3, True)])
+def test_sgm_scan_kernel(cuda, nd, axis, reverse):
+    rng = np.random.default_rng(nd)
+    vol = _t((rng.random((2, nd, 11, 19)) * 3).astype(np.float32), cuda)
+    ps = _t(np.where(rng.random((2, 11, 19)) < 0.3, 0.25, 1.0).astype(np.float32), cuda)
+    assert torch.equal(ck.sgm_scan(vol, ps, 1.0, 3.0, axis, reverse),
+                       sgm.sgm_scan_plain(vol, ps, 1.0, 3.0, axis, reverse))
+
+
+@pytest.mark.parametrize("choose_small", [True, False])
+def test_wta_kernel(cuda, choose_small):
+    vol = _t(np.random.default_rng(6).integers(0, 3, (11, 14, 15)).astype(np.float32), cuda)
+    assert torch.equal(ck.wta(vol, choose_small), wta.wta_plain(vol, choose_small))
+
+
+def test_pipeline_on_cuda_equals_cpu(cuda):
+    pair = make_synthetic_pair(h=64, w=96, max_disp=11, seed=3, noise_sigma=0.5)
+    cfg = port.default_config(max_disp=pair.max_disp, do_refine=False)
+    ck.reset_launches()
+    gpu = port.StereoPipeline(cfg, device=cuda)(pair.left, pair.right)
+    assert all(n > 0 for n in ck.launches.values()), ck.launches
+    cpu = port.StereoPipeline(cfg)(pair.left, pair.right)
+    for key in ("disp_left_raw", "disp_right_raw"):
+        assert torch.equal(gpu[key].cpu(), cpu[key])
