@@ -8,17 +8,30 @@ Run from the repository root with no arguments:
 Phases, each of which raises (exit code 1) on failure:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: compile the CUDA kernels from ``mystereomatching_tpu_torch/csrc``;
+2. build: compile the CUDA kernels from ``mystereomatching_tpu_torch/csrc``
+   (one nvcc a source, all started together);
 3. kernels: each kernel against its plain torch version on the card, on
-   the inputs the main path gives it for a Teddy-sized pair
-   (375x450, D=60); every kernel must equal its plain version exactly;
-4. slice: ``StereoPipeline(default_config(do_refine=False), "cuda")`` on
-   the three golden scenes; the left WTA map must match the reference
-   binary's (tests/golden/*_wta.bin) within the JAX package's budgets
-   (0, 0 and 2 px), and every kernel's launch count must move;
+   the inputs the main path gives it for a Teddy-sized pair (375x450,
+   D=60), with its device time (torch.profiler), its time between CUDA
+   events around the wrapper, its plain version's and its bound; then kernel B
+   on a [32, 1988, 2880] volume and the proper-interpolation kernel on a
+   1988x2880 map (full resolution). Every kernel must equal its plain
+   version exactly (``torch.equal``);
+4. slice: ``StereoPipeline(default_config(do_refine=False), "cuda")`` and
+   then ``StereoPipeline(default_config(), "cuda")`` (refine on) on the
+   three golden scenes, each with the launch counts set to 0 just before
+   it. The left WTA map must match the reference binary's
+   (tests/golden/*_wta.bin) within the JAX package's budgets (0, 0, 2 px),
+   the refined map (tests/golden/*_final.bin) at 0 px on every scene, and
+   every kernel of each path must have launched;
 5. timing: ms/frame and MP*disp/s of the kernel path and of the same
-   pipeline with every kernel replaced by its plain torch version, and
-   each kernel's time beside its plain version's.
+   pipeline with every kernel replaced by its plain torch version, for the
+   full default configuration and for ``do_refine=False``, in alternating
+   rounds; the refine chain alone, kernel and plain; and the peak device
+   memory of a frame;
+6. profile: ``torch.profiler`` over frames of the full default
+   configuration: device time, idle share, launches per frame, the largest
+   device kernels and each hand kernel's device time a launch.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -26,6 +39,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -43,14 +57,16 @@ from mystereomatching_tpu_torch.ops import aggregation as agg_ops
 from mystereomatching_tpu_torch.ops import arms as arms_ops
 from mystereomatching_tpu_torch.ops import cost as cost_ops
 from mystereomatching_tpu_torch.ops import cuda_kernels as ck
+from mystereomatching_tpu_torch.ops import refine as refine_ops
 from mystereomatching_tpu_torch.ops import sgm as sgm_ops
 from mystereomatching_tpu_torch.ops import wta as wta_ops
-from mystereomatching_tpu_torch.pipeline import to_gray
+from mystereomatching_tpu_torch.pipeline import refine, to_gray
 from mystereomatching_tpu_torch.utils.metrics import bad_pixel_rate
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 TEDDY = dict(h=375, w=450, max_disp=59, seed=0)
+FULLRES = (1988, 2880)  # the fullres_occfill shape (H, W)
 # scene -> (make_synthetic_pair arguments, WTA px budget of the JAX golden test)
 SCENES = {
     "small_scale": (dict(h=144, w=192, max_disp=23, seed=3), 0),
@@ -66,8 +82,19 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                  "mystereomatching_tpu/ops/pallas_kernels.py:762"),
     "wta": ("mystereomatching_tpu_torch/csrc/wta.cu",
             "mystereomatching_tpu/ops/pallas_kernels.py:718"),
+    "arm_reduce": ("mystereomatching_tpu_torch/csrc/arm_reduce.cu",
+                   "mystereomatching_tpu/ops/pallas_kernels.py:67"),
+    "pi_scan": ("mystereomatching_tpu_torch/csrc/pi_scan.cu",
+                "mystereomatching_tpu/ops/pallas_kernels.py:483"),
 }
 FRAME_REPS = 10
+PROFILE_FRAMES = 5
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and float32
+# operations/s outside the tensor cores, against which integer and compare
+# operations are counted too.
+HBM_BYTES_PER_S = 3.35e12
+VECTOR_OPS_PER_S = 67e12
+L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 
 
 def card() -> str:
@@ -77,7 +104,8 @@ def card() -> str:
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
-    """Mean device time of fn() in ms, by CUDA events, after a warm-up."""
+    """Mean ms of fn() between two CUDA events, after a warm-up. For a short
+    kernel this is the host's issue rate, not the card's."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -88,6 +116,67 @@ def cuda_ms(fn, reps: int = 20) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, kernel=None, reps: int = 20) -> float:
+    """Mean device time of fn() in ms from torch.profiler's device events,
+    after a warm-up: the launches of ``{kernel}_kernel`` only, or every
+    device event when kernel is None. Before each rep a 256 MiB fill evicts
+    the 50 MB L2, so inputs come from HBM as in a frame; the fill's own
+    events are not counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.fill_(0)
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and "FillFunctor" not in e.name
+          and (kernel is None or f"{kernel}_kernel" in e.name)]
+    if not us:
+        raise AssertionError(f"profiler recorded no device time for {kernel or 'the call'}")
+    return sum(us) / 1e3 / reps
+
+
+def bound(nbytes: float, nops: float):
+    """(least ms, what bounds it): bytes over HBM rate vs operations over
+    the vector peak, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / VECTOR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def taps(arm_neg: torch.Tensor, arm_pos: torch.Tensor, axis: int, max_arm: int) -> int:
+    """Taps an arm-bounded pass reads: sum of the arms capped at max_arm and
+    at the image border, plus the centre, over every element."""
+    n = arm_neg.shape[axis]
+    shape = [1] * arm_neg.ndim
+    shape[axis] = n
+    pos = torch.arange(n, device=arm_neg.device).reshape(shape)
+    lo = torch.minimum(arm_neg.to(torch.int64).clamp(max=max_arm), pos)
+    hi = torch.minimum(arm_pos.to(torch.int64).clamp(max=max_arm), n - 1 - pos)
+    return int((lo + hi + 1).sum())
+
+
+def pi_work(disp: torch.Tensor, offsets: torch.Tensor):
+    """(taps walked, rays that hit) of one proper-interpolation pass: each
+    invalid pixel walks each ray up to its first valid tap."""
+    h, w = disp.shape
+    m = int(offsets.abs().max())
+    dpad = torch.nn.functional.pad(disp, (m, m, m, m), value=-1)
+    inval = disp < 0
+    walked = hits = 0
+    for ray in offsets.tolist():
+        found = torch.zeros_like(inval)
+        for dv, du in ray:
+            walked += int((inval & ~found).sum())
+            found |= dpad[m + dv:m + dv + h, m + du:m + du + w] >= 0
+        hits += int((inval & found).sum())
+    return walked, hits
 
 
 def load_ref_disp(path: str) -> np.ndarray:
@@ -120,9 +209,10 @@ def phase_build() -> None:
             print(f"  nvcc: {line.strip()}")
 
 
-def teddy_inputs(dev):
-    """The inputs the main path gives each kernel for the Teddy-sized pair."""
-    cfg = default_config(max_disp=TEDDY["max_disp"], do_refine=False)
+def teddy_inputs(dev) -> dict:
+    """The inputs the main path gives each kernel for the Teddy-sized pair,
+    computed on the plain path."""
+    cfg = default_config(max_disp=TEDDY["max_disp"])
     pair = make_synthetic_pair(**TEDDY)
     left = torch.from_numpy(pair.left).to(dev, torch.float32)
     right = torch.from_numpy(pair.right).to(dev, torch.float32)
@@ -141,9 +231,16 @@ def teddy_inputs(dev):
                                                          cfg.sgm_redu_coeff)
                                    for img in (left, right)]).contiguous()
                    for d in sgm_ops.DIRECTIONS_8[:4]}
-        sgm_vol = sgm_ops.sgm_multi(agg, [left, right], 4, cfg.sgm_p1_eff, cfg.sgm_p2_eff,
-                                    cfg.sgm_cor_dif_thres, cfg.sgm_redu_coeff)[0]
-    return cfg, left, raw[0], arms_int[0], vols, pscales, sgm_vol
+        sgm_vols = sgm_ops.sgm_multi(agg, [left, right], 4, cfg.sgm_p1_eff, cfg.sgm_p2_eff,
+                                     cfg.sgm_cor_dif_thres, cfg.sgm_redu_coeff)
+        dl, dr = (wta_ops.wta_plain(v) for v in sgm_vols)
+        lrc = refine_ops.lr_consistency(dl, dr, cfg.lr_max_diff)
+        rv = lrc
+        for _ in range(cfg.region_vote_iters):
+            rv = refine_ops.region_vote(rv, arms[0], cfg.num_disp, cfg.rv_s_thres,
+                                        cfg.rv_h_ratio, cfg.rv_int_ratio_quirk, cfg.arm_l_out)
+    return dict(cfg=cfg, left=left, arms=arms, vol=raw[0], arms_int=arms_int[0], vols=vols,
+                pscales=pscales, sgm_vol=sgm_vols[0], lrc=lrc, rv=rv)
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -156,67 +253,173 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
-def phase_kernels(dev, card_line: str):
-    cfg, left, vol, ai, vols, pscales, sgm_vol = teddy_inputs(dev)
-    m = cfg.arm_l_out
+def cbca_iteration_case(vol, arms_int, m):
+    """One CBCA iteration (kernel B sum pass along W + area pass along H) as
+    (kernel, plain, bytes, operations)."""
+    arm_l, arm_r, arm_u, arm_d = arms_int.unbind(0)
+
+    def run(sum_fn, area_fn):
+        return area_fn(sum_fn(vol, arm_l, arm_r, 2, m), arm_l, arm_r, arm_u, arm_d, 1, m)
+
+    n = vol.numel()
+    nbytes = n * (4 + 2 + 4) + n * (4 + 4 + 4)   # pass 1: vol, 2 int8 arms, out; pass 2: 4 arms
+    nops = taps(arm_l, arm_r, 2, m) + 6 * taps(arm_u, arm_d, 1, m)
+    return (lambda: run(ck.arm_taps,
+                        lambda v, a1, b1, a2, b2, ax, mm: ck.arm_taps(v, a2, b2, ax, mm, a1, b1)),
+            lambda: run(arms_ops.arm_bounded_sum_plain, arms_ops.arm_bounded_sum_area_plain),
+            nbytes, nops)
+
+
+def region_vote_case(lrc, arms0, m):
+    """One region-vote iteration's four integer passes (min of d and -d
+    along W then H, valid count along W then H) as (kernel, plain, bytes,
+    operations)."""
+    left, right, up, down = arms0.unbind(0)
+    big = torch.iinfo(torch.int32).max
+    valid = lrc >= 0
+    mm = torch.stack([torch.where(valid, lrc, big), torch.where(valid, -lrc, big)])
+    count = valid.to(torch.int32)[None].contiguous()
+
+    def run(fn):
+        return (fn(fn(mm, left, right, 2, m, "min"), up, down, 1, m, "min"),
+                fn(fn(count, left, right, 2, m, "sum"), up, down, 1, m, "sum"))
+
+    hw = lrc.numel()
+    nbytes = 2 * (2 * hw * 4 + 2 * hw * 4 + 2 * hw * 4) + 2 * (hw * 4 + 2 * hw * 4 + hw * 4)
+    nops = 3 * (taps(left, right, 1, m) + taps(up, down, 0, m))
+    return (lambda: run(ck.arm_reduce), lambda: run(arms_ops.arm_bounded_reduce_plain),
+            nbytes, nops)
+
+
+def pi_case(disp, image, depth, disp_occ):
+    """One proper-interpolation iteration as (kernel, plain, bytes,
+    operations): per tap walked a bounds test and a load test (5), per ray
+    that hits the colour difference and the reduction (12)."""
+    offs = torch.from_numpy(refine_ops.pi_offsets(depth)).to(disp.device)
+    image = image.contiguous()
+    walked, hits = pi_work(disp, offs)
+    nbytes = disp.numel() * (4 + 12 + 4) + offs.numel() * 4
+    return (lambda: ck.pi_scan(disp, image, offs, disp_occ),
+            lambda: refine_ops.proper_interpolation_plain(disp, image, offs, disp_occ),
+            nbytes, 5 * walked + 12 * hits)
+
+
+def run_case(name, what, case, card_line, library=None):
+    kernel, plain, nbytes, nops = case
+    got, want = kernel(), plain()
+    if isinstance(got, tuple):
+        got, want = torch.cat(got), torch.cat(want)
+    err = compare(name, got, want)
+    ms, host_ms, plain_ms = device_ms(kernel, name), cuda_ms(kernel), cuda_ms(plain, reps=3)
+    bound_ms, bound_by = bound(nbytes, nops)
+    library_ms = device_ms(library) if library is not None else None
+    lib = f", library {library_ms:.4f} ms device" if library_ms is not None else ""
+    print(f"kernel {name}: equal to plain (max |err| {err}); {what}: {ms:.4f} ms device "
+          f"({host_ms:.4f} ms between events) vs plain {plain_ms:.4f} ms{lib}; bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.3f} MB, {nops / 1e6:.3f} M ops), "
+          f"{bound_ms / ms:.3f} of it [{card_line}]")
+    return dict(max_abs_err=err, ms=ms, host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def fullres_image(rng):
+    """A 1988x2880 colour image of flat 24-px blocks plus noise, float32."""
+    h, w = FULLRES
+    base = np.kron(rng.integers(0, 256, (-(-h // 24), -(-w // 24), 3)),
+                   np.ones((24, 24, 1)))[:h, :w]
+    return np.clip(np.round(base + rng.normal(0, 2.0, base.shape)), 0, 255).astype(np.float32)
+
+
+def phase_kernels(dev, card_line: str) -> dict:
+    t = teddy_inputs(dev)
+    cfg, left, m = t["cfg"], t["left"], t["cfg"].arm_l_out
     sched = [float(cfg.cbca_c_thresh if k <= cfg.cbca_cross_l else cfg.cbca_c_thresh_out)
              for k in range(1, cfg.cbca_cross_l_out + 1)]
     neigh, min_arm = float(cfg.cbca_c_thresh), cfg.cbca_min_arm
-    arm_l, arm_r, arm_u, arm_d = ai.unbind(0)
     dirs = [(d, 2 if d[1] == 0 else 3, d[0] > 0 if d[1] == 0 else d[1] > 0)
             for d in sgm_ops.DIRECTIONS_8[:4]]
-
-    def taps_iteration(sum_fn, area_fn):
-        v1 = sum_fn(vol, arm_l, arm_r, 2, m)
-        return area_fn(v1, arm_l, arm_r, arm_u, arm_d, 1, m)
+    vols, sgm_vol = t["vols"], t["sgm_vol"]
 
     def sgm_all(fn):
-        return [fn(vols, pscales[d], cfg.sgm_p1_eff, cfg.sgm_p2_eff, axis, rev)
-                for d, axis, rev in dirs]
+        return torch.stack([fn(vols, t["pscales"][d], cfg.sgm_p1_eff, cfg.sgm_p2_eff, axis, rev)
+                            for d, axis, rev in dirs])
 
+    hw = left.shape[0] * left.shape[1]
+    arms = t["arms"][0]
+    room = [torch.minimum(arms_ops.border_floor(*left.shape[:2], dv, du, 1 << 20, dev),
+                          torch.tensor(len(sched), device=dev)) for dv, du in arms_ops.DIRECTIONS]
+    grow_steps = int(sum(torch.minimum(arms[i] + 1, room[i]).sum() for i in range(4)))
     cases = {
-        "arms_grow": (lambda: ck.arms_grow(left, sched, neigh, min_arm),
-                      lambda: arms_ops.grow_arms_plain(left, sched, neigh, min_arm),
-                      "arms of one 375x450 image"),
-        "arm_taps": (lambda: taps_iteration(
-                         ck.arm_taps,
-                         lambda v, a1, b1, a2, b2, ax, mm: ck.arm_taps(v, a2, b2, ax, mm, a1, b1)),
-                     lambda: taps_iteration(arms_ops.arm_bounded_sum_plain,
-                                            arms_ops.arm_bounded_sum_area_plain),
-                     "one CBCA iteration (sum pass along W + area pass along H), D=60"),
-        "sgm_scan": (lambda: torch.stack(sgm_all(ck.sgm_scan)),
-                     lambda: torch.stack(sgm_all(sgm_ops.sgm_scan_plain)),
-                     "4 directions over the left+right pair [2,60,375,450]"),
-        "wta": (lambda: ck.wta(sgm_vol), lambda: wta_ops.wta_plain(sgm_vol),
-                "one [60,375,450] volume"),
+        "arms_grow": ("arms of one 375x450 image",
+                      (lambda: ck.arms_grow(left, sched, neigh, min_arm),
+                       lambda: arms_ops.grow_arms_plain(left, sched, neigh, min_arm),
+                       hw * (12 + 16), 18 * grow_steps), None),
+        "arm_taps": ("one CBCA iteration (sum pass along W + area pass along H), D=60",
+                     cbca_iteration_case(t["vol"], t["arms_int"], m), None),
+        "sgm_scan": ("4 directions over the left+right pair [2,60,375,450]",
+                     (lambda: sgm_all(ck.sgm_scan), lambda: sgm_all(sgm_ops.sgm_scan_plain),
+                      4 * (vols.numel() * 8 + vols[:, 0].numel() * 4), 4 * 7 * vols.numel()),
+                     None),
+        "wta": ("one [60,375,450] volume",
+                (lambda: ck.wta(sgm_vol), lambda: wta_ops.wta_plain(sgm_vol),
+                 sgm_vol.numel() * 4 + hw * 4, sgm_vol.numel()),
+                lambda: torch.argmin(sgm_vol, 0)),
+        "arm_reduce": ("one region-vote iteration (2 min + 2 sum passes) on the LRC map",
+                       region_vote_case(t["lrc"], arms, m), None),
+        "pi_scan": ("one proper-interpolation iteration on the region-voted map, depth "
+                    f"{cfg.pi_search_depth}",
+                    pi_case(t["rv"], left, cfg.pi_search_depth, cfg.disp_occ), None),
     }
-    rows = {}
-    for name, (kernel, plain, what) in cases.items():
-        err = compare(name, kernel(), plain())
-        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, reps=3)
-        print(f"kernel {name}: equal to plain (max |err| {err}); {what}: "
-              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms [{card_line}]")
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    rows = {name: run_case(name, what, case, card_line, library)
+            for name, (what, case, library) in cases.items()}
+    print(f"teddy maps: {int((t['lrc'] < 0).sum())} px invalid after LRC, "
+          f"{int((t['rv'] < 0).sum())} after region vote, of {hw}")
+    del t, cases
+
+    # full resolution: kernel B on a D block, PI on a map with ~20% holes
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(fullres_image(rng)).to(dev)
+    img_r = torch.roll(img, -8, dims=1)
+    arms_full = [arms_ops.cross_arms(x) for x in (img, img_r)]
+    arms_int = arms_ops.intersect_arms(arms_full[0], arms_full[1], 32, 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    vol = torch.rand((32,) + FULLRES, generator=gen, device=dev)
+    run_case("arm_taps", "full resolution, one CBCA iteration on [32,1988,2880]",
+             cbca_iteration_case(vol, arms_int, m), card_line)
+    del vol, arms_int
+    h, w = FULLRES
+    disp = torch.from_numpy(np.kron(rng.integers(0, 256, (-(-h // 24), -(-w // 24))),
+                                    np.ones((24, 24)))[:h, :w].astype(np.int32)).to(dev)
+    r = torch.rand(FULLRES, generator=gen, device=dev)
+    disp = torch.where(r < 0.1, -1, torch.where(r < 0.2, -32, disp)).to(torch.int32)
+    print(f"full-resolution map: {float((disp < 0).float().mean()):.4f} of pixels invalid")
+    run_case("pi_scan", "full resolution, one iteration on 1988x2880, depth 20",
+             pi_case(disp, img, 20, -32), card_line)
     return rows
 
 
-def phase_slice(dev) -> dict:
+def run_scenes(dev, do_refine: bool):
+    """The golden scenes through StereoPipeline, with the launch counts set
+    to 0 just before and read just after."""
+    pairs = {name: make_synthetic_pair(name=name, **params)
+             for name, (params, _) in SCENES.items()}
+    pipes = {name: StereoPipeline(default_config(max_disp=params["max_disp"],
+                                                 do_refine=do_refine), device=dev)
+             for name, (params, _) in SCENES.items()}
+    torch.cuda.synchronize()
     ck.reset_launches()
-    results = {}
-    for name, (params, _) in SCENES.items():
-        pair = make_synthetic_pair(name=name, **params)
-        pipe = StereoPipeline(default_config(max_disp=params["max_disp"], do_refine=False),
-                              device=dev)
-        out = pipe(pair.left, pair.right)
-        torch.cuda.synchronize()
-        results[name] = (pair, out)
+    outs = {name: pipes[name](pair.left, pair.right) for name, pair in pairs.items()}
+    torch.cuda.synchronize()
     counts = dict(ck.launches)
-    print(f"launches on the main path: {json.dumps(counts)}")
-    missing = [k for k, n in counts.items() if n == 0]
+    label = "default (refine on)" if do_refine else "do_refine=False"
+    print(f"launches on the main path, {label}: {json.dumps(counts)}")
+    expected = [k for k in counts if do_refine or k not in ck.REFINE_KERNELS]
+    missing = [k for k in expected if counts[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
-    for name, (pair, out) in results.items():
+        raise AssertionError(f"{label}: kernels never launched on the main path: {missing}")
+    for name, pair in pairs.items():
         params, budget = SCENES[name]
+        out = outs[name]
         h, w, nd = params["h"], params["w"], params["max_disp"] + 1
         for key in ("disp_left_raw", "disp_right_raw"):
             d = out[key]
@@ -225,21 +428,38 @@ def phase_slice(dev) -> dict:
             if int(d.min()) < 0 or int(d.max()) >= nd:
                 raise AssertionError(f"{name} {key}: values outside [0, {nd})")
         disp = out["disparity"]
-        if not bool(torch.isfinite(disp).all()):
-            raise AssertionError(f"{name}: non-finite disparity")
-        ref = load_ref_disp(os.path.join(GOLDEN, f"{name}_wta.bin"))
-        n_diff = int((out["disp_left_raw"].cpu().numpy() != ref).sum())
+        if disp.shape != (h, w) or disp.dtype != torch.float32 or \
+                not bool(torch.isfinite(disp).all()):
+            raise AssertionError(f"{name}: disparity {disp.dtype}{tuple(disp.shape)}, "
+                                 "or not finite")
+        n_wta = int((out["disp_left_raw"].cpu().numpy()
+                     != load_ref_disp(os.path.join(GOLDEN, f"{name}_wta.bin"))).sum())
+        final = torch.round(disp).to(torch.int32).cpu().numpy()
+        if do_refine:
+            n_final = int((final != load_ref_disp(
+                os.path.join(GOLDEN, f"{name}_final.bin"))).sum())
+        else:
+            n_final = int((final != out["disp_left_raw"].cpu().numpy()).sum())
         bad1 = bad_pixel_rate(disp, torch.from_numpy(pair.gt),
                               torch.from_numpy(pair.masks["nonocc"]))
-        print(f"slice {name}: WTA differs from the reference binary at {n_diff} px "
-              f"(budget {budget}); bad-1.0 nonocc {bad1:.6f}")
-        if n_diff > budget:
-            raise AssertionError(f"{name}: WTA differs at {n_diff} px > {budget}")
+        what = "refined map differs from the reference binary's" if do_refine else \
+            "disparity differs from the WTA map"
+        print(f"slice {label} {name}: WTA differs from the reference binary at {n_wta} px "
+              f"(budget {budget}); {what} at {n_final} px (budget 0); "
+              f"bad-1.0 nonocc {bad1:.6f}")
+        if n_wta > budget or n_final:
+            raise AssertionError(f"{name}: WTA differs at {n_wta} px (budget {budget}), "
+                                 f"final at {n_final} px (budget 0)")
     return counts
 
 
+def phase_slice(dev) -> dict:
+    run_scenes(dev, do_refine=False)
+    return run_scenes(dev, do_refine=True)
+
+
 def frame_ms(pipe, left, right):
-    """Median and quartiles of host-clock ms per frame, each synchronised."""
+    """Quartiles of host-clock ms per frame, each synchronised."""
     pipe(left, right)
     torch.cuda.synchronize()
     times = []
@@ -251,26 +471,105 @@ def frame_ms(pipe, left, right):
     return np.percentile(times, [25, 50, 75])
 
 
+def refine_ms(cfg, out, left):
+    """Quartiles of host-clock ms of the refine chain alone on one frame's
+    WTA maps, each synchronised."""
+    left = left.to(torch.float32)
+    arms0 = arms_ops.build_arms(left, cfg)
+    times = []
+    for _ in range(FRAME_REPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refine(out["disp_left_raw"], out["disp_right_raw"], left, arms0, cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return np.percentile(times[1:], [25, 50, 75])
+
+
 def phase_timing(dev, card_line: str) -> None:
     pair = make_synthetic_pair(**TEDDY)
-    pipe = StereoPipeline(default_config(max_disp=TEDDY["max_disp"], do_refine=False),
-                          device=dev)
     left = torch.from_numpy(pair.left).to(dev)
     right = torch.from_numpy(pair.right).to(dev)
     mp_disp = TEDDY["h"] * TEDDY["w"] * (TEDDY["max_disp"] + 1) / 1e6
-    kernel_out = pipe(left, right)
-    with plain_path():
-        plain_out = pipe(left, right)
-    for key in ("disp_left_raw", "disp_right_raw"):
-        if not torch.equal(kernel_out[key], plain_out[key]):
-            raise AssertionError(f"kernel and plain paths disagree on {key}")
-    for label, ctx in (("plain", plain_path), ("kernel", contextlib.nullcontext),
-                       ("kernel", contextlib.nullcontext), ("plain", plain_path)):
+    cfg = default_config(max_disp=TEDDY["max_disp"])
+    out = StereoPipeline(cfg, device=dev)(left, right)
+    for path, ctx in (("plain", plain_path), ("kernel", contextlib.nullcontext),
+                      ("kernel", contextlib.nullcontext), ("plain", plain_path)):
         with ctx():
-            q1, med, q3 = frame_ms(pipe, left, right)
-        print(f"timing {label} path, Teddy 375x450 D=60, left+right: median {med:.3f} ms/frame "
-              f"(quartiles {q1:.3f}-{q3:.3f}, n={FRAME_REPS}), {mp_disp / med * 1e3:.3f} "
-              f"MP*disp/s [{card_line}]")
+            q1, med, q3 = refine_ms(cfg, out, left)
+        print(f"timing refine chain alone (LRC, region vote x2, proper interpolation x2, "
+              f"median), {path} path, Teddy: median {med:.3f} ms (quartiles {q1:.3f}-{q3:.3f}, "
+              f"n={FRAME_REPS}) [{card_line}]")
+    for do_refine in (True, False):
+        label = "default (refine on)" if do_refine else "do_refine=False"
+        pipe = StereoPipeline(default_config(max_disp=TEDDY["max_disp"], do_refine=do_refine),
+                              device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernel_out = pipe(left, right)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        with plain_path():
+            plain_out = pipe(left, right)
+        for key in ("disp_left_raw", "disp_right_raw", "disparity"):
+            if not torch.equal(kernel_out[key], plain_out[key]):
+                raise AssertionError(f"{label}: kernel and plain paths disagree on {key}")
+        print(f"timing {label}: peak device memory of a kernel-path frame "
+              f"{peak / 2**20:.1f} MiB [{card_line}]")
+        for path, ctx in (("plain", plain_path), ("kernel", contextlib.nullcontext),
+                          ("kernel", contextlib.nullcontext), ("plain", plain_path)):
+            with ctx():
+                q1, med, q3 = frame_ms(pipe, left, right)
+            print(f"timing {label}, {path} path, Teddy 375x450 D=60, left+right: median "
+                  f"{med:.3f} ms/frame (quartiles {q1:.3f}-{q3:.3f}, n={FRAME_REPS}), "
+                  f"{mp_disp / med * 1e3:.3f} MP*disp/s [{card_line}]")
+
+
+def phase_profile(dev, card_line: str) -> None:
+    """torch.profiler over frames of the full default configuration."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pair = make_synthetic_pair(**TEDDY)
+    left = torch.from_numpy(pair.left).to(dev)
+    right = torch.from_numpy(pair.right).to(dev)
+    pipe = StereoPipeline(default_config(max_disp=TEDDY["max_disp"]), device=dev)
+    for _ in range(3):
+        pipe(left, right)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_FRAMES):
+            pipe(left, right)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_FRAMES
+    events = list(prof.events())
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(1 for e in events if e.name in ("cudaLaunchKernel", "cuLaunchKernel"))
+    cpu_ms = sum(e.self_cpu_time_total for e in events
+                 if e.device_type == torch.autograd.DeviceType.CPU) / 1e3 / PROFILE_FRAMES
+    print(f"profile, default (refine on), Teddy, {PROFILE_FRAMES} frames after 3 warm-up: "
+          f"{wall_ms:.3f} ms/frame wall under the profiler, {launches / PROFILE_FRAMES:.1f} "
+          f"kernel launches/frame, {cpu_ms:.3f} ms/frame of host op time [{card_line}]")
+    if not device:
+        print("profile: no device events recorded; device time not measured")
+        return
+    per_kernel = collections.defaultdict(lambda: [0.0, 0])
+    for e in device:
+        per_kernel[e.name][0] += e.time_range.elapsed_us()
+        per_kernel[e.name][1] += 1
+    busy_ms = sum(v[0] for v in per_kernel.values()) / 1e3 / PROFILE_FRAMES
+    print(f"profile: {busy_ms:.3f} ms/frame of device kernel time, device idle share "
+          f"{1 - busy_ms / wall_ms:.3f}, {len(device) / PROFILE_FRAMES:.1f} device "
+          f"kernels/frame")
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+    for name, (us, n) in top:
+        print(f"profile:   {us / 1e3 / PROFILE_FRAMES:8.3f} ms/frame  {n / PROFILE_FRAMES:7.1f}"
+              f"/frame  {name[:110]}")
+    for kernel in KERNELS:
+        hits = [v for name, v in per_kernel.items() if f"{kernel}_kernel" in name]
+        us, n = sum(v[0] for v in hits), sum(v[1] for v in hits)
+        if n:
+            print(f"profile: kernel {kernel}: {us / 1e3 / PROFILE_FRAMES:.4f} ms/frame of device "
+                  f"time in {n / PROFILE_FRAMES:.1f} launches/frame ({us / n:.2f} us a launch)")
 
 
 def main() -> int:
@@ -281,9 +580,11 @@ def main() -> int:
     rows = phase_kernels(dev, card_line)
     counts = phase_slice(dev)
     phase_timing(dev, card_line)
+    phase_profile(dev, card_line)
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
                     launches=counts[name], **rows[name])
                for name, (src, tpu) in KERNELS.items()]
+    print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,10 @@ hand-written CUDA kernels for Hopper (``csrc/``). Module names mirror the
 JAX package's. This package imports torch and never jax; the JAX package
 is the reference it is tested against.
 
-Ported so far: the default preset's cost -> CBCA -> 4-path SGM -> WTA path
-(``default_config(do_refine=False)``).
+Ported so far: the default preset ``census_grad_cbca_sgm``
+(``default_config()``) end to end: censusGrad cost -> cross arms -> CBCA ->
+4-path SGM -> WTA -> LR check -> region vote -> proper interpolation ->
+3x3 median.
 """
 
 from mystereomatching_tpu_torch.config import MatchConfig, default_config

@@ -174,7 +174,7 @@ def get_model(name: str, max_disp: int = 59, **kw) -> MatchConfig:
     return MODEL_REGISTRY[name](max_disp=max_disp, **kw)
 
 
-def build(name: str, max_disp: int = 59, device="cpu", **kw):
+def build(name: str, max_disp: int = 59, device="cuda", **kw):
     """A pipeline on ``device`` for a named preset."""
     from mystereomatching_tpu_torch.pipeline import StereoPipeline
 

@@ -1,11 +1,12 @@
 """Cross-based support arms and arm-bounded 1-D sums.
 
 Counterpart of ``mystereomatching_tpu/ops/arms.py``: ``cross_arms`` /
-``build_arms`` in ``two_level`` mode, ``_border_floor``, ``intersect_arms``
-and the arm-bounded sums CBCA runs. Arm growth is CUDA kernel A
-(``csrc/arms_grow.cu``) and the arm-bounded sums are kernel B
-(``csrc/arm_taps.cu``); their plain torch versions sit beside the functions
-that dispatch to them.
+``build_arms`` in ``two_level`` mode, ``_border_floor``, ``intersect_arms``,
+the arm-bounded sums CBCA runs and the integer arm-bounded reductions region
+vote runs. Arm growth is CUDA kernel A (``csrc/arms_grow.cu``), the
+arm-bounded sums are kernel B (``csrc/arm_taps.cu``) and the integer
+reductions its integer mode (``csrc/arm_reduce.cu``); their plain torch
+versions sit beside the functions that dispatch to them.
 
 Arm rule (calHorVerDis cpp:3009-3024): the arm in direction a reaches
 length k iff for every j <= k, p + j a is inside the image,
@@ -172,3 +173,44 @@ def arm_bounded_sum_area(vol: torch.Tensor, an1: torch.Tensor, ap1: torch.Tensor
         return ck.arm_taps(vol, arm_neg, arm_pos, axis, max_arm, an1=an1, ap1=ap1)
     return arm_bounded_sum_area_plain(vol, an1, ap1, arm_neg, arm_pos, axis,
                                       max_arm)
+
+
+_IDENTITY = {"sum": 0, "min": torch.iinfo(torch.int32).max,
+             "max": torch.iinfo(torch.int32).min}
+_COMBINE = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
+
+
+def arm_bounded_reduce_plain(vol: torch.Tensor, arm_neg: torch.Tensor,
+                             arm_pos: torch.Tensor, axis: int, max_arm: int,
+                             op: str) -> torch.Tensor:
+    """Plain torch arm-bounded ``op`` ("sum", "min" or "max") of an int32
+    [C, H, W] volume over [x - arm_neg, x + arm_pos] along H (axis 1) or W
+    (axis 2); arms [H, W], shared by every channel, capped at ``max_arm``.
+
+    The ascending-offset taps of the JAX ``_arm_bounded_reduce_taps``:
+    padding and masked taps hold the op's identity (int32 max for min,
+    int32 min for max, 0 for sum).
+    """
+    ident = _IDENTITY[op]
+    combine = _COMBINE[op]
+    n = vol.shape[axis]
+    pad = [0, 0] * (vol.ndim - 1 - axis) + [max_arm, max_arm]
+    padded = F.pad(vol, pad, value=ident)
+    an, ap = arm_neg[None], arm_pos[None]
+    fill = torch.full((), ident, dtype=vol.dtype, device=vol.device)
+    out = torch.full_like(vol, ident)
+    for k in range(-max_arm, max_arm + 1):
+        shifted = padded.narrow(axis, k + max_arm, n)
+        out = combine(out, torch.where((k >= -an) & (k <= ap), shifted, fill))
+    return out
+
+
+def arm_bounded_reduce(vol: torch.Tensor, arm_neg: torch.Tensor,
+                       arm_pos: torch.Tensor, axis: int, max_arm: int,
+                       op: str = "sum") -> torch.Tensor:
+    """Arm-bounded ``op`` ("sum", "min" or "max") of an int32 [C, H, W]
+    volume along H (axis 1) or W (axis 2), with int32 [H, W] arms shared by
+    every channel (``arms.arm_bounded_reduce`` of the JAX package)."""
+    if ck.on_cuda(vol):
+        return ck.arm_reduce(vol, arm_neg, arm_pos, axis, max_arm, op)
+    return arm_bounded_reduce_plain(vol, arm_neg, arm_pos, axis, max_arm, op)

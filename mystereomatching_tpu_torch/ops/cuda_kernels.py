@@ -3,9 +3,10 @@
 Counterpart of ``mystereomatching_tpu/ops/pallas_kernels.py``. The sources
 are ``csrc/*.cu`` (CUDA C++ for ``sm_90a``, one file a kernel, each with a
 note on the TPU kernel it replaces). At first use they are compiled with
-``nvcc`` into one shared library with a plain C interface under
-``build/cuda/`` at the repository root, keyed by a hash of the sources
-and flags, and loaded with ctypes.
+``nvcc`` (one process a source, all started together, then one link)
+into one shared library with a plain C interface under ``build/cuda/`` at
+the repository root, keyed by a hash of the sources and flags, and loaded
+with ctypes.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates the
 output, launches on torch's current stream, raises if the launch failed,
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 from pathlib import Path
 from typing import Optional, Sequence
@@ -28,10 +30,14 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 # -fmad=false keeps a*b+c as two rounded operations, as torch computes it
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches of each kernel since the last reset_launches()
-launches = {"arms_grow": 0, "arm_taps": 0, "sgm_scan": 0, "wta": 0}
+launches = {"arms_grow": 0, "arm_taps": 0, "sgm_scan": 0, "wta": 0,
+            "arm_reduce": 0, "pi_scan": 0}
+# the kernels only the refine chain launches (none run with do_refine=False)
+REFINE_KERNELS = ("arm_reduce", "pi_scan")
+REDUCE_OPS = {"sum": 0, "min": 1, "max": 2}
 
 _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
@@ -42,6 +48,8 @@ _SIGNATURES = {
     "mysm_arm_taps": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mysm_sgm_scan": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "mysm_wta": [_P, _P, _I, _I, _I, _I, _P],
+    "mysm_arm_reduce": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mysm_pi_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -74,8 +82,10 @@ def library_path() -> Path:
 def build() -> str:
     """Compile the kernels unless a library of the same sources exists.
 
-    Returns nvcc's report (registers and spills per kernel) when it ran,
-    else "". Raises if nvcc is missing or fails."""
+    Each source is compiled by its own nvcc process, all started together,
+    and the objects are linked into one shared library. Returns nvcc's
+    report (registers and spills per kernel) when it ran, else "". Raises
+    if nvcc is missing or fails."""
     so = library_path()
     if so.exists():
         return ""
@@ -83,15 +93,26 @@ def build() -> str:
 
     if CUDA_HOME is None:
         raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [str(Path(CUDA_HOME) / "bin" / "nvcc"), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc")
+    tmp = BUILD_DIR / f"{so.stem}.{os.getpid()}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    objs = [tmp / f"{src.stem}.o" for src in _sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [f"{src.name} ({p.returncode}):\n{log}"
+              for src, p, log in zip(_sources(), procs, logs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    lib = tmp / so.name
+    res = subprocess.run([nvcc, "-shared", "-o", str(lib), *map(str, objs)],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
-    os.replace(tmp, so)
-    return res.stdout + res.stderr
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+    os.replace(lib, so)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return "".join(logs)
 
 
 def _load() -> ctypes.CDLL:
@@ -210,4 +231,52 @@ def wta(vol: torch.Tensor, choose_small: bool = True) -> torch.Tensor:
         out = torch.empty((h, w), dtype=torch.int32, device=vol.device)
         _launch("wta", lib.mysm_wta, vol.data_ptr(), out.data_ptr(), d, h, w,
                 int(bool(choose_small)))
+    return out
+
+
+def arm_reduce(vol: torch.Tensor, arm_neg: torch.Tensor, arm_pos: torch.Tensor,
+               axis: int, max_arm: int, op: str) -> torch.Tensor:
+    """Kernel B, integer mode. Arm-bounded ``op`` ("sum", "min" or "max")
+    of vol [C, H, W] int32 along H (axis 1) or W (axis 2), with int32 [H, W]
+    arms shared by every channel."""
+    if vol.ndim != 3 or axis not in (1, 2):
+        raise ValueError(f"arm_reduce: expected [C, H, W] and axis 1 or 2, got "
+                         f"{tuple(vol.shape)}, axis {axis}")
+    if op not in REDUCE_OPS:
+        raise ValueError(f"arm_reduce: op {op!r} not one of {sorted(REDUCE_OPS)}")
+    if max_arm < 0:
+        raise ValueError(f"arm_reduce: max_arm {max_arm} < 0")
+    _check(vol, "arm_reduce vol", torch.int32)
+    for a in (arm_neg, arm_pos):
+        _check(a, "arm_reduce arms", torch.int32, vol.shape[1:], vol.device)
+    lib = _load()
+    c, h, w = vol.shape
+    with torch.cuda.device(vol.device):
+        out = torch.empty_like(vol)
+        _launch("arm_reduce", lib.mysm_arm_reduce, vol.data_ptr(), arm_neg.data_ptr(),
+                arm_pos.data_ptr(), out.data_ptr(), c, h, w, int(axis == 2),
+                int(max_arm), REDUCE_OPS[op])
+    return out
+
+
+def pi_scan(disp: torch.Tensor, image: torch.Tensor, offsets: torch.Tensor,
+            disp_occ: int) -> torch.Tensor:
+    """Proper-interpolation kernel: one 16-direction nearest-valid fill of
+    disp [H, W] int32, with image [H, W, 3] float32 and offsets
+    [16, depth, 2] int32 (depth <= 256) -> a new int32 [H, W] map."""
+    if disp.ndim != 2:
+        raise ValueError(f"pi_scan: expected disp [H, W], got {tuple(disp.shape)}")
+    if offsets.ndim != 3 or offsets.shape[0] != 16 or offsets.shape[2] != 2 \
+            or not 1 <= offsets.shape[1] <= 256:
+        raise ValueError(f"pi_scan: expected offsets [16, depth <= 256, 2], got "
+                         f"{tuple(offsets.shape)}")
+    h, w = disp.shape
+    _check(disp, "pi_scan disp", torch.int32)
+    _check(image, "pi_scan image", torch.float32, (h, w, 3), disp.device)
+    _check(offsets, "pi_scan offsets", torch.int32, device=disp.device)
+    lib = _load()
+    with torch.cuda.device(disp.device):
+        out = torch.empty_like(disp)
+        _launch("pi_scan", lib.mysm_pi_scan, disp.data_ptr(), image.data_ptr(),
+                offsets.data_ptr(), out.data_ptr(), h, w, offsets.shape[1], int(disp_occ))
     return out

@@ -1,0 +1,158 @@
+"""Disparity refinement of the default preset: LR check, region vote,
+proper interpolation and the last median.
+
+Counterpart of the default chain's functions in
+``mystereomatching_tpu/ops/refine.py`` (refine() stereoMatching.cpp:1138-1511).
+Disparity maps are int32 [H, W]; the plain LR check marks a failure -1
+(cpp:2277) and the other sentinels are negative too (DISP_OCC -32, h:215-218).
+Region vote's arm-bounded reductions run kernel B's integer mode
+(``arms.arm_bounded_reduce``); proper interpolation runs the CUDA kernel
+``csrc/pi_scan.cu`` on a CUDA tensor and :func:`proper_interpolation_plain`
+on a CPU one.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from mystereomatching_tpu_torch.ops import cuda_kernels as ck
+from mystereomatching_tpu_torch.ops.arms import arm_bounded_reduce
+from mystereomatching_tpu_torch.ops.median import median_small
+
+_INT32_MAX = torch.iinfo(torch.int32).max
+
+
+def lr_consistency(d_left: torch.Tensor, d_right: torch.Tensor,
+                   max_diff: int = 0) -> torch.Tensor:
+    """Plain LRC (LRConsistencyCheck_normal cpp:2262-2282): -1 where d < 0,
+    u - d < 0 or |d_L(u) - d_R(u - d)| > max_diff.
+
+    A gather along W with the column clamped into the image. The JAX code's
+    rolls wrap around the row instead, but only where u - d < 0, which the
+    range test masks, so the maps are equal."""
+    w = d_left.shape[1]
+    u = torch.arange(w, dtype=d_left.dtype, device=d_left.device)[None, :]
+    x = u - d_left
+    dr = torch.gather(d_right, 1, x.clamp(0, w - 1).to(torch.int64))
+    ok = (d_left >= 0) & (x >= 0) & ((d_left - dr).abs() <= max_diff)
+    return torch.where(ok, d_left, torch.full_like(d_left, -1))
+
+
+def region_vote(disp: torch.Tensor, arms: torch.Tensor, num_disp: int,
+                s_thres: int = 20, h_ratio: float = 0.4,
+                int_ratio_quirk: bool = True, max_arm: int = 34) -> torch.Tensor:
+    """One region-vote pass (regionVote_my cpp:7219-7277) in its unanimity
+    form, the reference's integer-ratio quirk (cpp:7266): an invalid pixel
+    takes the disparity of its cross support when more than ``s_thres``
+    support pixels are valid and all of them agree.
+
+    The support is the anchor's vertical arms over rows whose horizontal
+    arms are each row's own, so the min, max (as min of -d) and valid count
+    run along W with the left/right arms, then along H with the up/down
+    arms. ``arms`` are the left image's raw [4, H, W] cross arms. The
+    histogram form (``int_ratio_quirk=False``) is not ported; ``num_disp``
+    and ``h_ratio`` only serve it.
+    """
+    if not int_ratio_quirk:
+        raise NotImplementedError("region vote's histogram form "
+                                  "(rv_int_ratio_quirk=False) is not ported yet")
+    valid = disp >= 0
+    big = torch.full_like(disp, _INT32_MAX)
+    mm = torch.stack([torch.where(valid, disp, big), torch.where(valid, -disp, big)])
+    left, right, up, down = arms.unbind(0)
+    mm = arm_bounded_reduce(mm, left, right, 2, max_arm, "min")
+    mm = arm_bounded_reduce(mm, up, down, 1, max_arm, "min")
+    count = arm_bounded_reduce(valid.to(torch.int32)[None], left, right, 2, max_arm, "sum")
+    count = arm_bounded_reduce(count, up, down, 1, max_arm, "sum")[0]
+    dmin, dmax = mm[0], -mm[1]
+    accept = ~valid & (count > s_thres) & (dmin == dmax) & (dmin != _INT32_MAX)
+    return torch.where(accept, dmin, disp)
+
+
+# the 16 ray directions of properIpol (cpp:7403-7404), as half steps
+_PI_DIR_W = (0, 2, 2, 2, 0, -2, -2, -2, 1, 2, 2, 1, -1, -2, -2, -1)
+_PI_DIR_H = (2, 2, 0, -2, -2, -2, 0, 2, 2, 1, -1, -2, -2, -1, 1, 2)
+
+
+def pi_offsets(search_depth: int) -> np.ndarray:
+    """[16, search_depth, 2] int32 cumulative (dv, du) per direction and
+    step, with the reference's C++ truncating half steps (cpp:7430-7441)."""
+    def cdiv2(x):  # C++ integer division truncates toward zero
+        return int(x / 2) if x >= 0 else -int(-x / 2)
+
+    offs = np.zeros((16, search_depth, 2), np.int32)
+    for k in range(16):
+        ph, pw = _PI_DIR_H[k], _PI_DIR_W[k]
+        v = u = 0
+        for dep in range(search_depth):
+            if dep % 2 == 0:
+                v += cdiv2(ph)
+                u += cdiv2(pw)
+            else:
+                v += ph - cdiv2(ph)
+                u += pw - cdiv2(pw)
+            offs[k, dep] = (v, u)
+    return offs
+
+
+def proper_interpolation_plain(disp: torch.Tensor, image: torch.Tensor,
+                               offsets: torch.Tensor,
+                               disp_occ: int = -32) -> torch.Tensor:
+    """Plain torch proper interpolation, the JAX XLA path's rules
+    (refine.py:515-566): along each ray the first valid tap and its
+    max-channel colour difference; DISP_OCC pixels take the smallest ray
+    disparity, other invalid pixels the first strict colour minimum among
+    rays with difference < 255. disp: int32 [H, W]; image: float32
+    [H, W, 3]; offsets: [16, depth, 2] from :func:`pi_offsets`."""
+    h, w = disp.shape
+    offs = offsets.tolist()
+    m = max(1, int(offsets.abs().max()))
+    img = image.permute(2, 0, 1)                                 # [3, H, W]
+    dpad = F.pad(disp, (m, m, m, m), value=-1)
+    cpad = F.pad(img, (m, m, m, m), value=1e9)
+    inf = torch.full((h, w), float("inf"), device=disp.device)
+    found_any = torch.zeros((h, w), dtype=torch.bool, device=disp.device)
+    occ_min = torch.full_like(disp, 10 ** 6)
+    best_cd = inf
+    best_d = torch.full_like(disp, -1)
+    any_mis = torch.zeros_like(found_any)
+    for ray in offs:
+        found = torch.zeros_like(found_any)
+        dsp = torch.full_like(disp, -1)
+        cdf = inf
+        for dv, du in ray:
+            nd = dpad[m + dv:m + dv + h, m + du:m + du + w]
+            nc = cpad[:, m + dv:m + dv + h, m + du:m + du + w]
+            hit = ~found & (nd >= 0)
+            dsp = torch.where(hit, nd, dsp)
+            cdf = torch.where(hit, (nc - img).abs().amax(0), cdf)
+            found = found | hit
+        found_any = found_any | found
+        occ_min = torch.minimum(occ_min, torch.where(found, dsp, torch.full_like(dsp, 10 ** 6)))
+        cd_eff = torch.where(found & (cdf < 255.0), cdf, inf)
+        upd = cd_eff < best_cd
+        best_d = torch.where(upd, dsp, best_d)
+        best_cd = torch.where(upd, cd_eff, best_cd)
+        any_mis = any_mis | torch.isfinite(cd_eff)
+    mis_fill = torch.where(any_mis, best_d, disp)
+    fill = torch.where(disp == disp_occ, torch.where(found_any, occ_min, disp), mis_fill)
+    return torch.where(disp < 0, fill, disp)
+
+
+def proper_interpolation(disp: torch.Tensor, image: torch.Tensor,
+                         search_depth: int = 20, disp_occ: int = -32) -> torch.Tensor:
+    """16-direction nearest-valid fill of the invalid pixels (properIpol
+    cpp:7395-7490) of an int32 [H, W] map, colours from the [H, W, 3] image."""
+    offsets = torch.from_numpy(pi_offsets(search_depth)).to(disp.device)
+    image = image.to(torch.float32).contiguous()
+    if ck.on_cuda(disp):
+        return ck.pi_scan(disp.contiguous(), image, offsets, disp_occ)
+    return proper_interpolation_plain(disp, image, offsets, disp_occ)
+
+
+def median_blur_disp(disp: torch.Tensor, ksize: int = 3) -> torch.Tensor:
+    """The last median blur (refine() cpp:1499); sentinels take part as
+    values, as cv::medianBlur on CV_16S."""
+    return median_small(disp, ksize)

@@ -1,14 +1,15 @@
-"""End-to-end stereo pipeline: cost -> CBCA -> SGM -> WTA.
+"""End-to-end stereo pipeline: cost -> CBCA -> SGM -> WTA -> refine.
 
 Counterpart of ``mystereomatching_tpu/pipeline.py`` for the stages ported
 so far: the default censusGrad cost, cross arms, CBCA, 4-path SGM and WTA
-on the left and right volumes, i.e. the preset ``census_grad_cbca_sgm``
-with ``do_refine=False``. A configuration that needs any other stage
-raises ``NotImplementedError`` naming it.
+on the left and right volumes, then the default refinement (LR check,
+region vote, proper interpolation, median), i.e. the preset
+``census_grad_cbca_sgm``, with or without ``do_refine``. A configuration
+that needs any other stage raises ``NotImplementedError`` naming it.
 
 PyTorch runs eagerly: :class:`StereoPipeline` only validates the
 configuration and moves the inputs to its device. On a CUDA device the
-four kernel-backed ops launch their CUDA kernels; on the CPU they run
+six kernel-backed ops launch their CUDA kernels; on the CPU they run
 their plain torch versions.
 """
 
@@ -23,6 +24,7 @@ from mystereomatching_tpu_torch.config import MatchConfig, as_port_config
 from mystereomatching_tpu_torch.ops import aggregation as agg_ops
 from mystereomatching_tpu_torch.ops import arms as arms_ops
 from mystereomatching_tpu_torch.ops import cost as cost_ops
+from mystereomatching_tpu_torch.ops import refine as refine_ops
 from mystereomatching_tpu_torch.ops import sgm as sgm_ops
 from mystereomatching_tpu_torch.ops import wta as wta_ops
 
@@ -37,8 +39,22 @@ def to_gray(img: torch.Tensor) -> torch.Tensor:
 
 def check_supported(cfg: MatchConfig) -> None:
     """Raise NotImplementedError for a stage this package does not run yet."""
+    refining = cfg.do_refine
     unported = [
-        (cfg.do_refine, "do_refine=True (LRC, region vote, proper interpolation, median)"),
+        (refining and cfg.lrc_classify, "lrc_classify"),
+        (refining and cfg.do_fill_surrounding, "do_fill_surrounding"),
+        (refining and cfg.do_pkr, "do_pkr"),
+        (refining and cfg.do_region_vote and cfg.rv_use_combine_bg, "rv_use_combine_bg"),
+        (refining and cfg.do_region_vote and not cfg.rv_use_combine_bg
+         and not cfg.rv_int_ratio_quirk, "rv_int_ratio_quirk=False (histogram region vote)"),
+        (refining and cfg.do_cbbi, "do_cbbi"),
+        (refining and cfg.do_bg_ipol, "do_bg_ipol"),
+        (refining and cfg.do_wm, "do_wm"),
+        (refining and cfg.do_da, "do_da"),
+        (refining and cfg.do_subpixel, "do_subpixel"),
+        (refining and cfg.do_rv_whole_image, "do_rv_whole_image"),
+        (refining and cfg.do_lr_consis and not cfg.compute_both_volumes,
+         "do_lr_consis with compute_both_volumes=False (cooperative WTA)"),
         (cfg.cost != "census_grad", f"cost {cfg.cost!r}"),
         (cfg.aggregation != "cbca", f"aggregation {cfg.aggregation!r}"),
         (cfg.cbca_double_win, "cbca_double_win"),
@@ -92,35 +108,61 @@ def optimize(vols, left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
     return dl, dr, vols[0]
 
 
+def refine(d_left: torch.Tensor, d_right, left: torch.Tensor, arms0: torch.Tensor,
+           cfg: MatchConfig) -> torch.Tensor:
+    """L4 (refine() cpp:1347-1511) for the stages ported: LR check, region
+    vote, proper interpolation and the last median, in the JAX package's
+    order, on the left map. arms0: the left image's [4, H, W] cross arms."""
+    d = d_left
+    if cfg.do_lr_consis and d_right is not None:
+        d = refine_ops.lr_consistency(d, d_right, cfg.lr_max_diff)
+    if cfg.do_region_vote:
+        for _ in range(cfg.region_vote_iters):
+            d = refine_ops.region_vote(d, arms0, cfg.num_disp, cfg.rv_s_thres,
+                                       cfg.rv_h_ratio, cfg.rv_int_ratio_quirk,
+                                       max_arm=cfg.arm_l_out)
+    if cfg.do_proper_ipol:
+        for _ in range(cfg.proper_ipol_iters):
+            d = refine_ops.proper_interpolation(d, left, cfg.pi_search_depth,
+                                                cfg.disp_occ)
+    if cfg.do_last_median:
+        d = refine_ops.median_blur_disp(d, cfg.median_kernel)
+    return d
+
+
 def match_pair(left: torch.Tensor, right: torch.Tensor,
                cfg: MatchConfig) -> Dict[str, torch.Tensor]:
     """The pipeline on [H, W, 3] RGB tensors (uint8 or float) on one device.
 
-    Returns 'disparity' (float32 [H, W]) and 'disp_left_raw' /
-    'disp_right_raw' (int32 WTA maps; the right one when the LR check is
-    on). Without refinement 'disparity' is the left WTA map.
+    Returns 'disparity' (float32 [H, W], negatives are sentinel codes) and
+    'disp_left_raw' / 'disp_right_raw' (int32 WTA maps before refinement;
+    the right one when the LR check is on). Without refinement
+    'disparity' is the left WTA map. ``sub_ipol`` is refused by
+    :func:`check_supported`, so its pass-through is the identity here.
     """
     cfg = as_port_config(cfg).validate()
     check_supported(cfg)
     left = left.to(torch.float32)
     right = right.to(torch.float32)
-    vols, _ = compute_volumes(left, right, cfg)
+    vols, arms_pair = compute_volumes(left, right, cfg)
     dl, dr, _ = optimize(vols, left, right, cfg)
     out = {"disp_left_raw": dl}
     if dr is not None:
         out["disp_right_raw"] = dr
-    out["disparity"] = dl.to(torch.float32)
+    d = refine(dl, dr, left, arms_pair[0], cfg) if cfg.do_refine else dl
+    out["disparity"] = d.to(torch.float32)
     return out
 
 
 class StereoPipeline:
     """The pipeline bound to one configuration and one device.
 
-    ``StereoPipeline(cfg, device="cuda")`` raises when CUDA is not
-    available; inputs (numpy arrays or tensors) are moved to the device.
+    It runs on the card (``device="cuda"``) unless the caller asks for
+    ``device="cpu"``, and raises when CUDA is not available; inputs (numpy
+    arrays or tensors) are moved to the device.
     """
 
-    def __init__(self, cfg: MatchConfig, device="cpu"):
+    def __init__(self, cfg: MatchConfig, device="cuda"):
         self.cfg = as_port_config(cfg).validate()
         check_supported(self.cfg)
         self.device = torch.device(device)

@@ -15,7 +15,7 @@ import torch
 
 import mystereomatching_tpu_torch as port
 from mystereomatching_tpu_torch.data import make_synthetic_pair
-from mystereomatching_tpu_torch.ops import arms, sgm, wta
+from mystereomatching_tpu_torch.ops import arms, refine, sgm, wta
 from mystereomatching_tpu_torch.ops import cuda_kernels as ck
 
 pytestmark = pytest.mark.cuda
@@ -78,12 +78,44 @@ def test_wta_kernel(cuda, choose_small):
     assert torch.equal(ck.wta(vol, choose_small), wta.wta_plain(vol, choose_small))
 
 
-def test_pipeline_on_cuda_equals_cpu(cuda):
+@pytest.mark.parametrize("shape", [(33, 41), (1, 1), (5, 70)])
+@pytest.mark.parametrize("axis", [1, 2])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_arm_reduce_kernel(cuda, shape, axis, op):
+    rng = np.random.default_rng(shape[0] + axis)
+    vol = _t(rng.integers(-1000, 1000, (2,) + shape).astype(np.int32), cuda)
+    an, ap = (_t(rng.integers(0, 40, shape).astype(np.int32), cuda) for _ in range(2))
+    assert torch.equal(ck.arm_reduce(vol, an, ap, axis, M, op),
+                       arms.arm_bounded_reduce_plain(vol, an, ap, axis, M, op))
+
+
+def _holed_map(rng, shape, holes):
+    d = rng.integers(0, 60, shape).astype(np.int32)
+    r = rng.random(shape)
+    return np.where(r < holes / 2, -1, np.where(r < holes, -32, d)).astype(np.int32)
+
+
+@pytest.mark.parametrize("depth", [1, 6, 20])
+@pytest.mark.parametrize("shape,holes", [((45, 70), 0.3), ((9, 50), 0.8), ((1, 1), 1.0),
+                                         ((30, 30), 1.0)])
+def test_pi_scan_kernel(cuda, depth, shape, holes):
+    rng = np.random.default_rng(depth + shape[0])
+    disp = _holed_map(rng, shape, holes)     # holes=1.0: no valid pixel within reach
+    img = rng.integers(0, 256, shape + (3,)).astype(np.float32)
+    offs = _t(refine.pi_offsets(depth), cuda)
+    d, im = _t(disp, cuda), _t(img, cuda)
+    assert torch.equal(ck.pi_scan(d, im, offs, -32),
+                       refine.proper_interpolation_plain(d, im, offs, -32))
+
+
+@pytest.mark.parametrize("do_refine", [False, True])
+def test_pipeline_on_cuda_equals_cpu(cuda, do_refine):
     pair = make_synthetic_pair(h=64, w=96, max_disp=11, seed=3, noise_sigma=0.5)
-    cfg = port.default_config(max_disp=pair.max_disp, do_refine=False)
+    cfg = port.default_config(max_disp=pair.max_disp, do_refine=do_refine)
     ck.reset_launches()
     gpu = port.StereoPipeline(cfg, device=cuda)(pair.left, pair.right)
-    assert all(n > 0 for n in ck.launches.values()), ck.launches
-    cpu = port.StereoPipeline(cfg)(pair.left, pair.right)
-    for key in ("disp_left_raw", "disp_right_raw"):
+    assert all((n > 0) == (do_refine or k not in ck.REFINE_KERNELS)
+               for k, n in ck.launches.items()), ck.launches
+    cpu = port.StereoPipeline(cfg, device="cpu")(pair.left, pair.right)
+    for key in ("disp_left_raw", "disp_right_raw", "disparity"):
         assert torch.equal(gpu[key].cpu(), cpu[key])

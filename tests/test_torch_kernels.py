@@ -150,6 +150,11 @@ def test_other_devices_are_refused():
                         torch.zeros((2, 4, 5), dtype=torch.int8), 2, M),
     lambda: ck.sgm_scan(torch.zeros((1, 2, 4, 5)), torch.ones((1, 4, 5)), 1.0, 3.0, 2, False),
     lambda: ck.wta(torch.zeros((2, 4, 5))),
+    lambda: ck.arm_reduce(torch.zeros((2, 4, 5), dtype=torch.int32),
+                          torch.zeros((4, 5), dtype=torch.int32),
+                          torch.zeros((4, 5), dtype=torch.int32), 2, M, "min"),
+    lambda: ck.pi_scan(torch.zeros((4, 5), dtype=torch.int32), torch.zeros((4, 5, 3)),
+                       torch.zeros((16, 20, 2), dtype=torch.int32), -32),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError):

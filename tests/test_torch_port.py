@@ -1,15 +1,19 @@
 """The torch port as a whole: import, configuration, presets, the slice.
 
-The slice is the default preset with ``do_refine=False``: censusGrad cost
--> cross arms -> CBCA (2 iterations) -> 4-path SGM -> WTA on the left and
-right volumes. On the CPU every kernel-backed op runs its plain torch
-version. Tolerances: none — every WTA map here must match exactly.
+The slice compared with the JAX pipeline here is the default preset with
+``do_refine=False``: censusGrad cost -> cross arms -> CBCA (2 iterations)
+-> 4-path SGM -> WTA on the left and right volumes (the refine chain is
+held against JAX in tests/test_torch_refine.py). On the CPU every
+kernel-backed op runs its plain torch version. Tolerances: none — every
+WTA map here must match exactly.
 """
 
 import dataclasses
 import os
+import shutil
 import subprocess
 import sys
+import textwrap
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +42,8 @@ MODULES = [
     "mystereomatching_tpu_torch.ops.census",
     "mystereomatching_tpu_torch.ops.cost",
     "mystereomatching_tpu_torch.ops.cuda_kernels",
+    "mystereomatching_tpu_torch.ops.median",
+    "mystereomatching_tpu_torch.ops.refine",
     "mystereomatching_tpu_torch.ops.sgm",
     "mystereomatching_tpu_torch.ops.volume",
     "mystereomatching_tpu_torch.ops.wta",
@@ -63,10 +69,37 @@ def test_port_imports_without_jax():
     assert res.returncode == 0, res.stderr
 
 
+def test_port_runs_from_a_copy_of_its_package_alone(tmp_path):
+    """The package needs no file of the JAX package: a copy of it alone
+    imports, builds its configuration and scenes, and runs the CPU pipeline."""
+    shutil.copytree(os.path.join(ROOT, "mystereomatching_tpu_torch"),
+                    tmp_path / "mystereomatching_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    code = textwrap.dedent("""
+        import sys
+        import mystereomatching_tpu_torch as port
+        from mystereomatching_tpu_torch.data import make_synthetic_pair
+        assert port.__file__.startswith(sys.argv[1]), port.__file__
+        pair = make_synthetic_pair(h=16, w=24, max_disp=3, seed=1)
+        out = port.StereoPipeline(port.default_config(max_disp=3), device="cpu")(
+            pair.left, pair.right)
+        assert tuple(out["disparity"].shape) == (16, 24)
+        assert not any(m.startswith(("jax", "mystereomatching_tpu.")) for m in sys.modules)
+    """)
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=tmp_path,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_default_config_equals_jax():
     ours = dataclasses.asdict(port.default_config(max_disp=23, do_refine=False))
     ref = dataclasses.asdict(jax_config.default_config(max_disp=23, do_refine=False))
     assert ours == ref
+    assert dataclasses.asdict(port.default_config()) == dataclasses.asdict(
+        jax_config.default_config())
+    assert dataclasses.asdict(port.config.fast_config()) == dataclasses.asdict(
+        jax_config.fast_config())
 
 
 def test_as_port_config_converts_jax_instance():
@@ -85,7 +118,14 @@ def test_preset_equals_jax(name):
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(do_refine=True), dict(aggregation="bf"), dict(cost="census"),
+    dict(do_refine=True, lrc_classify=True), dict(do_refine=True, do_fill_surrounding=True),
+    dict(do_refine=True, do_pkr=True), dict(do_refine=True, rv_use_combine_bg=True),
+    dict(do_refine=True, rv_int_ratio_quirk=False), dict(do_refine=True, do_cbbi=True),
+    dict(do_refine=True, do_bg_ipol=True), dict(do_refine=True, do_wm=True),
+    dict(do_refine=True, do_da=True), dict(do_refine=True, do_subpixel=True),
+    dict(do_refine=True, do_rv_whole_image=True),
+    dict(do_refine=True, compute_both_volumes=False),
+    dict(aggregation="bf"), dict(cost="census"),
     dict(optimization="so"), dict(optimization="wta"), dict(do_vmtop=True),
     dict(d_stream_block=4), dict(sub_ipol=True), dict(uniq_check=True), dict(sgm_scan_num=8),
     dict(cbca_arm_mode="multilevel"), dict(vol_dtype="bfloat16"),
@@ -93,23 +133,35 @@ def test_preset_equals_jax(name):
 def test_unported_stage_raises(overrides):
     cfg = port.default_config(max_disp=7, **{"do_refine": False, **overrides})
     with pytest.raises(NotImplementedError):
-        port.StereoPipeline(cfg)(np.zeros((8, 12, 3), np.uint8), np.zeros((8, 12, 3), np.uint8))
+        port.StereoPipeline(cfg, device="cpu")(np.zeros((8, 12, 3), np.uint8),
+                                               np.zeros((8, 12, 3), np.uint8))
 
 
 def test_cuda_pipeline_without_cuda_raises(monkeypatch):
+    """The card is the default device: without CUDA the pipeline raises
+    unless the caller asks for the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in (dict(device="cuda"), {}):
+        with pytest.raises(RuntimeError):
+            port.StereoPipeline(port.default_config(do_refine=False), **kw)
     with pytest.raises(RuntimeError):
-        port.StereoPipeline(port.default_config(do_refine=False), device="cuda")
+        port_presets.build("census_grad_cbca_sgm", max_disp=7)
 
 
 def test_synthetic_pair_is_the_jax_one():
-    from mystereomatching_tpu.data import make_synthetic_pair
+    from mystereomatching_tpu.data import make_adversarial_pair, make_synthetic_pair
 
-    a = port_data.make_synthetic_pair(h=32, w=40, max_disp=7, seed=5)
-    b = make_synthetic_pair(h=32, w=40, max_disp=7, seed=5)
-    np.testing.assert_array_equal(a.left, b.left)
-    np.testing.assert_array_equal(a.right, b.right)
-    np.testing.assert_array_equal(a.gt, b.gt)
+    for ours, ref, kw in ((port_data.make_synthetic_pair, make_synthetic_pair,
+                           dict(h=32, w=40, max_disp=7, seed=5)),
+                          (port_data.make_adversarial_pair, make_adversarial_pair,
+                           dict(h=40, w=56, max_disp=11, seed=2))):
+        a, b = ours(**kw), ref(**kw)
+        np.testing.assert_array_equal(a.left, b.left)
+        np.testing.assert_array_equal(a.right, b.right)
+        np.testing.assert_array_equal(a.gt, b.gt)
+        assert sorted(a.masks) == sorted(b.masks)
+        for k in a.masks:
+            np.testing.assert_array_equal(a.masks[k], b.masks[k])
 
 
 @pytest.fixture(scope="module")
@@ -119,7 +171,8 @@ def slice_outputs(small_pair):
     fn = jax.jit(lambda l, r: jax_pipeline.match_pair(l, r, jcfg))
     ref = {k: np.asarray(v) for k, v in
            fn(jnp.asarray(small_pair.left), jnp.asarray(small_pair.right)).items()}
-    ours = port.StereoPipeline(as_port_config(jcfg))(small_pair.left, small_pair.right)
+    ours = port.StereoPipeline(as_port_config(jcfg), device="cpu")(small_pair.left,
+                                                                  small_pair.right)
     return ref, {k: v.numpy() for k, v in ours.items()}
 
 
