@@ -11,10 +11,11 @@ Phases, each of which raises (exit code 1) on failure:
 2. build: compile the CUDA kernels from ``mystereomatching_tpu_torch/csrc``
    (one nvcc a source, all started together);
 3. kernels: each kernel against its plain torch version on the card, on
-   the inputs the main path gives it for a Teddy-sized pair (375x450,
+   the inputs the default preset gives it for a Teddy-sized pair (375x450,
    D=60), with its device time (torch.profiler), its time between CUDA
-   events around the wrapper, its plain version's and its bound; then kernel B
-   on a [32, 1988, 2880] volume and the proper-interpolation kernel on a
+   events around the wrapper, its plain version's and its bound (kernel E,
+   ``sgm_diag``, on the same CBCA volumes); then kernel B on a
+   [32, 1988, 2880] volume and the proper-interpolation kernel on a
    1988x2880 map (full resolution). Every kernel must equal its plain
    version exactly (``torch.equal``);
 4. slice: ``StereoPipeline(default_config(do_refine=False), "cuda")`` and
@@ -24,14 +25,23 @@ Phases, each of which raises (exit code 1) on failure:
    (tests/golden/*_wta.bin) within the JAX package's budgets (0, 0, 2 px),
    the refined map (tests/golden/*_final.bin) at 0 px on every scene, and
    every kernel of each path must have launched;
-5. timing: ms/frame and MP*disp/s of the kernel path and of the same
+5. sgm8_full: the preset ``get_model("sgm8_full", max_disp=127)`` on a
+   750x1000 pair (Middlebury half resolution, D=128, left and right
+   volumes). Kernel E against its plain version on the frame's own CBCA
+   volumes [2, 128, 750, 1000]; one frame with the launch counts set to 0
+   just before it, in which all seven kernels must launch (``sgm_diag``
+   4 times) and whose three maps must equal the plain path's; its bad-1.0
+   rate; kernel and plain frame times, peak device memory, and a profile;
+6. timing: ms/frame and MP*disp/s of the kernel path and of the same
    pipeline with every kernel replaced by its plain torch version, for the
    full default configuration and for ``do_refine=False``, in alternating
    rounds; the refine chain alone, kernel and plain; and the peak device
    memory of a frame;
-6. profile: ``torch.profiler`` over frames of the full default
+7. profile: ``torch.profiler`` over frames of the full default
    configuration: device time, idle share, launches per frame, the largest
    device kernels and each hand kernel's device time a launch.
+
+Each phase prints its seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -53,6 +63,7 @@ import torch
 
 from mystereomatching_tpu_torch import StereoPipeline, default_config
 from mystereomatching_tpu_torch.data import make_synthetic_pair
+from mystereomatching_tpu_torch.models import get_model
 from mystereomatching_tpu_torch.ops import aggregation as agg_ops
 from mystereomatching_tpu_torch.ops import arms as arms_ops
 from mystereomatching_tpu_torch.ops import cost as cost_ops
@@ -60,12 +71,14 @@ from mystereomatching_tpu_torch.ops import cuda_kernels as ck
 from mystereomatching_tpu_torch.ops import refine as refine_ops
 from mystereomatching_tpu_torch.ops import sgm as sgm_ops
 from mystereomatching_tpu_torch.ops import wta as wta_ops
-from mystereomatching_tpu_torch.pipeline import refine, to_gray
+from mystereomatching_tpu_torch.pipeline import (compute_volumes, kernels_launched, refine,
+                                                  to_gray)
 from mystereomatching_tpu_torch.utils.metrics import bad_pixel_rate
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 TEDDY = dict(h=375, w=450, max_disp=59, seed=0)
+SGM8 = dict(h=750, w=1000, max_disp=127, seed=0)  # Middlebury half resolution, D=128
 FULLRES = (1988, 2880)  # the fullres_occfill shape (H, W)
 # scene -> (make_synthetic_pair arguments, WTA px budget of the JAX golden test)
 SCENES = {
@@ -86,9 +99,14 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                    "mystereomatching_tpu/ops/pallas_kernels.py:67"),
     "pi_scan": ("mystereomatching_tpu_torch/csrc/pi_scan.cu",
                 "mystereomatching_tpu/ops/pallas_kernels.py:483"),
+    "sgm_diag": ("mystereomatching_tpu_torch/csrc/sgm_diag.cu",
+                 "mystereomatching_tpu/ops/pallas_kernels.py:938"),
 }
+DIAGONALS = sgm_ops.DIRECTIONS_8[4:]
 FRAME_REPS = 10
 PROFILE_FRAMES = 5
+SGM8_REPS = 5
+SGM8_PROFILE_FRAMES = 3
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and float32
 # operations/s outside the tensor cores, against which integer and compare
 # operations are counted too.
@@ -209,6 +227,27 @@ def phase_build() -> None:
             print(f"  nvcc: {line.strip()}")
 
 
+def pair_scales(left, right, cfg, dirs) -> dict:
+    """Direction -> the left and right images' [2, H, W] SGM penalty scales."""
+    return {d: torch.stack([sgm_ops.penalty_scale(img, *d, cfg.sgm_cor_dif_thres,
+                                                  cfg.sgm_redu_coeff)
+                            for img in (left, right)]).contiguous()
+            for d in dirs}
+
+
+def sgm_diag_case(vols, pscales, cfg):
+    """Kernel E over the four diagonals of the [G, D, H, W] volumes as
+    (kernel, plain, bytes, operations): each direction reads the volumes
+    and the scales once and writes its path costs once; 7 operations an
+    element (kernel C's count)."""
+    def run(fn):
+        return torch.stack([fn(vols, pscales[d], cfg.sgm_p1_eff, cfg.sgm_p2_eff, *d)
+                            for d in DIAGONALS])
+
+    return (lambda: run(ck.sgm_diag_scan), lambda: run(sgm_ops.sgm_diag_scan_plain),
+            4 * (vols.numel() * 8 + vols[:, 0].numel() * 4), 4 * 7 * vols.numel())
+
+
 def teddy_inputs(dev) -> dict:
     """The inputs the main path gives each kernel for the Teddy-sized pair,
     computed on the plain path."""
@@ -227,10 +266,7 @@ def teddy_inputs(dev) -> dict:
             arms_int.append(ai)
             agg.append(agg_ops.cbca(vol, ai, cfg.cbca_iterations, cfg.arm_l_out))
         vols = torch.stack(agg).contiguous()
-        pscales = {d: torch.stack([sgm_ops.penalty_scale(img, *d, cfg.sgm_cor_dif_thres,
-                                                         cfg.sgm_redu_coeff)
-                                   for img in (left, right)]).contiguous()
-                   for d in sgm_ops.DIRECTIONS_8[:4]}
+        pscales = pair_scales(left, right, cfg, sgm_ops.DIRECTIONS_8)
         sgm_vols = sgm_ops.sgm_multi(agg, [left, right], 4, cfg.sgm_p1_eff, cfg.sgm_p2_eff,
                                      cfg.sgm_cor_dif_thres, cfg.sgm_redu_coeff)
         dl, dr = (wta_ops.wta_plain(v) for v in sgm_vols)
@@ -369,6 +405,8 @@ def phase_kernels(dev, card_line: str) -> dict:
         "pi_scan": ("one proper-interpolation iteration on the region-voted map, depth "
                     f"{cfg.pi_search_depth}",
                     pi_case(t["rv"], left, cfg.pi_search_depth, cfg.disp_occ), None),
+        "sgm_diag": ("4 diagonals over the left+right pair [2,60,375,450]",
+                     sgm_diag_case(vols, t["pscales"], cfg), None),
     }
     rows = {name: run_case(name, what, case, card_line, library)
             for name, (what, case, library) in cases.items()}
@@ -398,40 +436,54 @@ def phase_kernels(dev, card_line: str) -> dict:
     return rows
 
 
+def check_launches(label: str, counts: dict, cfg) -> None:
+    """Every kernel of ``cfg``'s path must have launched."""
+    print(f"launches on the main path, {label}: {json.dumps(counts)}")
+    missing = [k for k in kernels_launched(cfg) if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched on the main path: {missing}")
+
+
+def check_maps(name: str, out: dict, cfg, shape, dev) -> None:
+    """A frame's maps: the raw ones int32 in [0, D) (the left one also
+    DISP_INV where the uniqueness check is on), the disparity finite
+    float32, all of ``shape`` on ``dev``."""
+    for key in ("disp_left_raw", "disp_right_raw"):
+        d = out[key]
+        if d.shape != shape or d.dtype != torch.int32 or d.device != dev:
+            raise AssertionError(f"{name} {key}: {d.dtype}{tuple(d.shape)} on {d.device}")
+        ok = (d >= 0) & (d < cfg.num_disp)
+        if key == "disp_left_raw" and cfg.uniq_check:
+            ok |= d == cfg.disp_inv
+        if not bool(ok.all()):
+            raise AssertionError(f"{name} {key}: values outside [0, {cfg.num_disp})")
+    disp = out["disparity"]
+    if disp.shape != shape or disp.dtype != torch.float32 or \
+            not bool(torch.isfinite(disp).all()):
+        raise AssertionError(f"{name}: disparity {disp.dtype}{tuple(disp.shape)}, "
+                             "or not finite")
+
+
 def run_scenes(dev, do_refine: bool):
     """The golden scenes through StereoPipeline, with the launch counts set
     to 0 just before and read just after."""
     pairs = {name: make_synthetic_pair(name=name, **params)
              for name, (params, _) in SCENES.items()}
-    pipes = {name: StereoPipeline(default_config(max_disp=params["max_disp"],
-                                                 do_refine=do_refine), device=dev)
-             for name, (params, _) in SCENES.items()}
+    cfgs = {name: default_config(max_disp=params["max_disp"], do_refine=do_refine)
+            for name, (params, _) in SCENES.items()}
+    pipes = {name: StereoPipeline(cfg, device=dev) for name, cfg in cfgs.items()}
     torch.cuda.synchronize()
     ck.reset_launches()
     outs = {name: pipes[name](pair.left, pair.right) for name, pair in pairs.items()}
     torch.cuda.synchronize()
     counts = dict(ck.launches)
     label = "default (refine on)" if do_refine else "do_refine=False"
-    print(f"launches on the main path, {label}: {json.dumps(counts)}")
-    expected = [k for k in counts if do_refine or k not in ck.REFINE_KERNELS]
-    missing = [k for k in expected if counts[k] == 0]
-    if missing:
-        raise AssertionError(f"{label}: kernels never launched on the main path: {missing}")
+    check_launches(label, counts, cfgs["small_scale"])
     for name, pair in pairs.items():
         params, budget = SCENES[name]
         out = outs[name]
-        h, w, nd = params["h"], params["w"], params["max_disp"] + 1
-        for key in ("disp_left_raw", "disp_right_raw"):
-            d = out[key]
-            if d.shape != (h, w) or d.dtype != torch.int32 or d.device != dev:
-                raise AssertionError(f"{name} {key}: {d.dtype}{tuple(d.shape)} on {d.device}")
-            if int(d.min()) < 0 or int(d.max()) >= nd:
-                raise AssertionError(f"{name} {key}: values outside [0, {nd})")
+        check_maps(name, out, cfgs[name], (params["h"], params["w"]), dev)
         disp = out["disparity"]
-        if disp.shape != (h, w) or disp.dtype != torch.float32 or \
-                not bool(torch.isfinite(disp).all()):
-            raise AssertionError(f"{name}: disparity {disp.dtype}{tuple(disp.shape)}, "
-                                 "or not finite")
         n_wta = int((out["disp_left_raw"].cpu().numpy()
                      != load_ref_disp(os.path.join(GOLDEN, f"{name}_wta.bin"))).sum())
         final = torch.round(disp).to(torch.int32).cpu().numpy()
@@ -458,12 +510,13 @@ def phase_slice(dev) -> dict:
     return run_scenes(dev, do_refine=True)
 
 
-def frame_ms(pipe, left, right):
-    """Quartiles of host-clock ms per frame, each synchronised."""
+def frame_ms(pipe, left, right, reps: int = FRAME_REPS):
+    """Quartiles of host-clock ms per frame, each synchronised, after a
+    warm-up frame."""
     pipe(left, right)
     torch.cuda.synchronize()
     times = []
-    for _ in range(FRAME_REPS):
+    for _ in range(reps):
         t0 = time.perf_counter()
         pipe(left, right)
         torch.cuda.synchronize()
@@ -480,7 +533,7 @@ def refine_ms(cfg, out, left):
     for _ in range(FRAME_REPS + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        refine(out["disp_left_raw"], out["disp_right_raw"], left, arms0, cfg)
+        refine(out["disp_left_raw"], out["disp_right_raw"], None, left, arms0, cfg)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return np.percentile(times[1:], [25, 50, 75])
@@ -524,30 +577,29 @@ def phase_timing(dev, card_line: str) -> None:
                   f"{mp_disp / med * 1e3:.3f} MP*disp/s [{card_line}]")
 
 
-def phase_profile(dev, card_line: str) -> None:
-    """torch.profiler over frames of the full default configuration."""
+def profile_frames(pipe, left, right, label: str, card_line: str, frames: int,
+                   warm_up: int) -> None:
+    """torch.profiler over ``frames`` frames of ``pipe`` after ``warm_up``
+    frames: wall and device time, idle share, launches, the largest device
+    kernels and each hand kernel's device time a launch."""
     from torch.profiler import ProfilerActivity, profile
 
-    pair = make_synthetic_pair(**TEDDY)
-    left = torch.from_numpy(pair.left).to(dev)
-    right = torch.from_numpy(pair.right).to(dev)
-    pipe = StereoPipeline(default_config(max_disp=TEDDY["max_disp"]), device=dev)
-    for _ in range(3):
+    for _ in range(warm_up):
         pipe(left, right)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_FRAMES):
+        for _ in range(frames):
             pipe(left, right)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_FRAMES
+        wall_ms = (time.perf_counter() - t0) * 1e3 / frames
     events = list(prof.events())
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     launches = sum(1 for e in events if e.name in ("cudaLaunchKernel", "cuLaunchKernel"))
     cpu_ms = sum(e.self_cpu_time_total for e in events
-                 if e.device_type == torch.autograd.DeviceType.CPU) / 1e3 / PROFILE_FRAMES
-    print(f"profile, default (refine on), Teddy, {PROFILE_FRAMES} frames after 3 warm-up: "
-          f"{wall_ms:.3f} ms/frame wall under the profiler, {launches / PROFILE_FRAMES:.1f} "
+                 if e.device_type == torch.autograd.DeviceType.CPU) / 1e3 / frames
+    print(f"profile, {label}, {frames} frames after {warm_up} warm-up: "
+          f"{wall_ms:.3f} ms/frame wall under the profiler, {launches / frames:.1f} "
           f"kernel launches/frame, {cpu_ms:.3f} ms/frame of host op time [{card_line}]")
     if not device:
         print("profile: no device events recorded; device time not measured")
@@ -556,31 +608,108 @@ def phase_profile(dev, card_line: str) -> None:
     for e in device:
         per_kernel[e.name][0] += e.time_range.elapsed_us()
         per_kernel[e.name][1] += 1
-    busy_ms = sum(v[0] for v in per_kernel.values()) / 1e3 / PROFILE_FRAMES
+    busy_ms = sum(v[0] for v in per_kernel.values()) / 1e3 / frames
     print(f"profile: {busy_ms:.3f} ms/frame of device kernel time, device idle share "
-          f"{1 - busy_ms / wall_ms:.3f}, {len(device) / PROFILE_FRAMES:.1f} device "
+          f"{1 - busy_ms / wall_ms:.3f}, {len(device) / frames:.1f} device "
           f"kernels/frame")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (us, n) in top:
-        print(f"profile:   {us / 1e3 / PROFILE_FRAMES:8.3f} ms/frame  {n / PROFILE_FRAMES:7.1f}"
+        print(f"profile:   {us / 1e3 / frames:8.3f} ms/frame  {n / frames:7.1f}"
               f"/frame  {name[:110]}")
     for kernel in KERNELS:
         hits = [v for name, v in per_kernel.items() if f"{kernel}_kernel" in name]
         us, n = sum(v[0] for v in hits), sum(v[1] for v in hits)
         if n:
-            print(f"profile: kernel {kernel}: {us / 1e3 / PROFILE_FRAMES:.4f} ms/frame of device "
-                  f"time in {n / PROFILE_FRAMES:.1f} launches/frame ({us / n:.2f} us a launch)")
+            print(f"profile: kernel {kernel}: {us / 1e3 / frames:.4f} ms/frame of device "
+                  f"time in {n / frames:.1f} launches/frame ({us / n:.2f} us a launch)")
+
+
+def phase_profile(dev, card_line: str) -> None:
+    """torch.profiler over frames of the full default configuration."""
+    pair = make_synthetic_pair(**TEDDY)
+    left = torch.from_numpy(pair.left).to(dev)
+    right = torch.from_numpy(pair.right).to(dev)
+    pipe = StereoPipeline(default_config(max_disp=TEDDY["max_disp"]), device=dev)
+    profile_frames(pipe, left, right, "default (refine on), Teddy", card_line,
+                   PROFILE_FRAMES, warm_up=3)
+
+
+def phase_sgm8(dev, card_line: str):
+    """The sgm8_full preset at 750x1000, D=128. Returns kernel E's row
+    (on the frame's own CBCA volumes) and the frame's launch counts."""
+    pair = make_synthetic_pair(**SGM8)
+    left = torch.from_numpy(pair.left).to(dev)
+    right = torch.from_numpy(pair.right).to(dev)
+    cfg = get_model("sgm8_full", max_disp=SGM8["max_disp"])
+    shape = (SGM8["h"], SGM8["w"])
+    label = f"sgm8_full {shape[0]}x{shape[1]} D={cfg.num_disp}"
+
+    lf, rf = left.to(torch.float32), right.to(torch.float32)
+    vols, _ = compute_volumes(lf, rf, cfg)
+    vols = torch.stack([vols[0], vols[1]]).contiguous()
+    row = run_case("sgm_diag", f"{label}: 4 diagonals over the frame's CBCA volumes "
+                   f"{list(vols.shape)}", sgm_diag_case(vols, pair_scales(lf, rf, cfg, DIAGONALS),
+                                                        cfg), card_line)
+    del vols
+
+    pipe = StereoPipeline(cfg, device=dev)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    out = pipe(left, right)
+    torch.cuda.synchronize()
+    counts = dict(ck.launches)
+    check_launches(label, counts, cfg)
+    if counts["sgm_diag"] != 4:
+        raise AssertionError(f"{label}: sgm_diag launched {counts['sgm_diag']} times, not 4")
+    check_maps(label, out, cfg, shape, dev)
+    with plain_path():
+        plain_out = pipe(left, right)
+    for key in ("disp_left_raw", "disp_right_raw", "disparity"):
+        if not torch.equal(out[key], plain_out[key]):
+            raise AssertionError(f"{label}: kernel and plain paths disagree on {key}")
+    del plain_out
+    bad1 = bad_pixel_rate(out["disparity"], torch.from_numpy(pair.gt).to(dev),
+                          torch.from_numpy(pair.masks["nonocc"]).to(dev))
+    n_inv = int((out["disp_left_raw"] == cfg.disp_inv).sum())
+    print(f"{label}: kernel path equal to plain path on the three maps; {n_inv} px fail the "
+          f"uniqueness check; bad-1.0 nonocc {bad1:.6f}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    pipe(left, right)
+    torch.cuda.synchronize()
+    print(f"timing {label}: peak device memory of a kernel-path frame "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB [{card_line}]")
+    mp_disp = shape[0] * shape[1] * cfg.num_disp / 1e6
+    for path, ctx, reps in (("plain", plain_path, 1), ("kernel", contextlib.nullcontext, SGM8_REPS),
+                            ("kernel", contextlib.nullcontext, SGM8_REPS),
+                            ("plain", plain_path, 1)):
+        with ctx():
+            q1, med, q3 = frame_ms(pipe, left, right, reps)
+        print(f"timing {label}, {path} path, left+right: median {med:.3f} ms/frame (quartiles "
+              f"{q1:.3f}-{q3:.3f}, n={reps}), {mp_disp / med * 1e3:.3f} MP*disp/s [{card_line}]")
+    profile_frames(pipe, left, right, label, card_line, SGM8_PROFILE_FRAMES, warm_up=1)
+    return row, counts
+
+
+def timed(phase, *args):
+    t0 = time.perf_counter()
+    result = phase(*args)
+    print(f"{phase.__name__}: {time.perf_counter() - t0:.3f} s")
+    return result
 
 
 def main() -> int:
     card_line = card() if torch.cuda.is_available() else "no card"
     phase_environment(card_line)
     dev = torch.device("cuda", 0)
-    phase_build()
-    rows = phase_kernels(dev, card_line)
-    counts = phase_slice(dev)
-    phase_timing(dev, card_line)
-    phase_profile(dev, card_line)
+    timed(phase_build)
+    rows = timed(phase_kernels, dev, card_line)
+    counts = timed(phase_slice, dev)
+    # kernel E's row and launches are those of its path, sgm8_full
+    rows["sgm_diag"], sgm8_counts = timed(phase_sgm8, dev, card_line)
+    counts["sgm_diag"] = sgm8_counts["sgm_diag"]
+    timed(phase_timing, dev, card_line)
+    timed(phase_profile, dev, card_line)
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
                     launches=counts[name], **rows[name])
                for name, (src, tpu) in KERNELS.items()]

@@ -2,11 +2,11 @@
 
 Counterpart of ``mystereomatching_tpu/ops/pallas_kernels.py``. The sources
 are ``csrc/*.cu`` (CUDA C++ for ``sm_90a``, one file a kernel, each with a
-note on the TPU kernel it replaces). At first use they are compiled with
-``nvcc`` (one process a source, all started together, then one link)
-into one shared library with a plain C interface under ``build/cuda/`` at
-the repository root, keyed by a hash of the sources and flags, and loaded
-with ctypes.
+note on the TPU kernel it replaces) and the headers they share,
+``csrc/*.cuh``. At first use they are compiled with ``nvcc`` (one process a
+source, all started together, then one link) into one shared library with
+a plain C interface under ``build/cuda/`` at the repository root, keyed by
+a hash of the sources, headers and flags, and loaded with ctypes.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates the
 output, launches on torch's current stream, raises if the launch failed,
@@ -34,9 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # launches of each kernel since the last reset_launches()
 launches = {"arms_grow": 0, "arm_taps": 0, "sgm_scan": 0, "wta": 0,
-            "arm_reduce": 0, "pi_scan": 0}
-# the kernels only the refine chain launches (none run with do_refine=False)
-REFINE_KERNELS = ("arm_reduce", "pi_scan")
+            "arm_reduce": 0, "pi_scan": 0, "sgm_diag": 0}
 REDUCE_OPS = {"sum": 0, "min": 1, "max": 2}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -50,6 +48,7 @@ _SIGNATURES = {
     "mysm_wta": [_P, _P, _I, _I, _I, _I, _P],
     "mysm_arm_reduce": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mysm_pi_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mysm_sgm_diag": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
 }
 
 
@@ -73,7 +72,7 @@ def _sources():
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libmysm_kernels_{digest.hexdigest()[:16]}.so"
@@ -279,4 +278,25 @@ def pi_scan(disp: torch.Tensor, image: torch.Tensor, offsets: torch.Tensor,
         out = torch.empty_like(disp)
         _launch("pi_scan", lib.mysm_pi_scan, disp.data_ptr(), image.data_ptr(),
                 offsets.data_ptr(), out.data_ptr(), h, w, offsets.shape[1], int(disp_occ))
+    return out
+
+
+def sgm_diag_scan(vol: torch.Tensor, pscale: torch.Tensor, p1: float, p2: float,
+                  rv: int, ru: int) -> torch.Tensor:
+    """Kernel E. SGM path costs of vol [G, D, H, W] float32 (D <= 256)
+    along the diagonal with predecessor offset (rv, ru), each -1 or +1;
+    pscale: [G, H, W] float32 penalty scale."""
+    if vol.ndim != 4 or rv not in (-1, 1) or ru not in (-1, 1):
+        raise ValueError(f"sgm_diag_scan: expected [G, D, H, W] and rv, ru in (-1, 1), "
+                         f"got {tuple(vol.shape)}, ({rv}, {ru})")
+    g, d, h, w = vol.shape
+    if d > 256:
+        raise ValueError(f"sgm_diag_scan: D={d} exceeds 256")
+    _check(vol, "sgm_diag_scan vol", torch.float32)
+    _check(pscale, "sgm_diag_scan pscale", torch.float32, (g, h, w), vol.device)
+    lib = _load()
+    with torch.cuda.device(vol.device):
+        out = torch.empty_like(vol)
+        _launch("sgm_diag", lib.mysm_sgm_diag, vol.data_ptr(), pscale.data_ptr(),
+                out.data_ptr(), g, d, h, w, int(rv), int(ru), float(p1), float(p2))
     return out

@@ -1,7 +1,7 @@
-"""Disparity refinement of the default preset: LR check, region vote,
-proper interpolation and the last median.
+"""Disparity refinement of the default and ``sgm8_full`` presets: LR check,
+region vote, proper interpolation, subpixel enhancement and the median.
 
-Counterpart of the default chain's functions in
+Counterpart of those chains' functions in
 ``mystereomatching_tpu/ops/refine.py`` (refine() stereoMatching.cpp:1138-1511).
 Disparity maps are int32 [H, W]; the plain LR check marks a failure -1
 (cpp:2277) and the other sentinels are negative too (DISP_OCC -32, h:215-218).
@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from mystereomatching_tpu_torch.ops import cuda_kernels as ck
 from mystereomatching_tpu_torch.ops.arms import arm_bounded_reduce
 from mystereomatching_tpu_torch.ops.median import median_small
+from mystereomatching_tpu_torch.ops.wta import neighbour_costs
 
 _INT32_MAX = torch.iinfo(torch.int32).max
 
@@ -152,7 +153,23 @@ def proper_interpolation(disp: torch.Tensor, image: torch.Tensor,
     return proper_interpolation_plain(disp, image, offsets, disp_occ)
 
 
+def subpixel_enhance(disp: torch.Tensor, vol: torch.Tensor) -> torch.Tensor:
+    """Quadratic subpixel refinement of an int32 [H, W] map from the [D, H, W]
+    cost volume (subpixelEnhancement cpp:6138-6167): d - (c[d+1] - c[d-1]) /
+    (2 (c[d+1] + c[d-1] - 2 c[d])), the offset kept only inside (-1, 1);
+    disparities 0 and D-1 and the negative sentinels stay as they are.
+    Returns float32, as the JAX package does by default (the reference
+    truncates back to short, cpp:6154)."""
+    cm, c0, cp = neighbour_costs(vol, disp)
+    denom = 2.0 * (cp + cm - 2.0 * c0)
+    diff = torch.where(denom.abs() > 1e-12, (cp - cm) / denom, 0.0)
+    diff = torch.where((diff > -1) & (diff < 1), diff, 0.0)
+    inner = (disp > 0) & (disp < vol.shape[0] - 1)
+    d = disp.to(torch.float32)
+    return torch.where(inner, d - diff, d)
+
+
 def median_blur_disp(disp: torch.Tensor, ksize: int = 3) -> torch.Tensor:
-    """The last median blur (refine() cpp:1499); sentinels take part as
-    values, as cv::medianBlur on CV_16S."""
+    """The median blur (refine() cpp:1499) of an int32 or float32 map;
+    sentinels take part as values, as cv::medianBlur on CV_16S."""
     return median_small(disp, ksize)

@@ -1,16 +1,20 @@
-"""Semi-global matching over the four axis-aligned paths.
+"""Semi-global matching over the four axis-aligned and four diagonal paths.
 
 Counterpart of ``mystereomatching_tpu/ops/sgm.py`` (``penalty_scale``,
-``_scan_down``, ``sgm``, ``sgm_multi``, ``sgm_directions``) for the
-default 4-path set. Each direction's path costs are CUDA kernel C
-(``csrc/sgm_scan.cu``) on a CUDA tensor.
+``_scan_down``, ``scan_direction``, ``sgm``, ``sgm_multi``,
+``sgm_directions``). Each axis direction's path costs are CUDA kernel C
+(``csrc/sgm_scan.cu``) on a CUDA tensor, each diagonal's kernel E
+(``csrc/sgm_diag.cu``).
 
 Recurrence (updateCost h:2268-2274), along the scan from the predecessor:
     L(p,d) = C(p,d) + min(L(p-r,d), minL + P2 s, min(L(p-r,d-1), L(p-r,d+1)) + P1 s) - minL
 with minL = min_d L(p-r,d) and s the adaptive penalty scale; the first
 pixel of each scan line takes L = C. The volumes' sum over directions is
-associated as the JAX package does it:
-(L(1,0) + L(-1,0)) + (L(0,1) + L(0,-1)).
+associated as the JAX package's CPU path does it: the vertical pair, then
+each diagonal in ``DIRECTIONS_8`` order, then the horizontal pair summed
+on its own:
+(((((L(1,0) + L(-1,0)) + L(1,-1)) + L(1,1)) + L(-1,1)) + L(-1,-1))
++ (L(0,1) + L(0,-1)).
 """
 
 from __future__ import annotations
@@ -40,6 +44,20 @@ def penalty_scale(image: torch.Tensor, rv: int, ru: int, thres: int = 15,
     return torch.where(d1 > thres, 1.0 / coeff, 1.0).to(torch.float32)
 
 
+def _step(prev: torch.Tensor, cost: torch.Tensor, ps: torch.Tensor, p1: float,
+          p2: float) -> torch.Tensor:
+    """One step of the recurrence, ``sgm._scan_down``'s in its operation
+    order: prev [G, D, L] predecessors' path costs (0 outside the image),
+    cost [G, D, L], ps [G, 1, L] -> the [G, D, L] path costs."""
+    big = torch.full_like(prev[:, :1], _FLT_MAX)
+    min_l = prev.amin(1, keepdim=True)
+    up = torch.cat([big, prev[:, :-1]], 1)
+    dn = torch.cat([prev[:, 1:], big], 1)
+    best = torch.minimum(torch.minimum(prev, min_l + p2 * ps),
+                         torch.minimum(up, dn) + p1 * ps)
+    return cost + best - min_l
+
+
 def sgm_scan_plain(vol: torch.Tensor, pscale: torch.Tensor, p1: float, p2: float,
                    axis: int, reverse: bool) -> torch.Tensor:
     """Plain torch path costs of [G, D, H, W] volumes scanned along H
@@ -50,15 +68,9 @@ def sgm_scan_plain(vol: torch.Tensor, pscale: torch.Tensor, p1: float, p2: float
     ps = pscale.movedim(axis - 1, 0)[:, :, None]
     out = torch.empty_like(v)
     prev = torch.zeros_like(v[0])
-    big = torch.full_like(prev[:, :1], _FLT_MAX)
     steps = range(v.shape[0] - 1, -1, -1) if reverse else range(v.shape[0])
     for t in steps:
-        min_l = prev.amin(1, keepdim=True)
-        up = torch.cat([big, prev[:, :-1]], 1)
-        dn = torch.cat([prev[:, 1:], big], 1)
-        best = torch.minimum(torch.minimum(prev, min_l + p2 * ps[t]),
-                             torch.minimum(up, dn) + p1 * ps[t])
-        prev = v[t] + best - min_l
+        prev = _step(prev, v[t], ps[t], p1, p2)
         out[t] = prev
     return out.movedim(0, axis)
 
@@ -70,25 +82,61 @@ def sgm_scan(vol: torch.Tensor, pscale: torch.Tensor, p1: float, p2: float,
     return sgm_scan_plain(vol, pscale, p1, p2, axis, reverse)
 
 
+def sgm_diag_scan_plain(vol: torch.Tensor, pscale: torch.Tensor, p1: float, p2: float,
+                        rv: int, ru: int) -> torch.Tensor:
+    """Plain torch path costs of [G, D, H, W] volumes along the diagonal
+    with predecessor offset (rv, ru), each -1 or +1; pscale [G, H, W].
+
+    Rows are walked from the predecessor's side; each step's predecessors
+    are the carried [G, D, W] row shifted by one column, with 0 entering at
+    the border (the first pixel of each diagonal line takes L = C). This is
+    the formulation of ``_sgm_diag_kernel`` (``pallas_kernels.py:980-1006``),
+    equal bit for bit to ``sgm.scan_direction``'s skewed scan."""
+    out = torch.empty_like(vol)
+    prev = torch.zeros_like(vol[:, :, 0])
+    edge = torch.zeros_like(prev[..., :1])
+    rows = range(vol.shape[2] - 1, -1, -1) if rv > 0 else range(vol.shape[2])
+    for v in rows:
+        pred = (torch.cat([prev[..., 1:], edge], -1) if ru > 0
+                else torch.cat([edge, prev[..., :-1]], -1))
+        prev = _step(pred, vol[:, :, v], pscale[:, None, v], p1, p2)
+        out[:, :, v] = prev
+    return out
+
+
+def sgm_diag_scan(vol: torch.Tensor, pscale: torch.Tensor, p1: float, p2: float,
+                  rv: int, ru: int) -> torch.Tensor:
+    if ck.on_cuda(vol):
+        return ck.sgm_diag_scan(vol, pscale, p1, p2, rv, ru)
+    return sgm_diag_scan_plain(vol, pscale, p1, p2, rv, ru)
+
+
 def sgm_directions(vol_list: Sequence[torch.Tensor], img_list: Sequence[torch.Tensor],
                    dirs, p1: float = 1.0, p2: float = 3.0, cor_dif_thres: int = 15,
                    redu_coeff: float = 4.0) -> List[torch.Tensor]:
-    """Path-cost sum over axis-aligned directions, all volumes batched into
-    each direction's scan."""
-    if any(rv != 0 and ru != 0 for rv, ru in dirs):
-        raise NotImplementedError("diagonal SGM paths (8-path SGM) are not ported yet")
+    """Path-cost sum over ``dirs``, all volumes batched into each
+    direction's scan; summed in the module docstring's order (vertical,
+    then diagonal, each in ``dirs`` order, then the horizontal sum)."""
     vols = torch.stack(list(vol_list)).contiguous()
-    vertical = torch.zeros_like(vols)
-    horizontal = None
-    for rv, ru in dirs:
+
+    def path(rv, ru):
         ps = torch.stack([penalty_scale(img, rv, ru, cor_dif_thres, redu_coeff)
                           for img in img_list]).contiguous()
         if ru == 0:
-            vertical = vertical + sgm_scan(vols, ps, p1, p2, axis=2, reverse=rv > 0)
-        else:
-            path = sgm_scan(vols, ps, p1, p2, axis=3, reverse=ru > 0)
-            horizontal = path if horizontal is None else horizontal + path
-    out = vertical if horizontal is None else vertical + horizontal
+            return sgm_scan(vols, ps, p1, p2, axis=2, reverse=rv > 0)
+        if rv == 0:
+            return sgm_scan(vols, ps, p1, p2, axis=3, reverse=ru > 0)
+        return sgm_diag_scan(vols, ps, p1, p2, rv, ru)
+
+    out = torch.zeros_like(vols)
+    for rv, ru in [d for d in dirs if d[1] == 0] + [d for d in dirs if d[0] and d[1]]:
+        out += path(rv, ru)
+    horizontal = None
+    for rv, ru in [d for d in dirs if d[0] == 0]:
+        p = path(rv, ru)
+        horizontal = p if horizontal is None else horizontal.add_(p)
+    if horizontal is not None:
+        out += horizontal
     return list(out.unbind(0))
 
 

@@ -1,8 +1,9 @@
-"""Disparity decision: winner-take-all over the disparity axis.
+"""Disparity decision: winner-take-all, uniqueness check, quadratic subpixel.
 
-Counterpart of ``wta.wta`` in ``mystereomatching_tpu/ops/wta.py``
-(gen_dispFromVm cpp:3928-3967). CUDA kernel D (``csrc/wta.cu``) on a CUDA
-tensor.
+Counterpart of ``wta``, ``uniqueness_mask`` and ``subpixel_quadratic`` in
+``mystereomatching_tpu/ops/wta.py`` (gen_dispFromVm cpp:3928-3967, wta_Co
+cpp:2709-2792). WTA is CUDA kernel D (``csrc/wta.cu``) on a CUDA tensor;
+the other two have no TPU kernel and are plain torch on every device.
 """
 
 from __future__ import annotations
@@ -23,3 +24,32 @@ def wta(vol: torch.Tensor, choose_small: bool = True) -> torch.Tensor:
     if ck.on_cuda(vol):
         return ck.wta(vol, choose_small)
     return wta_plain(vol, choose_small)
+
+
+def uniqueness_mask(vol: torch.Tensor, disp: torch.Tensor,
+                    ratio: float = 0.95) -> torch.Tensor:
+    """True where the WTA disparity fails the uniqueness test (wta_Co
+    cpp:2762-2775): some d with |d - disp| > 1 has cost[d] * ratio below
+    the minimum cost. vol [D, H, W], disp int32 [H, W] -> bool [H, W]."""
+    ds = torch.arange(vol.shape[0], dtype=disp.dtype, device=vol.device)[:, None, None]
+    near = (ds - disp[None]).abs() <= 1
+    return ((vol * ratio < vol.amin(0)[None]) & ~near).any(0)
+
+
+def neighbour_costs(vol: torch.Tensor, disp: torch.Tensor):
+    """Costs at d0 - 1, d0 and d0 + 1 for d0 = disp clamped into [1, D-2]."""
+    d0 = disp.clamp(1, vol.shape[0] - 2).to(torch.int64)[None]
+    return tuple(torch.gather(vol, 0, d0 + k)[0] for k in (-1, 0, 1))
+
+
+def subpixel_quadratic(vol: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
+    """+-1 quadratic interpolation around the WTA disparity (wta_Co
+    cpp:2778-2784): disp + (c[d-1] - c[d+1]) / (2 (c[d-1] + c[d+1] - 2 c[d])),
+    float32 [H, W] without DISP_SCALE; disparities 0 and D-1 (and the
+    negative sentinels) are returned unrefined."""
+    cm, c0, cp = neighbour_costs(vol, disp)
+    denom = cm + cp - 2.0 * c0
+    off = torch.where(denom.abs() > 1e-12, (cm - cp) / (2.0 * denom), 0.0)
+    inner = (disp >= 1) & (disp <= vol.shape[0] - 2)
+    d = disp.to(torch.float32)
+    return torch.where(inner, d + off, d)

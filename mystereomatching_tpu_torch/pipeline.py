@@ -1,21 +1,23 @@
 """End-to-end stereo pipeline: cost -> CBCA -> SGM -> WTA -> refine.
 
 Counterpart of ``mystereomatching_tpu/pipeline.py`` for the stages ported
-so far: the default censusGrad cost, cross arms, CBCA, 4-path SGM and WTA
-on the left and right volumes, then the default refinement (LR check,
-region vote, proper interpolation, median), i.e. the preset
-``census_grad_cbca_sgm``, with or without ``do_refine``. A configuration
-that needs any other stage raises ``NotImplementedError`` naming it.
+so far: the default censusGrad cost, cross arms, CBCA, 4- or 8-path SGM and
+WTA on the left and right volumes, the uniqueness check, then the
+refinement (LR check, region vote, proper interpolation, and either the
+median or subpixel enhancement with its median) and the decision-time
+subpixel (``sub_ipol``). That covers the presets ``census_grad_cbca_sgm``
+(with or without ``do_refine``) and ``sgm8_full``. A configuration that
+needs any other stage raises ``NotImplementedError`` naming it.
 
 PyTorch runs eagerly: :class:`StereoPipeline` only validates the
 configuration and moves the inputs to its device. On a CUDA device the
-six kernel-backed ops launch their CUDA kernels; on the CPU they run
-their plain torch versions.
+kernel-backed ops launch their CUDA kernels (:func:`kernels_launched` names
+those of a configuration); on the CPU they run their plain torch versions.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -24,6 +26,7 @@ from mystereomatching_tpu_torch.config import MatchConfig, as_port_config
 from mystereomatching_tpu_torch.ops import aggregation as agg_ops
 from mystereomatching_tpu_torch.ops import arms as arms_ops
 from mystereomatching_tpu_torch.ops import cost as cost_ops
+from mystereomatching_tpu_torch.ops import cuda_kernels as ck
 from mystereomatching_tpu_torch.ops import refine as refine_ops
 from mystereomatching_tpu_torch.ops import sgm as sgm_ops
 from mystereomatching_tpu_torch.ops import wta as wta_ops
@@ -51,7 +54,6 @@ def check_supported(cfg: MatchConfig) -> None:
         (refining and cfg.do_bg_ipol, "do_bg_ipol"),
         (refining and cfg.do_wm, "do_wm"),
         (refining and cfg.do_da, "do_da"),
-        (refining and cfg.do_subpixel, "do_subpixel"),
         (refining and cfg.do_rv_whole_image, "do_rv_whole_image"),
         (refining and cfg.do_lr_consis and not cfg.compute_both_volumes,
          "do_lr_consis with compute_both_volumes=False (cooperative WTA)"),
@@ -59,17 +61,29 @@ def check_supported(cfg: MatchConfig) -> None:
         (cfg.aggregation != "cbca", f"aggregation {cfg.aggregation!r}"),
         (cfg.cbca_double_win, "cbca_double_win"),
         (cfg.optimization != "sgm", f"optimization {cfg.optimization!r}"),
-        (cfg.sgm_scan_num != 4, f"{cfg.sgm_scan_num}-path SGM"),
+        (cfg.sgm_scan_num not in (4, 8), f"{cfg.sgm_scan_num}-path SGM"),
         (cfg.do_vmtop, "do_vmtop"),
         (cfg.d_stream_block != 0, "d_stream_block"),
-        (cfg.sub_ipol, "sub_ipol"),
-        (cfg.uniq_check, "uniq_check"),
         (cfg.pyramid_levels > 1, "pyramid_levels > 1"),
         (cfg.vol_dtype != "float32", f"vol_dtype {cfg.vol_dtype!r}"),
     ]
     missing = [name for hit, name in unported if hit]
     if missing:
         raise NotImplementedError("not ported yet: " + ", ".join(missing))
+
+
+def kernels_launched(cfg: MatchConfig) -> List[str]:
+    """The CUDA kernels a frame of ``cfg`` launches on the card, in the
+    order of ``cuda_kernels.launches``."""
+    cfg = as_port_config(cfg)
+    used = {"arms_grow", "arm_taps", "sgm_scan", "wta"}
+    if cfg.sgm_scan_num > 4:
+        used.add("sgm_diag")
+    if cfg.do_refine and cfg.do_region_vote:
+        used.add("arm_reduce")
+    if cfg.do_refine and cfg.do_proper_ipol:
+        used.add("pi_scan")
+    return [name for name in ck.launches if name in used]
 
 
 def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
@@ -93,7 +107,8 @@ def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
 
 
 def optimize(vols, left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
-    """L3: SGM over all volumes together, then WTA on each.
+    """L3: SGM over all volumes together, then WTA on each and, with
+    ``uniq_check``, DISP_INV where the left map fails the uniqueness test.
 
     Returns (d_left, d_right or None, vol_left after optimization)."""
     images = {0: left, 1: right}
@@ -105,14 +120,21 @@ def optimize(vols, left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
     vols = dict(zip(lors, out))
     dl = wta_ops.wta(vols[0], cfg.choose_small)
     dr = wta_ops.wta(vols[1], cfg.choose_small) if 1 in vols else None
+    if cfg.uniq_check:
+        # UniqCk (wta_Co cpp:2763-2775): refinement fills these pixels
+        bad = wta_ops.uniqueness_mask(vols[0], dl, cfg.uniqueness_ratio)
+        dl = torch.where(bad, torch.full_like(dl, cfg.disp_inv), dl)
     return dl, dr, vols[0]
 
 
-def refine(d_left: torch.Tensor, d_right, left: torch.Tensor, arms0: torch.Tensor,
-           cfg: MatchConfig) -> torch.Tensor:
+def refine(d_left: torch.Tensor, d_right, vol_left, left: torch.Tensor,
+           arms0: torch.Tensor, cfg: MatchConfig) -> torch.Tensor:
     """L4 (refine() cpp:1347-1511) for the stages ported: LR check, region
-    vote, proper interpolation and the last median, in the JAX package's
-    order, on the left map. arms0: the left image's [4, H, W] cross arms."""
+    vote, proper interpolation, then subpixel enhancement from vol_left (the
+    left volume after SGM; only read with ``do_subpixel``) and its median,
+    or the last median, in the JAX package's order, on the left map. arms0:
+    the left image's [4, H, W] cross arms. Returns a float32 map with
+    ``do_subpixel``, else int32."""
     d = d_left
     if cfg.do_lr_consis and d_right is not None:
         d = refine_ops.lr_consistency(d, d_right, cfg.lr_max_diff)
@@ -125,6 +147,10 @@ def refine(d_left: torch.Tensor, d_right, left: torch.Tensor, arms0: torch.Tenso
         for _ in range(cfg.proper_ipol_iters):
             d = refine_ops.proper_interpolation(d, left, cfg.pi_search_depth,
                                                 cfg.disp_occ)
+    if cfg.do_subpixel:
+        # the float map; the reference keeps a separate SE buffer
+        return refine_ops.median_blur_disp(refine_ops.subpixel_enhance(d, vol_left),
+                                           cfg.median_kernel)
     if cfg.do_last_median:
         d = refine_ops.median_blur_disp(d, cfg.median_kernel)
     return d
@@ -135,23 +161,39 @@ def match_pair(left: torch.Tensor, right: torch.Tensor,
     """The pipeline on [H, W, 3] RGB tensors (uint8 or float) on one device.
 
     Returns 'disparity' (float32 [H, W], negatives are sentinel codes) and
-    'disp_left_raw' / 'disp_right_raw' (int32 WTA maps before refinement;
-    the right one when the LR check is on). Without refinement
-    'disparity' is the left WTA map. ``sub_ipol`` is refused by
-    :func:`check_supported`, so its pass-through is the identity here.
+    'disp_left_raw' / 'disp_right_raw' (int32 WTA maps before refinement,
+    the left one with DISP_INV where the uniqueness check failed; the right
+    one when the LR check is on). Without refinement 'disparity' is the
+    left WTA map, with ``sub_ipol``'s subpixel offsets.
     """
     cfg = as_port_config(cfg).validate()
     check_supported(cfg)
     left = left.to(torch.float32)
     right = right.to(torch.float32)
     vols, arms_pair = compute_volumes(left, right, cfg)
-    dl, dr, _ = optimize(vols, left, right, cfg)
+    dl, dr, vol0 = optimize(vols, left, right, cfg)
     out = {"disp_left_raw": dl}
     if dr is not None:
         out["disp_right_raw"] = dr
-    d = refine(dl, dr, left, arms_pair[0], cfg) if cfg.do_refine else dl
-    out["disparity"] = d.to(torch.float32)
+    d = refine(dl, dr, vol0, left, arms_pair[0], cfg) if cfg.do_refine else dl
+    out["disparity"] = apply_sub_ipol(d, dl, vol0, cfg).to(torch.float32)
     return out
+
+
+def apply_sub_ipol(d: torch.Tensor, dl_raw: torch.Tensor, vol0: torch.Tensor,
+                   cfg: MatchConfig) -> torch.Tensor:
+    """SubIpl (wta_Co cpp:2778-2784): the decision-time quadratic subpixel,
+    quantised to 1/DISP_SCALE as the reference's fixed-point map. Pixels the
+    refinement changed keep their value; pixels still holding the raw WTA
+    disparity take the subpixel one. ``do_subpixel`` supersedes it (the
+    identity then); the SO and vmTop decisions it also skips in the JAX
+    package are refused by :func:`check_supported`."""
+    if not cfg.sub_ipol or cfg.do_subpixel:
+        return d
+    sub = wta_ops.subpixel_quadratic(vol0, dl_raw.clamp(min=0))
+    subq = torch.round(sub * cfg.disp_scale) / cfg.disp_scale
+    keep = (d == dl_raw) & (dl_raw >= 0)
+    return torch.where(keep, subq, d.to(torch.float32))
 
 
 class StereoPipeline:

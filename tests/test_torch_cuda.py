@@ -9,14 +9,18 @@ kernels keep their plain versions' operation order and are built with
 -fmad=false.
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
 import mystereomatching_tpu_torch as port
 from mystereomatching_tpu_torch.data import make_synthetic_pair
+from mystereomatching_tpu_torch.models import get_model
 from mystereomatching_tpu_torch.ops import arms, refine, sgm, wta
 from mystereomatching_tpu_torch.ops import cuda_kernels as ck
+from mystereomatching_tpu_torch.pipeline import kernels_launched
 
 pytestmark = pytest.mark.cuda
 
@@ -72,6 +76,20 @@ def test_sgm_scan_kernel(cuda, nd, axis, reverse):
                        sgm.sgm_scan_plain(vol, ps, 1.0, 3.0, axis, reverse))
 
 
+@pytest.mark.parametrize("nd", [1, 32, 33, 128, 256])
+@pytest.mark.parametrize("shape", [(21, 30), (40, 7), (1, 17), (17, 1)])
+@pytest.mark.parametrize("g", [1, 2])
+def test_sgm_diag_kernel(cuda, nd, shape, g):
+    """Kernel E on every diagonal, lines of every length, the corner's
+    line included, against its plain version."""
+    rng = np.random.default_rng(nd * 7 + shape[0] + g)
+    vol = _t((rng.random((g, nd) + shape) * 3).astype(np.float32), cuda)
+    ps = _t(np.where(rng.random((g,) + shape) < 0.3, 0.25, 1.0).astype(np.float32), cuda)
+    for rv, ru in sgm.DIRECTIONS_8[4:]:
+        assert torch.equal(ck.sgm_diag_scan(vol, ps, 1.0, 3.0, rv, ru),
+                           sgm.sgm_diag_scan_plain(vol, ps, 1.0, 3.0, rv, ru)), (rv, ru)
+
+
 @pytest.mark.parametrize("choose_small", [True, False])
 def test_wta_kernel(cuda, choose_small):
     vol = _t(np.random.default_rng(6).integers(0, 3, (11, 14, 15)).astype(np.float32), cuda)
@@ -114,8 +132,31 @@ def test_pipeline_on_cuda_equals_cpu(cuda, do_refine):
     cfg = port.default_config(max_disp=pair.max_disp, do_refine=do_refine)
     ck.reset_launches()
     gpu = port.StereoPipeline(cfg, device=cuda)(pair.left, pair.right)
-    assert all((n > 0) == (do_refine or k not in ck.REFINE_KERNELS)
-               for k, n in ck.launches.items()), ck.launches
+    used = kernels_launched(cfg)
+    assert all((n > 0) == (k in used) for k, n in ck.launches.items()), ck.launches
     cpu = port.StereoPipeline(cfg, device="cpu")(pair.left, pair.right)
     for key in ("disp_left_raw", "disp_right_raw", "disparity"):
         assert torch.equal(gpu[key].cpu(), cpu[key])
+
+
+@pytest.mark.parametrize("do_subpixel", [True, False])
+def test_sgm8_full_kernel_path_equals_plain_path(cuda, do_subpixel):
+    """sgm8_full on the card, kernels against their plain versions on the
+    same device. The float map is not held against the CPU's: the cost
+    stage's plain torch ops (its exp) round differently on the card and the
+    CPU, which moves the subpixel fits' last bits; the integer maps agree."""
+    pair = make_synthetic_pair(h=64, w=96, max_disp=11, seed=3, noise_sigma=0.5)
+    cfg = get_model("sgm8_full", max_disp=pair.max_disp, do_subpixel=do_subpixel)
+    pipe = port.StereoPipeline(cfg, device=cuda)
+    ck.reset_launches()
+    gpu = pipe(pair.left, pair.right)
+    used = kernels_launched(cfg)
+    assert all((n > 0) == (k in used) for k, n in ck.launches.items()), ck.launches
+    assert ck.launches["sgm_diag"] == 4
+    with mock.patch.object(ck, "on_cuda", lambda t: False):
+        plain = pipe(pair.left, pair.right)
+    for key in ("disp_left_raw", "disp_right_raw", "disparity"):
+        assert torch.equal(gpu[key], plain[key]), key
+    cpu = port.StereoPipeline(cfg, device="cpu")(pair.left, pair.right)
+    for key in ("disp_left_raw", "disp_right_raw"):
+        assert torch.equal(gpu[key].cpu(), cpu[key]), key

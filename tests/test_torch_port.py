@@ -3,7 +3,8 @@
 The slice compared with the JAX pipeline here is the default preset with
 ``do_refine=False``: censusGrad cost -> cross arms -> CBCA (2 iterations)
 -> 4-path SGM -> WTA on the left and right volumes (the refine chain is
-held against JAX in tests/test_torch_refine.py). On the CPU every
+held against JAX in tests/test_torch_refine.py, the ``sgm8_full`` preset
+in tests/test_torch_sgm8.py). On the CPU every
 kernel-backed op runs its plain torch version. Tolerances: none — every
 WTA map here must match exactly.
 """
@@ -122,12 +123,13 @@ def test_preset_equals_jax(name):
     dict(do_refine=True, do_pkr=True), dict(do_refine=True, rv_use_combine_bg=True),
     dict(do_refine=True, rv_int_ratio_quirk=False), dict(do_refine=True, do_cbbi=True),
     dict(do_refine=True, do_bg_ipol=True), dict(do_refine=True, do_wm=True),
-    dict(do_refine=True, do_da=True), dict(do_refine=True, do_subpixel=True),
+    dict(do_refine=True, do_da=True), dict(cost="ad_census"),
     dict(do_refine=True, do_rv_whole_image=True),
     dict(do_refine=True, compute_both_volumes=False),
     dict(aggregation="bf"), dict(cost="census"),
     dict(optimization="so"), dict(optimization="wta"), dict(do_vmtop=True),
-    dict(d_stream_block=4), dict(sub_ipol=True), dict(uniq_check=True), dict(sgm_scan_num=8),
+    dict(d_stream_block=4), dict(aggregation="nl"), dict(cbca_double_win=True),
+    dict(pyramid_levels=2),
     dict(cbca_arm_mode="multilevel"), dict(vol_dtype="bfloat16"),
 ])
 def test_unported_stage_raises(overrides):
@@ -144,8 +146,9 @@ def test_cuda_pipeline_without_cuda_raises(monkeypatch):
     for kw in (dict(device="cuda"), {}):
         with pytest.raises(RuntimeError):
             port.StereoPipeline(port.default_config(do_refine=False), **kw)
-    with pytest.raises(RuntimeError):
-        port_presets.build("census_grad_cbca_sgm", max_disp=7)
+    for name in ("census_grad_cbca_sgm", "sgm8_full"):
+        with pytest.raises(RuntimeError):
+            port_presets.build(name, max_disp=7)
 
 
 def test_synthetic_pair_is_the_jax_one():

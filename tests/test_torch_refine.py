@@ -136,7 +136,7 @@ def test_refine_chain_exact():
     fn = jax.jit(lambda a, b, img, ar: jax_pipeline.refine(a, b, None, img, ar, jcfg))
     ref = fn(jnp.asarray(dl.numpy()), jnp.asarray(dr.numpy()), jnp.asarray(left.numpy()),
              jnp.asarray(arms0.numpy()))
-    ours = pipeline.refine(dl, dr, left, arms0, as_port_config(jcfg))
+    ours = pipeline.refine(dl, dr, None, left, arms0, as_port_config(jcfg))
     assert int((refine.lr_consistency(dl, dr) < 0).sum()) > 0  # the chain had holes to fill
     np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
 
