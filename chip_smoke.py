@@ -27,8 +27,9 @@ Phases, each of which raises (exit code 1) on failure:
    every kernel of each path must have launched;
 5. sgm8_full: the preset ``get_model("sgm8_full", max_disp=127)`` on a
    750x1000 pair (Middlebury half resolution, D=128, left and right
-   volumes). Kernel E against its plain version on the frame's own CBCA
-   volumes [2, 128, 750, 1000]; one frame with the launch counts set to 0
+   volumes). Kernels C (4 axis directions) and E (4 diagonals) against
+   their plain versions on the frame's own CBCA volumes [2, 128, 750, 1000],
+   with the device time of each direction; one frame with the launch counts set to 0
    just before it, in which all seven kernels must launch (``sgm_diag``
    4 times) and whose three maps must equal the plain path's; its bad-1.0
    rate; kernel and plain frame times, peak device memory, and a profile;
@@ -43,7 +44,9 @@ Phases, each of which raises (exit code 1) on failure:
 
 Each phase prints its seconds.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}`` (each row's ``case``
+names what was measured: kernels C and E at full width, on the
+``sgm8_full`` frame, with that frame's launches); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -102,7 +105,11 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "sgm_diag": ("mystereomatching_tpu_torch/csrc/sgm_diag.cu",
                  "mystereomatching_tpu/ops/pallas_kernels.py:938"),
 }
-DIAGONALS = sgm_ops.DIRECTIONS_8[4:]
+AXES, DIAGONALS = sgm_ops.DIRECTIONS_8[:4], sgm_ops.DIRECTIONS_8[4:]
+SGM_KERNELS = {  # name -> (kernel, plain version, its four directions)
+    "sgm_scan": (ck.sgm_scan, sgm_ops.sgm_scan_plain, AXES),
+    "sgm_diag": (ck.sgm_diag_scan, sgm_ops.sgm_diag_scan_plain, DIAGONALS),
+}
 FRAME_REPS = 10
 PROFILE_FRAMES = 5
 SGM8_REPS = 5
@@ -235,17 +242,28 @@ def pair_scales(left, right, cfg, dirs) -> dict:
             for d in dirs}
 
 
-def sgm_diag_case(vols, pscales, cfg):
-    """Kernel E over the four diagonals of the [G, D, H, W] volumes as
-    (kernel, plain, bytes, operations): each direction reads the volumes
-    and the scales once and writes its path costs once; 7 operations an
-    element (kernel C's count)."""
-    def run(fn):
-        return torch.stack([fn(vols, pscales[d], cfg.sgm_p1_eff, cfg.sgm_p2_eff, *d)
-                            for d in DIAGONALS])
+def scan_args(d) -> tuple:
+    """The direction arguments of direction d's scan: (axis, reverse) for
+    kernel C, (rv, ru) for kernel E."""
+    if d[0] and d[1]:
+        return d
+    return (2, d[0] > 0) if d[1] == 0 else (3, d[1] > 0)
 
-    return (lambda: run(ck.sgm_diag_scan), lambda: run(sgm_ops.sgm_diag_scan_plain),
-            4 * (vols.numel() * 8 + vols[:, 0].numel() * 4), 4 * 7 * vols.numel())
+
+def sgm_case(vols, pscales, cfg, name: str):
+    """Kernel C (``sgm_scan``) over the four axis directions of the
+    [G, D, H, W] volumes, or kernel E (``sgm_diag``) over the four
+    diagonals, as (kernel, plain, bytes, operations): each direction reads
+    the volumes and the scales once and writes its path costs once; 7
+    operations an element."""
+    kernel, plain, dirs = SGM_KERNELS[name]
+
+    def run(fn):
+        return torch.stack([fn(vols, pscales[d], cfg.sgm_p1_eff, cfg.sgm_p2_eff, *scan_args(d))
+                            for d in dirs])
+
+    return (lambda: run(kernel), lambda: run(plain),
+            len(dirs) * (vols.numel() * 8 + vols[:, 0].numel() * 4), len(dirs) * 7 * vols.numel())
 
 
 def teddy_inputs(dev) -> dict:
@@ -355,7 +373,7 @@ def run_case(name, what, case, card_line, library=None):
           f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.3f} MB, {nops / 1e6:.3f} M ops), "
           f"{bound_ms / ms:.3f} of it [{card_line}]")
     return dict(max_abs_err=err, ms=ms, host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms, case=what)
 
 
 def fullres_image(rng):
@@ -372,14 +390,7 @@ def phase_kernels(dev, card_line: str) -> dict:
     sched = [float(cfg.cbca_c_thresh if k <= cfg.cbca_cross_l else cfg.cbca_c_thresh_out)
              for k in range(1, cfg.cbca_cross_l_out + 1)]
     neigh, min_arm = float(cfg.cbca_c_thresh), cfg.cbca_min_arm
-    dirs = [(d, 2 if d[1] == 0 else 3, d[0] > 0 if d[1] == 0 else d[1] > 0)
-            for d in sgm_ops.DIRECTIONS_8[:4]]
     vols, sgm_vol = t["vols"], t["sgm_vol"]
-
-    def sgm_all(fn):
-        return torch.stack([fn(vols, t["pscales"][d], cfg.sgm_p1_eff, cfg.sgm_p2_eff, axis, rev)
-                            for d, axis, rev in dirs])
-
     hw = left.shape[0] * left.shape[1]
     arms = t["arms"][0]
     room = [torch.minimum(arms_ops.border_floor(*left.shape[:2], dv, du, 1 << 20, dev),
@@ -393,9 +404,7 @@ def phase_kernels(dev, card_line: str) -> dict:
         "arm_taps": ("one CBCA iteration (sum pass along W + area pass along H), D=60",
                      cbca_iteration_case(t["vol"], t["arms_int"], m), None),
         "sgm_scan": ("4 directions over the left+right pair [2,60,375,450]",
-                     (lambda: sgm_all(ck.sgm_scan), lambda: sgm_all(sgm_ops.sgm_scan_plain),
-                      4 * (vols.numel() * 8 + vols[:, 0].numel() * 4), 4 * 7 * vols.numel()),
-                     None),
+                     sgm_case(vols, t["pscales"], cfg, "sgm_scan"), None),
         "wta": ("one [60,375,450] volume",
                 (lambda: ck.wta(sgm_vol), lambda: wta_ops.wta_plain(sgm_vol),
                  sgm_vol.numel() * 4 + hw * 4, sgm_vol.numel()),
@@ -406,7 +415,7 @@ def phase_kernels(dev, card_line: str) -> dict:
                     f"{cfg.pi_search_depth}",
                     pi_case(t["rv"], left, cfg.pi_search_depth, cfg.disp_occ), None),
         "sgm_diag": ("4 diagonals over the left+right pair [2,60,375,450]",
-                     sgm_diag_case(vols, t["pscales"], cfg), None),
+                     sgm_case(vols, t["pscales"], cfg, "sgm_diag"), None),
     }
     rows = {name: run_case(name, what, case, card_line, library)
             for name, (what, case, library) in cases.items()}
@@ -635,8 +644,9 @@ def phase_profile(dev, card_line: str) -> None:
 
 
 def phase_sgm8(dev, card_line: str):
-    """The sgm8_full preset at 750x1000, D=128. Returns kernel E's row
-    (on the frame's own CBCA volumes) and the frame's launch counts."""
+    """The sgm8_full preset at 750x1000, D=128. Returns the rows of kernels
+    C and E (on the frame's own CBCA volumes) and the frame's launch
+    counts."""
     pair = make_synthetic_pair(**SGM8)
     left = torch.from_numpy(pair.left).to(dev)
     right = torch.from_numpy(pair.right).to(dev)
@@ -647,10 +657,19 @@ def phase_sgm8(dev, card_line: str):
     lf, rf = left.to(torch.float32), right.to(torch.float32)
     vols, _ = compute_volumes(lf, rf, cfg)
     vols = torch.stack([vols[0], vols[1]]).contiguous()
-    row = run_case("sgm_diag", f"{label}: 4 diagonals over the frame's CBCA volumes "
-                   f"{list(vols.shape)}", sgm_diag_case(vols, pair_scales(lf, rf, cfg, DIAGONALS),
-                                                        cfg), card_line)
-    del vols
+    pscales = pair_scales(lf, rf, cfg, sgm_ops.DIRECTIONS_8)
+    rows = {}
+    for name, what in (("sgm_scan", "4 axis directions"), ("sgm_diag", "4 diagonals")):
+        rows[name] = run_case(name, f"{label}: {what} over the frame's CBCA volumes "
+                              f"{list(vols.shape)}", sgm_case(vols, pscales, cfg, name),
+                              card_line)
+        kernel, _, dirs = SGM_KERNELS[name]
+        for d in dirs:
+            ms = device_ms(lambda: kernel(vols, pscales[d], cfg.sgm_p1_eff, cfg.sgm_p2_eff,
+                                          *scan_args(d)), name)
+            print(f"kernel {name} direction (rv, ru) = {d}: {ms:.4f} ms device on "
+                  f"{list(vols.shape)} [{card_line}]")
+    del vols, pscales
 
     pipe = StereoPipeline(cfg, device=dev)
     torch.cuda.synchronize()
@@ -688,7 +707,7 @@ def phase_sgm8(dev, card_line: str):
         print(f"timing {label}, {path} path, left+right: median {med:.3f} ms/frame (quartiles "
               f"{q1:.3f}-{q3:.3f}, n={reps}), {mp_disp / med * 1e3:.3f} MP*disp/s [{card_line}]")
     profile_frames(pipe, left, right, label, card_line, SGM8_PROFILE_FRAMES, warm_up=1)
-    return row, counts
+    return rows, counts
 
 
 def timed(phase, *args):
@@ -705,9 +724,11 @@ def main() -> int:
     timed(phase_build)
     rows = timed(phase_kernels, dev, card_line)
     counts = timed(phase_slice, dev)
-    # kernel E's row and launches are those of its path, sgm8_full
-    rows["sgm_diag"], sgm8_counts = timed(phase_sgm8, dev, card_line)
-    counts["sgm_diag"] = sgm8_counts["sgm_diag"]
+    # the rows and launches of kernels C and E are those of the sgm8_full
+    # frame at full width (the Teddy rows are printed by phase_kernels)
+    sgm_rows, sgm8_counts = timed(phase_sgm8, dev, card_line)
+    for name in SGM_KERNELS:
+        rows[name], counts[name] = sgm_rows[name], sgm8_counts[name]
     timed(phase_timing, dev, card_line)
     timed(phase_profile, dev, card_line)
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,

@@ -1,0 +1,238 @@
+// The SGM path-cost recurrence over a band of scan lines, staged through
+// shared memory. Shared by kernel C (sgm_scan.cu, lines along H or W) and
+// kernel E (sgm_diag.cu, diagonal lines); they differ only in the geometry
+// of a band: which image pixels a stage's box holds and how each line walks
+// through it.
+//
+// What it computes, for one volume's [D, H, W] costs and one scan line:
+//   minL = min_d L(prev, d)
+//   best = min(min(L(prev, d), minL + P2 s), min(L(prev, d-1), L(prev, d+1)) + P1 s)
+//   L(cur, d) = (C(cur, d) + best) - minL
+// with s = pscale at cur and L(prev) = 0 before the first step of the line
+// (so the first step gives L = C, the reference's scan-edge rule,
+// h:2277-2279). The operation order is that of sgm._scan_down and the TPU
+// kernels; with -fmad=false the result is bit-identical to the plain torch
+// versions.
+//
+// What bounds it on the H100: bytes. Each direction reads the costs and the
+// penalty scales once and writes the path costs once; the recurrence itself
+// (a 5-level shuffle min a step, ~300 cycles) is far shorter than a step's
+// share of that traffic, provided the bytes move in whole sectors and
+// several steps are in flight.
+//
+// Design:
+// - A block owns a band of Geom::kLines adjacent scan lines of one volume,
+//   one warp a line with D across the lanes (slot k of lane l holds
+//   d = 32 k + l) and the carried D-vector in registers, as the warp-a-line
+//   kernels had.
+// - A stage is Geom::kBox / kLines steps of the band: a box of Geom::kBox
+//   pixels, Geom::kCols of them adjacent in memory on each image row, for
+//   all D.
+// - All threads copy the next stages' boxes from device memory into a ring of
+//   ring_depth stages in shared memory with 4-byte cp.async (consecutive
+//   threads on consecutive columns), while the warps run the recurrence on the
+//   current stage. The ring is kMaxRing stages deep where that many fit in a
+//   block's 227 KB, else as deep as fits. TMA does not fit: it needs 16-byte
+//   global strides, and W * 4 is not one in general (W = 450, and the odd
+//   widths of the tests).
+// - The recurrence reads C from the box and writes L in place over it; after
+//   the stage the block stores the box back out, row segments whole. One
+//   __syncthreads before and one after the recurrence, per stage.
+// - A box keeps disparity d at d * (kBox + 1), an odd pitch, so the 32 lanes
+//   of a warp (32 disparities of one pixel) fall in 32 different banks, and
+//   the copies (32 consecutive pixels of one disparity) stay conflict-free.
+#pragma once
+
+#include <cfloat>
+#include <type_traits>
+
+#include <cuda_runtime.h>
+
+namespace mysm {
+
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kMaxRing = 4;           // stages in shared memory, at most
+constexpr int kMaxSmem = 227 * 1024;  // bytes of shared memory a block may have
+
+// floats of one stage: a box of kBox pixels for nd disparities, and its scales
+__host__ __device__ constexpr int stage_floats(int nd, int box) { return nd * (box + 1) + box; }
+
+// stages in shared memory for up to 32 kSlots disparities
+template <int kSlots, int kBox>
+constexpr int ring_depth =
+    kMaxSmem / (4 * stage_floats(32 * kSlots, kBox)) < kMaxRing
+        ? kMaxSmem / (4 * stage_floats(32 * kSlots, kBox))
+        : kMaxRing;
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// n steps of one scan line through a box: pixel idx, idx + stride, ...;
+// costs at box[d * kPitch + idx] are replaced by the path costs, scales at
+// scale[idx]. prev carries the line's last path costs between calls.
+template <int kSlots, int kPitch>
+__device__ __forceinline__ void sgm_steps(float* box, const float* scale, int idx, int stride,
+                                          int n, int nd, float p1, float p2,
+                                          float (&prev)[kSlots]) {
+  const int lane = threadIdx.x & 31;
+  for (int t = 0; t < n; ++t, idx += stride) {
+    float c[kSlots];
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      c[k] = k * 32 + lane < nd ? box[(k * 32 + lane) * kPitch + idx] : 0.0f;
+    }
+    const float s = scale[idx];
+    float min_l = FLT_MAX;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      if (k * 32 + lane < nd) min_l = fminf(min_l, prev[k]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) min_l = fminf(min_l, __shfl_xor_sync(kFullMask, min_l, o));
+    const float p1s = __fmul_rn(p1, s);
+    const float jump = __fadd_rn(min_l, __fmul_rn(p2, s));
+
+    float cur[kSlots];
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      const int d = k * 32 + lane;
+      // d - 1: lane - 1 of this slot, or lane 31 of the slot below
+      float up = __shfl_up_sync(kFullMask, prev[k], 1);
+      const float below = __shfl_sync(kFullMask, k > 0 ? prev[k - 1] : FLT_MAX, 31);
+      if (lane == 0) up = below;
+      // d + 1: lane + 1 of this slot, or lane 0 of the slot above
+      float dn = __shfl_down_sync(kFullMask, prev[k], 1);
+      const float above = __shfl_sync(kFullMask, k + 1 < kSlots ? prev[k + 1] : FLT_MAX, 0);
+      if (lane == 31) dn = above;
+      if (d + 1 >= nd) dn = FLT_MAX;
+      cur[k] = 0.0f;
+      if (d < nd) {
+        const float best = fminf(fminf(prev[k], jump), __fadd_rn(fminf(up, dn), p1s));
+        cur[k] = __fsub_rn(__fadd_rn(c[k], best), min_l);
+        box[d * kPitch + idx] = cur[k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) prev[k] = cur[k];
+  }
+}
+
+// One block's band of one volume: vol/out [D, H, W] costs and path costs
+// and scale [H, W], with plane = H * W. The geometry gives
+//   kLines:                  the band's scan lines, one warp each;
+//   kBox:                    the pixels of a stage's box;
+//   kCols:                   the box's pixels on each image row (a box
+//                            pixel b is row b / kCols, column b % kCols);
+//   n_stages():              the stages of the band;
+//   pixel(s, b):             the plane offset of pixel b of stage s's box,
+//                            or -1 where that pixel lies outside the image
+//                            or outside the band's lines;
+//   walk(s, l, idx, stride, begins):
+//                            the steps of line l in stage s (returned), the
+//                            box pixel of the first and the stride, and
+//                            whether the first is the first step of a line
+//                            (the warp's carry restarts from 0 there).
+template <int kSlots, class Geom>
+__device__ __forceinline__ void sgm_band(const float* __restrict__ vol,
+                                         const float* __restrict__ scale,
+                                         float* __restrict__ out, long long plane, int nd,
+                                         float p1, float p2, const Geom& geom) {
+  constexpr int kBox = Geom::kBox, kPitch = kBox + 1;
+  constexpr int kThreads = Geom::kLines * 32;
+  constexpr int kDStride = kThreads / kBox;  // disparities between a thread's copies
+  constexpr int kRing = ring_depth<kSlots, kBox>;
+  static_assert(kThreads % kBox == 0, "every thread copies the same pixel of each box");
+  static_assert(kRing >= 2, "the ring holds the current stage and the next");
+  extern __shared__ float ring[];
+  const int b = threadIdx.x % kBox;       // this thread's pixel of every box
+  const int d0 = threadIdx.x / kBox;      // its first disparity
+  const int line = threadIdx.x / 32;
+  const int n_stages = geom.n_stages();
+  auto box_of = [&](int s) { return ring + (s % kRing) * stage_floats(nd, kBox); };
+  auto load = [&](int s) {
+    if (s >= n_stages) return;
+    const long long off = geom.pixel(s, b);
+    if (off < 0) return;
+    float* box = box_of(s);
+    for (int d = d0; d < nd; d += kDStride) cp_async4(box + d * kPitch + b, vol + d * plane + off);
+    if (d0 == 0) cp_async4(box + nd * kPitch + b, scale + off);
+  };
+
+  float prev[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) prev[k] = 0.0f;
+  // one commit group a stage, empty past the end, so that the wait below
+  // always leaves exactly the kRing - 2 newer stages in flight
+  for (int s = 0; s < kRing - 1; ++s) {
+    load(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<kRing - 2>();
+    __syncthreads();  // stage s is in; stage s - 1's box has been stored
+    load(s + kRing - 1);
+    cp_async_commit();
+    float* box = box_of(s);
+    int idx = 0, stride = 0;
+    bool begins = false;
+    const int n = geom.walk(s, line, idx, stride, begins);
+    if (begins) {
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) prev[k] = 0.0f;
+    }
+    sgm_steps<kSlots, kPitch>(box, box + nd * kPitch, idx, stride, n, nd, p1, p2, prev);
+    __syncthreads();  // every line's path costs of stage s are in the box
+    const long long off = geom.pixel(s, b);
+    if (off >= 0) {
+      for (int d = d0; d < nd; d += kDStride) out[d * plane + off] = box[d * kPitch + b];
+    }
+  }
+}
+
+// Calls f(std::integral_constant<int, kSlots>{}) with kSlots = ceil(nd / 32);
+// returns false, calling nothing, unless 1 <= nd <= 256.
+template <typename F>
+bool with_slots(int nd, F&& f) {
+  switch ((nd + 31) / 32) {
+    case 1: f(std::integral_constant<int, 1>{}); return true;
+    case 2: f(std::integral_constant<int, 2>{}); return true;
+    case 3: f(std::integral_constant<int, 3>{}); return true;
+    case 4: f(std::integral_constant<int, 4>{}); return true;
+    case 5: f(std::integral_constant<int, 5>{}); return true;
+    case 6: f(std::integral_constant<int, 6>{}); return true;
+    case 7: f(std::integral_constant<int, 7>{}); return true;
+    case 8: f(std::integral_constant<int, 8>{}); return true;
+    default: return false;
+  }
+}
+
+// Launches kernel<<<blocks, Geom's threads, ring>>> with the ring of boxes
+// for nd <= 32 kSlots disparities as dynamic shared memory (above 48 KB it
+// must be allowed first, for each instance; the carveout asks for all of
+// it, so that blocks whose rings are small share an SM); returns the CUDA
+// error.
+template <int kSlots, class Geom, typename Kernel, typename... Args>
+cudaError_t launch_band(Kernel kernel, unsigned blocks, int nd, void* stream, Args... args) {
+  const int bytes = ring_depth<kSlots, Geom::kBox> * stage_floats(nd, Geom::kBox) *
+                    static_cast<int>(sizeof(float));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, Geom::kLines * 32, bytes, static_cast<cudaStream_t>(stream)>>>(args...);
+  return cudaGetLastError();
+}
+
+}  // namespace mysm

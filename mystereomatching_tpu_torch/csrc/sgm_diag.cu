@@ -5,54 +5,88 @@
 // `sgm_diag_scan_pallas` from `sgm.sgm_directions`).
 //
 // What it computes, for G volumes [G, D, H, W] and a predecessor offset
-// (rv, ru) with rv, ru in {-1, +1}: the recurrence of sgm_line.cuh along
+// (rv, ru) with rv, ru in {-1, +1}: the recurrence of sgm_band.cuh along
 // every diagonal line, each pixel p = (v, u) following p + r = (v + rv,
-// u + ru). A line starts on the predecessor's side, at a pixel whose
-// predecessor lies outside the image: on row rv > 0 ? H-1 : 0 (W lines) or,
-// for the other H-1 rows, on column ru > 0 ? W-1 : 0; so the corner starts
-// one line and there are H + W - 1 lines a volume. Each step moves
-// (-rv, -ru); the longest line has min(H, W) steps.
+// u + ru). Rows are walked from the predecessor's side: step t is row
+// rv > 0 ? H-1-t : t. Number the H + W - 1 lines c in [0, H + W - 1) so
+// that at step t the lines in the image are lo(t) .. lo(t) + W - 1, line c
+// at column c - lo(t), with lo(t) = ru > 0 ? t : H - 1 - t. A line starts
+// where its predecessor leaves the image (on the first row walked, or on
+// the predecessor's side column) and takes L = C there.
 //
-// What bounds it on the H100: latency, as kernel C. Each line is a chain
-// of dependent steps with a warp-wide min reduction, and the lines differ
-// in length (1 to min(H, W) steps), so warps on short lines leave early.
-// Each step reads D costs and writes D path costs.
+// What bounds it on the H100: bytes, as kernel C (sgm_band.cuh).
 //
-// Design: one warp per (volume, diagonal line), with D across the lanes and
-// the carried D-vector in registers (sgm_line.cuh), so a pixel's
-// predecessor is the warp's previous step. The TPU kernel's [G, H, W, D]
+// Design: bands of kLines adjacent lines, staged through shared memory
+// kSteps steps at a time (sgm_band.cuh); at each row a band's pixels are
+// kLines adjacent columns, and the box slides one column a row. Block k of
+// nb = ceil(W / kLines) + 1 a volume takes the bands b = k (mod nb), one
+// after the other: the bands in the image at one step are at most nb
+// consecutive ones, so at most one of them is the block's, and a warp's line
+// of one band leaves the image at least kLines steps before its line of the
+// next band enters, so a warp meets at most one line a stage and restarts its carry
+// from 0 where that line begins. Every block thus walks the H rows once,
+// and at each step the blocks together hold one row's W pixels: the loads
+// and stores of all blocks meet on the same rows, as along H, and no block
+// waits on a longer line than another's. The TPU kernel's [G, H, W, D]
 // transpose, its W tiles with a ping-pong boundary scratch and its 8-row
 // chunk grid existed because VMEM is small; here the volume is read in
-// place through a 2-D stride, with no transpose, skew or flip.
-#include "sgm_line.cuh"
+// place, with no transpose, skew or flip.
+#include "sgm_band.cuh"
 
 namespace {
 
-template <int kSlots>
-__global__ void sgm_diag_kernel(const float* __restrict__ vol,
-                                const float* __restrict__ pscale,
-                                float* __restrict__ out, int g, int nd, int h, int w,
-                                int rv, int ru, float p1, float p2) {
-  const long long warp = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
-  const int n_lines = h + w - 1;
-  if (warp >= static_cast<long long>(g) * n_lines) return;  // whole warps leave
-  const int gi = static_cast<int>(warp / n_lines);
-  const int line = static_cast<int>(warp % n_lines);
-  int v, u;
-  if (line < w) {               // on the start row
-    v = rv > 0 ? h - 1 : 0;
-    u = line;
-  } else {                      // on the start column, the start row left out
-    v = line - w + (rv > 0 ? 0 : 1);
-    u = ru > 0 ? w - 1 : 0;
+struct Diagonal {
+  static constexpr int kLines = 16, kBox = 64, kSteps = kBox / kLines, kCols = kLines;
+  static_assert(kSteps <= kLines, "a warp meets at most one line a stage");
+  int h, w, rv, ru, k, nb;
+
+  __device__ int n_stages() const { return (h + kSteps - 1) / kSteps; }
+  __device__ int lo(int t) const { return ru > 0 ? t : h - 1 - t; }
+  __device__ bool in_image(int c, int t) const { return lo(t) <= c && c <= lo(t) + w - 1; }
+  // the first line of the block's band in the image at step t, or -1
+  __device__ int band_line0(int t) const {
+    const int l = lo(t), b_lo = l / kLines;
+    const int c = (b_lo + ((k - b_lo) % nb + nb) % nb) * kLines;
+    return c <= l + w - 1 ? c : -1;
   }
-  const int rows_left = rv > 0 ? v + 1 : h - v;
-  const int cols_left = ru > 0 ? u + 1 : w - u;
-  const int n_steps = rows_left < cols_left ? rows_left : cols_left;
+  // box row = step kSteps s + b / kCols, box column = line band_line0 + b % kCols
+  __device__ long long pixel(int s, int b) const {
+    const int t = s * kSteps + b / kCols;
+    if (t >= h) return -1;
+    const int c0 = band_line0(t);
+    const int u = c0 + b % kCols - lo(t);
+    if (c0 < 0 || u < 0 || u >= w) return -1;
+    return static_cast<long long>(rv > 0 ? h - 1 - t : t) * w + u;
+  }
+  __device__ int walk(int s, int line, int& idx, int& stride, bool& begins) const {
+    const int t0 = s * kSteps;
+    int first = -1, n = 0, c = -1;
+    for (int r = 0; r < kSteps && t0 + r < h; ++r) {
+      const int c0 = band_line0(t0 + r);
+      if (c0 < 0 || !in_image(c0 + line, t0 + r)) continue;
+      if (first < 0) {
+        first = r;
+        c = c0 + line;
+      }
+      ++n;
+    }
+    idx = max(first, 0) * kCols + line;
+    stride = kCols;
+    begins = first > 0 || t0 == 0 || !in_image(c, t0 - 1);
+    return n;
+  }
+};
+
+template <int kSlots>
+__global__ void __launch_bounds__(Diagonal::kLines * 32, 1)
+    sgm_diag_kernel(const float* __restrict__ vol, const float* __restrict__ pscale,
+                    float* __restrict__ out, int nd, int h, int w, int nb, int rv, int ru,
+                    float p1, float p2) {
+  const int gi = blockIdx.x / nb;
   const long long plane = static_cast<long long>(h) * w;
-  mysm::sgm_line<kSlots>(vol + gi * nd * plane, pscale + gi * plane, out + gi * nd * plane,
-                         plane, static_cast<long long>(v) * w + u,
-                         -(static_cast<long long>(rv) * w + ru), n_steps, nd, p1, p2);
+  const long long vol_off = static_cast<long long>(gi) * nd * plane;
+  mysm::sgm_band<kSlots>(vol + vol_off, pscale + gi * plane, out + vol_off, plane, nd, p1, p2,
+                         Diagonal{h, w, rv, ru, static_cast<int>(blockIdx.x % nb), nb});
 }
 
 }  // namespace
@@ -64,14 +98,13 @@ extern "C" int mysm_sgm_diag(const float* vol, const float* pscale, float* out, 
   if ((rv != 1 && rv != -1) || (ru != 1 && ru != -1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long threads_total = static_cast<long long>(g) * (h + w - 1) * 32;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((threads_total + threads - 1) / threads);
-  const bool ok = mysm::with_slots(nd, [&](auto slots) {
-    sgm_diag_kernel<decltype(slots)::value><<<blocks, threads, 0,
-                                              static_cast<cudaStream_t>(stream)>>>(
-        vol, pscale, out, g, nd, h, w, rv, ru, p1, p2);
+  const int nb = (w + Diagonal::kLines - 1) / Diagonal::kLines + 1;
+  const unsigned blocks = static_cast<unsigned>(static_cast<long long>(g) * nb);
+  cudaError_t err = cudaErrorInvalidValue;
+  mysm::with_slots(nd, [&](auto slots) {
+    constexpr int kSlots = decltype(slots)::value;
+    err = mysm::launch_band<kSlots, Diagonal>(sgm_diag_kernel<kSlots>, blocks, nd, stream, vol,
+                                              pscale, out, nd, h, w, nb, rv, ru, p1, p2);
   });
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

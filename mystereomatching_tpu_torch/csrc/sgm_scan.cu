@@ -5,39 +5,93 @@
 // `sgm_scan_pallas` from `sgm.sgm_directions`).
 //
 // What it computes, for G volumes [G, D, H, W] and one scan direction: the
-// recurrence of sgm_line.cuh along every row (along W) or column (along H),
+// recurrence of sgm_band.cuh along every column (along H) or row (along W),
 // from the far end when `reverse`.
 //
-// What bounds it on the H100: latency. Each scan line is a chain of H or W
-// dependent steps, each with a warp-wide min reduction; only
-// G x (number of lines) warps exist (about 900 for a Teddy-sized pair).
-// Each step reads D costs and writes D path costs.
+// What bounds it on the H100: bytes (sgm_band.cuh): the costs and scales
+// read once and the path costs written once.
 //
-// Design: one warp per (volume, scan line), with D across the lanes
-// (sgm_line.cuh). The loop along the line replaces the TPU's sequential
-// H-chunk grid and its VMEM carry. The scan axis and its direction are a
-// start offset and a stride, so no transposed or flipped copy is made.
-#include "sgm_line.cuh"
+// Design: one block a band of adjacent scan lines of one volume, staged
+// through shared memory a box of kBox pixels at a time (sgm_band.cuh).
+// Along H the band is AlongH::kLines columns and a box holds kBox / kLines
+// rows of them; along W the band is AlongW::kLines rows and a box holds
+// kBox / kLines columns of each, cut at multiples of that from the left in both
+// directions so that row segments stay sector-aligned where the rows are.
+// The loop over stages replaces the TPU's sequential H-chunk grid and its
+// VMEM carry. Directions are start rows, box orders and strides: no
+// transposed or flipped copy is made.
+#include "sgm_band.cuh"
 
 namespace {
 
-template <int kSlots>
-__global__ void sgm_scan_kernel(const float* __restrict__ vol,
-                                const float* __restrict__ pscale,
-                                float* __restrict__ out, int g, int nd, int h,
-                                int w, int along_w, int reverse, float p1, float p2) {
-  const long long warp = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
-  const int n_lines = along_w ? h : w;
-  const int n_steps = along_w ? w : h;
-  if (warp >= static_cast<long long>(g) * n_lines) return;  // whole warps leave
-  const int gi = static_cast<int>(warp / n_lines);
-  const int line = static_cast<int>(warp % n_lines);
+// Lines along H: the band is columns x0 .. x0 + kLines - 1; stage s holds
+// steps t = kSteps s .. + kSteps - 1 (box row t % kSteps, at image row t,
+// or H - 1 - t when reverse), box column = line.
+struct AlongH {
+  static constexpr int kLines = 16, kBox = 64, kSteps = kBox / kLines, kCols = kLines;
+  int h, w, x0, reverse;
+  __device__ int n_stages() const { return (h + kSteps - 1) / kSteps; }
+  __device__ long long pixel(int s, int b) const {
+    const int t = s * kSteps + b / kCols, x = x0 + b % kCols;
+    if (t >= h || x >= w) return -1;
+    return static_cast<long long>(reverse ? h - 1 - t : t) * w + x;
+  }
+  __device__ int walk(int s, int line, int& idx, int& stride, bool& begins) const {
+    idx = line;
+    stride = kCols;
+    begins = s == 0;
+    return x0 + line < w ? min(kSteps, h - s * kSteps) : 0;
+  }
+};
+
+// Lines along W: the band is rows y0 .. y0 + kLines - 1 (box row = line);
+// stage s holds columns x_of(s) .. + kSteps - 1 (box column x % kSteps),
+// counted from the right when reverse, and each line walks them right to
+// left when reverse.
+struct AlongW {
+  static constexpr int kLines = 4, kBox = 64, kSteps = kBox / kLines, kCols = kSteps;
+  int h, w, y0, reverse;
+  __device__ int n_stages() const { return (w + kSteps - 1) / kSteps; }
+  __device__ int x_of(int s) const { return (reverse ? n_stages() - 1 - s : s) * kSteps; }
+  __device__ long long pixel(int s, int b) const {
+    const int y = y0 + b / kCols, x = x_of(s) + b % kCols;
+    if (y >= h || x >= w) return -1;
+    return static_cast<long long>(y) * w + x;
+  }
+  __device__ int walk(int s, int line, int& idx, int& stride, bool& begins) const {
+    const int n = y0 + line < h ? min(kSteps, w - x_of(s)) : 0;
+    idx = line * kCols + (reverse ? n - 1 : 0);
+    stride = reverse ? -1 : 1;
+    begins = s == 0;
+    return n;
+  }
+};
+
+template <int kSlots, class Geom>
+__global__ void __launch_bounds__(Geom::kLines * 32, 1)
+    sgm_scan_kernel(const float* __restrict__ vol, const float* __restrict__ pscale,
+                    float* __restrict__ out, int nd, int h, int w, int n_bands, int reverse,
+                    float p1, float p2) {
+  const int gi = blockIdx.x / n_bands;
+  const int band = blockIdx.x % n_bands;
   const long long plane = static_cast<long long>(h) * w;
-  const long long line_off = along_w ? static_cast<long long>(line) * w : line;
-  const long long stride = along_w ? 1 : w;
-  const long long start = line_off + (reverse ? (n_steps - 1) * stride : 0);
-  mysm::sgm_line<kSlots>(vol + gi * nd * plane, pscale + gi * plane, out + gi * nd * plane,
-                         plane, start, reverse ? -stride : stride, n_steps, nd, p1, p2);
+  const long long vol_off = static_cast<long long>(gi) * nd * plane;
+  mysm::sgm_band<kSlots>(vol + vol_off, pscale + gi * plane, out + vol_off, plane, nd, p1, p2,
+                         Geom{h, w, band * Geom::kLines, reverse});
+}
+
+template <class Geom>
+cudaError_t launch(const float* vol, const float* pscale, float* out, int g, int nd, int h,
+                   int w, int reverse, float p1, float p2, void* stream) {
+  const int n_bands = ((std::is_same_v<Geom, AlongW> ? h : w) + Geom::kLines - 1) / Geom::kLines;
+  const unsigned blocks = static_cast<unsigned>(static_cast<long long>(g) * n_bands);
+  cudaError_t err = cudaErrorInvalidValue;
+  mysm::with_slots(nd, [&](auto slots) {
+    constexpr int kSlots = decltype(slots)::value;
+    err = mysm::launch_band<kSlots, Geom>(sgm_scan_kernel<kSlots, Geom>, blocks, nd, stream, vol,
+                                          pscale, out, nd, h, w, n_bands, reverse, p1, p2);
+  });
+  return err;
 }
 
 }  // namespace
@@ -47,14 +101,7 @@ __global__ void sgm_scan_kernel(const float* __restrict__ vol,
 extern "C" int mysm_sgm_scan(const float* vol, const float* pscale, float* out, int g,
                              int nd, int h, int w, int along_w, int reverse, float p1,
                              float p2, void* stream) {
-  const long long threads_total = static_cast<long long>(g) * (along_w ? h : w) * 32;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((threads_total + threads - 1) / threads);
-  const bool ok = mysm::with_slots(nd, [&](auto slots) {
-    sgm_scan_kernel<decltype(slots)::value><<<blocks, threads, 0,
-                                              static_cast<cudaStream_t>(stream)>>>(
-        vol, pscale, out, g, nd, h, w, along_w, reverse, p1, p2);
-  });
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      along_w ? launch<AlongW>(vol, pscale, out, g, nd, h, w, reverse, p1, p2, stream)
+              : launch<AlongH>(vol, pscale, out, g, nd, h, w, reverse, p1, p2, stream));
 }

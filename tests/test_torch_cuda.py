@@ -66,22 +66,37 @@ def test_arm_taps_kernel(cuda, axis, area):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("nd", [1, 32, 37, 60, 256])
+# The SGM kernels stage bands of scan lines through a ring of 4 stages (3
+# for D > 192): 16 columns 4 rows at a time along H, 4 rows 16 columns at a
+# time along W, 16 diagonals 4 rows at a time. Sizes at a band's width - 1,
+# + 0, + 1, 2 * width + 3 and 1 cut bands and stages short, 3 * steps + 1
+# and 4 * steps + 1 steps (13 and 17 along H and on the diagonals, 49 and
+# 65 along W) wrap the ring, and D crosses the 32-lane slots.
+SGM_DS = [1, 31, 32, 33, 37, 60, 128, 255, 256]
+
+
+@pytest.mark.parametrize("nd", SGM_DS)
+@pytest.mark.parametrize("g,h,w", [(2, 11, 19), (1, 3, 15), (2, 4, 16), (1, 5, 17), (2, 11, 35),
+                                   (1, 1, 1), (2, 1, 49), (1, 2, 65), (1, 13, 1), (2, 49, 13),
+                                   (1, 50, 41)])
 @pytest.mark.parametrize("axis,reverse", [(2, False), (2, True), (3, False), (3, True)])
-def test_sgm_scan_kernel(cuda, nd, axis, reverse):
-    rng = np.random.default_rng(nd)
-    vol = _t((rng.random((2, nd, 11, 19)) * 3).astype(np.float32), cuda)
-    ps = _t(np.where(rng.random((2, 11, 19)) < 0.3, 0.25, 1.0).astype(np.float32), cuda)
+def test_sgm_scan_kernel(cuda, nd, g, h, w, axis, reverse):
+    rng = np.random.default_rng(nd + h * w)
+    vol = _t((rng.random((g, nd, h, w)) * 3).astype(np.float32), cuda)
+    ps = _t(np.where(rng.random((g, h, w)) < 0.3, 0.25, 1.0).astype(np.float32), cuda)
     assert torch.equal(ck.sgm_scan(vol, ps, 1.0, 3.0, axis, reverse),
                        sgm.sgm_scan_plain(vol, ps, 1.0, 3.0, axis, reverse))
 
 
-@pytest.mark.parametrize("nd", [1, 32, 33, 128, 256])
-@pytest.mark.parametrize("shape", [(21, 30), (40, 7), (1, 17), (17, 1)])
+@pytest.mark.parametrize("nd", SGM_DS)
+@pytest.mark.parametrize("shape", [(21, 30), (40, 7), (1, 17), (17, 1), (8, 8), (8, 9), (9, 9),
+                                   (18, 18), (1, 1), (13, 35), (60, 9), (9, 60), (3, 45)])
 @pytest.mark.parametrize("g", [1, 2])
 def test_sgm_diag_kernel(cuda, nd, shape, g):
     """Kernel E on every diagonal, lines of every length, the corner's
-    line included, against its plain version."""
+    line included, against its plain version; 8x8 to 18x18 have 15, 16, 17
+    and 35 lines, and (60, 9), (9, 60) and (3, 45) far more lines of the
+    longest length than a band holds."""
     rng = np.random.default_rng(nd * 7 + shape[0] + g)
     vol = _t((rng.random((g, nd) + shape) * 3).astype(np.float32), cuda)
     ps = _t(np.where(rng.random((g,) + shape) < 0.3, 0.25, 1.0).astype(np.float32), cuda)
@@ -139,13 +154,15 @@ def test_pipeline_on_cuda_equals_cpu(cuda, do_refine):
         assert torch.equal(gpu[key].cpu(), cpu[key])
 
 
-@pytest.mark.parametrize("do_subpixel", [True, False])
-def test_sgm8_full_kernel_path_equals_plain_path(cuda, do_subpixel):
+@pytest.mark.parametrize("do_subpixel,h,w,max_disp", [(True, 64, 96, 11), (False, 64, 96, 11),
+                                                      (True, 37, 53, 20)])
+def test_sgm8_full_kernel_path_equals_plain_path(cuda, do_subpixel, h, w, max_disp):
     """sgm8_full on the card, kernels against their plain versions on the
     same device. The float map is not held against the CPU's: the cost
     stage's plain torch ops (its exp) round differently on the card and the
-    CPU, which moves the subpixel fits' last bits; the integer maps agree."""
-    pair = make_synthetic_pair(h=64, w=96, max_disp=11, seed=3, noise_sigma=0.5)
+    CPU, which moves the subpixel fits' last bits; the integer maps agree.
+    37x53 cuts the SGM kernels' bands and stages short."""
+    pair = make_synthetic_pair(h=h, w=w, max_disp=max_disp, seed=3, noise_sigma=0.5)
     cfg = get_model("sgm8_full", max_disp=pair.max_disp, do_subpixel=do_subpixel)
     pipe = port.StereoPipeline(cfg, device=cuda)
     ck.reset_launches()
