@@ -27,9 +27,12 @@ Phases, each of which raises (exit code 1) on failure:
    every kernel of each path must have launched;
 5. sgm8_full: the preset ``get_model("sgm8_full", max_disp=127)`` on a
    750x1000 pair (Middlebury half resolution, D=128, left and right
-   volumes). Kernels C (4 axis directions) and E (4 diagonals) against
-   their plain versions on the frame's own CBCA volumes [2, 128, 750, 1000],
-   with the device time of each direction; one frame with the launch counts set to 0
+   volumes). Kernel B's four launch kinds (sum along W, area along H, sum
+   along H, area along W) on the frame's CBCA input [128, 750, 1000] and
+   intersected arms, each against its plain version with its bound; kernels
+   C (4 axis directions) and E (4 diagonals) against their plain versions
+   on the frame's own CBCA volumes [2, 128, 750, 1000], with the device time
+   of each direction; one frame with the launch counts set to 0
    just before it, in which all seven kernels must launch (``sgm_diag``
    4 times) and whose three maps must equal the plain path's; its bad-1.0
    rate; kernel and plain frame times, peak device memory, and a profile;
@@ -45,7 +48,7 @@ Phases, each of which raises (exit code 1) on failure:
 Each phase prints its seconds.
 
 The line before the last is ``{"kernels": [...]}`` (each row's ``case``
-names what was measured: kernels C and E at full width, on the
+names what was measured: kernels B, C and E at full width, on the
 ``sgm8_full`` frame, with that frame's launches); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -143,28 +146,38 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, kernel=None, reps: int = 20) -> float:
+def device_ms(fn, kernel=None, reps: int = 20, launches: int = 1, tries: int = 3) -> float:
     """Mean device time of fn() in ms from torch.profiler's device events,
-    after a warm-up: the launches of ``{kernel}_kernel`` only, or every
-    device event when kernel is None. Before each rep a 256 MiB fill evicts
-    the 50 MB L2, so inputs come from HBM as in a frame; the fill's own
-    events are not counted."""
+    after a warm-up: the ``launches`` launches of ``{kernel}_kernel`` a call
+    only, or every device event when kernel is None. Before each rep a
+    256 MiB fill evicts the 50 MB L2, so inputs come from HBM as in a frame;
+    the fill's own events are not counted. The profiler can drop events: a
+    kernel's mean is taken over the launches it recorded, and a profile that
+    recorded fewer than 90% of them is taken again, at most ``tries`` times
+    in all, before this raises."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.fill_(0)
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and "FillFunctor" not in e.name
-          and (kernel is None or f"{kernel}_kernel" in e.name)]
-    if not us:
-        raise AssertionError(f"profiler recorded no device time for {kernel or 'the call'}")
-    return sum(us) / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.fill_(0)
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and "FillFunctor" not in e.name
+              and (kernel is None or f"{kernel}_kernel" in e.name)]
+        if not us:
+            raise AssertionError(f"profiler recorded no device time for {kernel or 'the call'}")
+        if kernel is None:
+            return sum(us) / 1e3 / reps
+        if len(us) >= 0.9 * reps * launches:
+            return sum(us) / 1e3 / (len(us) / launches)
+        print(f"  profiler recorded {len(us)} of {reps * launches} {kernel} launches; "
+              "profiling again")
+    raise AssertionError(f"profiler recorded under 90% of the {kernel} launches {tries} times")
 
 
 def bound(nbytes: float, nops: float):
@@ -307,21 +320,65 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
-def cbca_iteration_case(vol, arms_int, m):
-    """One CBCA iteration (kernel B sum pass along W + area pass along H) as
-    (kernel, plain, bytes, operations)."""
+def frame_cbca_inputs(left, right, cfg):
+    """CBCA's inputs for the left view of a pair of [H, W, 3] float32
+    images: the raw cost volume [D, H, W] and the intersected arms
+    [4, D, H, W] int8, as the main path computes them."""
+    arms = [arms_ops.build_arms(img, cfg) for img in (left, right)]
+    vol = cost_ops.compute_cost_volume(left, right, to_gray(left), to_gray(right), cfg, 0,
+                                       arms=arms[0])
+    return vol, arms_ops.intersect_arms(arms[0], arms[1], cfg.num_disp, 0)
+
+
+def cbca_launches(vol, arms_int, m, iterations=2):
+    """Kernel B's launches in a frame's CBCA (iteration 0: sum along W, area
+    along H; iteration 1: sum along H, area along W), each with the input
+    the frame gives it (the volume chained through the kernel), as
+    (kind, (vol, arm_neg, arm_pos, axis, an1, ap1)); an1/ap1 are None in a
+    sum pass."""
     arm_l, arm_r, arm_u, arm_d = arms_int.unbind(0)
+    horizontal, vertical = (2, arm_l, arm_r), (1, arm_u, arm_d)
+    launches = []
+    for (ax1, an1, ap1), (ax2, an2, ap2) in ((horizontal, vertical),
+                                             (vertical, horizontal))[:iterations]:
+        launches.append((f"sum along {'HW'[ax1 - 1]}", (vol, an1, ap1, ax1, None, None)))
+        vol = ck.arm_taps(vol, an1, ap1, ax1, m)
+        launches.append((f"area along {'HW'[ax2 - 1]}", (vol, an2, ap2, ax2, an1, ap1)))
+        vol = ck.arm_taps(vol, an2, ap2, ax2, m, an1, ap1)
+    return launches
 
-    def run(sum_fn, area_fn):
-        return area_fn(sum_fn(vol, arm_l, arm_r, 2, m), arm_l, arm_r, arm_u, arm_d, 1, m)
 
+def cbca_kinds(vol, arms_int, m, iterations=2):
+    """:func:`cbca_launches` as (kind, (kernel, plain, bytes, operations)):
+    a sum pass reads vol and two int8 arms and writes out, an area pass
+    reads two more arms; one operation a tap in a sum pass, 6 in an area
+    pass."""
     n = vol.numel()
-    nbytes = n * (4 + 2 + 4) + n * (4 + 4 + 4)   # pass 1: vol, 2 int8 arms, out; pass 2: 4 arms
-    nops = taps(arm_l, arm_r, 2, m) + 6 * taps(arm_u, arm_d, 1, m)
-    return (lambda: run(ck.arm_taps,
-                        lambda v, a1, b1, a2, b2, ax, mm: ck.arm_taps(v, a2, b2, ax, mm, a1, b1)),
-            lambda: run(arms_ops.arm_bounded_sum_plain, arms_ops.arm_bounded_sum_area_plain),
-            nbytes, nops)
+    kinds = []
+    for kind, (v, an, ap, ax, an1, ap1) in cbca_launches(vol, arms_int, m, iterations):
+        if an1 is None:
+            case = (lambda v=v, a=an, b=ap, ax=ax: ck.arm_taps(v, a, b, ax, m),
+                    lambda v=v, a=an, b=ap, ax=ax: arms_ops.arm_bounded_sum_plain(v, a, b, ax, m),
+                    n * (4 + 2 + 4), taps(an, ap, ax, m))
+        else:
+            case = (lambda v=v, a=an, b=ap, ax=ax, a1=an1, b1=ap1:
+                    ck.arm_taps(v, a, b, ax, m, a1, b1),
+                    lambda v=v, a=an, b=ap, ax=ax, a1=an1, b1=ap1:
+                    arms_ops.arm_bounded_sum_area_plain(v, a1, b1, a, b, ax, m),
+                    n * (4 + 4 + 4), 6 * taps(an, ap, ax, m))
+        kinds.append((kind, case))
+    return kinds
+
+
+def combined(cases):
+    """Cases run one after the other as one (kernel, plain, bytes, operations)."""
+    return (lambda: tuple(c[0]() for c in cases), lambda: tuple(c[1]() for c in cases),
+            sum(c[2] for c in cases), sum(c[3] for c in cases))
+
+
+def cbca_iteration_case(vol, arms_int, m):
+    """One CBCA iteration (kernel B sum pass along W + area pass along H)."""
+    return combined([case for _, case in cbca_kinds(vol, arms_int, m, 1)])
 
 
 def region_vote_case(lrc, arms0, m):
@@ -360,11 +417,14 @@ def pi_case(disp, image, depth, disp_occ):
 
 def run_case(name, what, case, card_line, library=None):
     kernel, plain, nbytes, nops = case
+    before = ck.launches[name]
     got, want = kernel(), plain()
+    launches = ck.launches[name] - before  # a call's launches of the kernel
     if isinstance(got, tuple):
         got, want = torch.cat(got), torch.cat(want)
     err = compare(name, got, want)
-    ms, host_ms, plain_ms = device_ms(kernel, name), cuda_ms(kernel), cuda_ms(plain, reps=3)
+    ms = device_ms(kernel, name, launches=launches)
+    host_ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, reps=3)
     bound_ms, bound_by = bound(nbytes, nops)
     library_ms = device_ms(library) if library is not None else None
     lib = f", library {library_ms:.4f} ms device" if library_ms is not None else ""
@@ -382,6 +442,25 @@ def fullres_image(rng):
     base = np.kron(rng.integers(0, 256, (-(-h // 24), -(-w // 24), 3)),
                    np.ones((24, 24, 1)))[:h, :w]
     return np.clip(np.round(base + rng.normal(0, 2.0, base.shape)), 0, 255).astype(np.float32)
+
+
+def fullres_inputs(dev) -> dict:
+    """Inputs at full resolution (1988x2880): a blocky image ``img``, the
+    per-disparity intersected arms ``arms_int`` [4, 32, H, W] of it and of
+    itself shifted by 8 px, a random volume ``vol`` [32, H, W], and a blocky
+    map ``disp`` with 10% -1 and 10% -32 holes."""
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(fullres_image(rng)).to(dev)
+    arms_full = [arms_ops.cross_arms(x) for x in (img, torch.roll(img, -8, dims=1))]
+    arms_int = arms_ops.intersect_arms(arms_full[0], arms_full[1], 32, 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    vol = torch.rand((32,) + FULLRES, generator=gen, device=dev)
+    h, w = FULLRES
+    disp = torch.from_numpy(np.kron(rng.integers(0, 256, (-(-h // 24), -(-w // 24))),
+                                    np.ones((24, 24)))[:h, :w].astype(np.int32)).to(dev)
+    r = torch.rand(FULLRES, generator=gen, device=dev)
+    disp = torch.where(r < 0.1, -1, torch.where(r < 0.2, -32, disp)).to(torch.int32)
+    return dict(img=img, arms_int=arms_int, vol=vol, disp=disp)
 
 
 def phase_kernels(dev, card_line: str) -> dict:
@@ -424,24 +503,12 @@ def phase_kernels(dev, card_line: str) -> dict:
     del t, cases
 
     # full resolution: kernel B on a D block, PI on a map with ~20% holes
-    rng = np.random.default_rng(0)
-    img = torch.from_numpy(fullres_image(rng)).to(dev)
-    img_r = torch.roll(img, -8, dims=1)
-    arms_full = [arms_ops.cross_arms(x) for x in (img, img_r)]
-    arms_int = arms_ops.intersect_arms(arms_full[0], arms_full[1], 32, 0)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    vol = torch.rand((32,) + FULLRES, generator=gen, device=dev)
+    f = fullres_inputs(dev)
     run_case("arm_taps", "full resolution, one CBCA iteration on [32,1988,2880]",
-             cbca_iteration_case(vol, arms_int, m), card_line)
-    del vol, arms_int
-    h, w = FULLRES
-    disp = torch.from_numpy(np.kron(rng.integers(0, 256, (-(-h // 24), -(-w // 24))),
-                                    np.ones((24, 24)))[:h, :w].astype(np.int32)).to(dev)
-    r = torch.rand(FULLRES, generator=gen, device=dev)
-    disp = torch.where(r < 0.1, -1, torch.where(r < 0.2, -32, disp)).to(torch.int32)
-    print(f"full-resolution map: {float((disp < 0).float().mean()):.4f} of pixels invalid")
+             cbca_iteration_case(f["vol"], f["arms_int"], m), card_line)
+    print(f"full-resolution map: {float((f['disp'] < 0).float().mean()):.4f} of pixels invalid")
     run_case("pi_scan", "full resolution, one iteration on 1988x2880, depth 20",
-             pi_case(disp, img, 20, -32), card_line)
+             pi_case(f["disp"], f["img"], 20, -32), card_line)
     return rows
 
 
@@ -488,6 +555,10 @@ def run_scenes(dev, do_refine: bool):
     counts = dict(ck.launches)
     label = "default (refine on)" if do_refine else "do_refine=False"
     check_launches(label, counts, cfgs["small_scale"])
+    for name, want in (("arm_taps", 8), ("pi_scan", 2 if do_refine else 0)):
+        if counts[name] != want * len(pairs):
+            raise AssertionError(f"{label}: {name} launched {counts[name]} times in "
+                                 f"{len(pairs)} frames, not {want} a frame")
     for name, pair in pairs.items():
         params, budget = SCENES[name]
         out = outs[name]
@@ -643,10 +714,25 @@ def phase_profile(dev, card_line: str) -> None:
                    PROFILE_FRAMES, warm_up=3)
 
 
+def arm_taps_frame(left, right, cfg, label: str, card_line: str) -> dict:
+    """Kernel B on a frame's CBCA inputs (left view): each of its four
+    launch kinds against its plain version, with its bound, then the four
+    together, whose row is returned."""
+    vol, arms_int = frame_cbca_inputs(left, right, cfg)
+    kinds = cbca_kinds(vol, arms_int, cfg.arm_l_out)
+    for kind, case in kinds:
+        run_case("arm_taps", f"{label}: {kind} on the frame's CBCA input {list(vol.shape)}",
+                 case, card_line)
+    whole = combined([case for _, case in kinds])
+    return run_case("arm_taps", f"{label}: the frame's four launch kinds (sum along W, area "
+                    f"along H, sum along H, area along W) on its CBCA input {list(vol.shape)}",
+                    whole, card_line)
+
+
 def phase_sgm8(dev, card_line: str):
-    """The sgm8_full preset at 750x1000, D=128. Returns the rows of kernels
-    C and E (on the frame's own CBCA volumes) and the frame's launch
-    counts."""
+    """The sgm8_full preset at 750x1000, D=128. Returns the rows of kernel
+    B (on the frame's CBCA input), C and E (on its CBCA volumes) and the
+    frame's launch counts."""
     pair = make_synthetic_pair(**SGM8)
     left = torch.from_numpy(pair.left).to(dev)
     right = torch.from_numpy(pair.right).to(dev)
@@ -655,10 +741,10 @@ def phase_sgm8(dev, card_line: str):
     label = f"sgm8_full {shape[0]}x{shape[1]} D={cfg.num_disp}"
 
     lf, rf = left.to(torch.float32), right.to(torch.float32)
+    rows = {"arm_taps": arm_taps_frame(lf, rf, cfg, label, card_line)}
     vols, _ = compute_volumes(lf, rf, cfg)
     vols = torch.stack([vols[0], vols[1]]).contiguous()
     pscales = pair_scales(lf, rf, cfg, sgm_ops.DIRECTIONS_8)
-    rows = {}
     for name, what in (("sgm_scan", "4 axis directions"), ("sgm_diag", "4 diagonals")):
         rows[name] = run_case(name, f"{label}: {what} over the frame's CBCA volumes "
                               f"{list(vols.shape)}", sgm_case(vols, pscales, cfg, name),
@@ -678,8 +764,9 @@ def phase_sgm8(dev, card_line: str):
     torch.cuda.synchronize()
     counts = dict(ck.launches)
     check_launches(label, counts, cfg)
-    if counts["sgm_diag"] != 4:
-        raise AssertionError(f"{label}: sgm_diag launched {counts['sgm_diag']} times, not 4")
+    for name, want in (("sgm_diag", 4), ("arm_taps", 8), ("pi_scan", 2)):
+        if counts[name] != want:
+            raise AssertionError(f"{label}: {name} launched {counts[name]} times, not {want}")
     check_maps(label, out, cfg, shape, dev)
     with plain_path():
         plain_out = pipe(left, right)
@@ -724,10 +811,10 @@ def main() -> int:
     timed(phase_build)
     rows = timed(phase_kernels, dev, card_line)
     counts = timed(phase_slice, dev)
-    # the rows and launches of kernels C and E are those of the sgm8_full
+    # the rows and launches of kernels B, C and E are those of the sgm8_full
     # frame at full width (the Teddy rows are printed by phase_kernels)
     sgm_rows, sgm8_counts = timed(phase_sgm8, dev, card_line)
-    for name in SGM_KERNELS:
+    for name in sgm_rows:
         rows[name], counts[name] = sgm_rows[name], sgm8_counts[name]
     timed(phase_timing, dev, card_line)
     timed(phase_profile, dev, card_line)

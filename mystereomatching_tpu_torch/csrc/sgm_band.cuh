@@ -48,6 +48,8 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace mysm {
 
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -63,18 +65,6 @@ constexpr int ring_depth =
     kMaxSmem / (4 * stage_floats(32 * kSlots, kBox)) < kMaxRing
         ? kMaxSmem / (4 * stage_floats(32 * kSlots, kBox))
         : kMaxRing;
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 // n steps of one scan line through a box: pixel idx, idx + stride, ...;
 // costs at box[d * kPitch + idx] are replaced by the path costs, scales at

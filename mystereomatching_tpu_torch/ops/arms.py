@@ -148,8 +148,10 @@ def arm_bounded_sum(vol: torch.Tensor, arm_neg: torch.Tensor,
 
 
 def _area(arm_neg: torch.Tensor, arm_pos: torch.Tensor, max_arm: int) -> torch.Tensor:
-    return (torch.clamp(arm_neg, max=max_arm) + torch.clamp(arm_pos, max=max_arm)
-            + 1).to(torch.float32)
+    """min(arm_neg, m) + min(arm_pos, m) + 1 as float32, counted in int32:
+    int8 arms would wrap past 127 once max_arm exceeds 63."""
+    return (torch.clamp(arm_neg.to(torch.int32), max=max_arm)
+            + torch.clamp(arm_pos.to(torch.int32), max=max_arm) + 1).to(torch.float32)
 
 
 def arm_bounded_sum_area_plain(vol: torch.Tensor, an1: torch.Tensor,

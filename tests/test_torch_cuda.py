@@ -50,19 +50,46 @@ def test_arms_grow_kernel(cuda, shape):
                        arms.grow_arms_plain(img, SCHED, 20.0, 1))
 
 
+# Kernel B stages 8 rows over a tile of at most 512 columns along W (W in
+# ceil(W / 512) tiles of a multiple of 4 columns), and walks strips of 32
+# columns down H, 8 rows a stage. The shapes straddle a tile's and a strip's
+# width (-1, +0, +1, 2 * width + 3) and a stage's height, take every W % 4
+# (16-byte copies only for W % 4 == 0), sides shorter than max_arm and of 1,
+# D = 1, and rows longer than a tile; max_arm 0, 1, 34 and 127, with arms at
+# 0 and at 127. For odd D the arm planes start one byte into their buffer,
+# so that they are not 4-byte aligned (their rows then come byte by byte).
+ARM_TAPS_CASES = [((7, 33, 41), 34), ((1, 9, 511), 34), ((2, 9, 512), 34), ((1, 9, 513), 34),
+                  ((1, 5, 1027), 34), ((2, 7, 31), 34), ((1, 8, 32), 34), ((1, 9, 33), 34),
+                  ((2, 19, 67), 34), ((3, 20, 50), 34), ((1, 1, 1), 34), ((2, 1, 30), 34),
+                  ((2, 30, 1), 34), ((1, 5, 6), 34), ((2, 40, 45), 0), ((2, 40, 45), 1),
+                  ((2, 150, 140), 127), ((1, 21, 300), 127), ((2, 9, 9000), 34),
+                  ((2, 9000, 9), 34)]
+
+
+@pytest.mark.parametrize("shape,max_arm", ARM_TAPS_CASES)
 @pytest.mark.parametrize("axis", [1, 2])
 @pytest.mark.parametrize("area", [False, True])
-def test_arm_taps_kernel(cuda, axis, area):
-    rng = np.random.default_rng(axis + 2 * area)
-    vol = _t(rng.random((7, 33, 41)).astype(np.float32), cuda)
-    an1, ap1, an, ap = (_t(rng.integers(0, 40, (7, 33, 41)).astype(np.int8), cuda)
-                        for _ in range(4))
+def test_arm_taps_kernel(cuda, shape, max_arm, axis, area):
+    rng = np.random.default_rng(axis + 2 * area + shape[2] + max_arm)
+
+    def arm():
+        a = rng.integers(0, min(max_arm + 6, 127) + 1, shape)
+        a[rng.random(shape) < 0.1] = 0
+        a[rng.random(shape) < 0.1] = 127
+        a = _t(a.astype(np.int8), cuda)
+        if shape[0] % 2:
+            buf = torch.empty(a.numel() + 1, dtype=torch.int8, device=cuda)
+            a = buf[1:].view(shape).copy_(a)
+        return a
+
+    vol = _t(rng.random(shape).astype(np.float32), cuda)
+    an1, ap1, an, ap = (arm() for _ in range(4))
     if area:
-        got = ck.arm_taps(vol, an, ap, axis, M, an1=an1, ap1=ap1)
-        want = arms.arm_bounded_sum_area_plain(vol, an1, ap1, an, ap, axis, M)
+        got = ck.arm_taps(vol, an, ap, axis, max_arm, an1=an1, ap1=ap1)
+        want = arms.arm_bounded_sum_area_plain(vol, an1, ap1, an, ap, axis, max_arm)
     else:
-        got = ck.arm_taps(vol, an, ap, axis, M)
-        want = arms.arm_bounded_sum_plain(vol, an, ap, axis, M)
+        got = ck.arm_taps(vol, an, ap, axis, max_arm)
+        want = arms.arm_bounded_sum_plain(vol, an, ap, axis, max_arm)
     assert torch.equal(got, want)
 
 
@@ -123,18 +150,33 @@ def test_arm_reduce_kernel(cuda, shape, axis, op):
 
 
 def _holed_map(rng, shape, holes):
+    """A map with -1 and -32 holes: about ``holes`` of the pixels, or, for
+    a pattern name, holes at given places of each warp's 32 pixels (the
+    kernel's warps take 32 consecutive pixels, a half-warp a hole):
+    ``edges`` at lanes 0, 15, 16 and 31, ``one`` one hole, ``odd`` three."""
     d = rng.integers(0, 60, shape).astype(np.int32)
+    if isinstance(holes, str):
+        lane = np.arange(d.size) % 32
+        rel = (lane - 5 * (np.arange(d.size) // 32)) % 32   # moves from warp to warp
+        hole = {"edges": np.isin(lane, [0, 15, 16, 31]), "one": rel == 0,
+                "odd": np.isin(rel, [0, 11, 22])}[holes].reshape(shape)
+        return np.where(hole, np.where(rng.random(shape) < 0.5, -1, -32), d).astype(np.int32)
     r = rng.random(shape)
     return np.where(r < holes / 2, -1, np.where(r < holes, -32, d)).astype(np.int32)
 
 
-@pytest.mark.parametrize("depth", [1, 6, 20])
-@pytest.mark.parametrize("shape,holes", [((45, 70), 0.3), ((9, 50), 0.8), ((1, 1), 1.0),
-                                         ((30, 30), 1.0)])
-def test_pi_scan_kernel(cuda, depth, shape, holes):
+@pytest.mark.parametrize("depth", [1, 6, 20, 256])
+@pytest.mark.parametrize("shape,holes,flat", [
+    ((45, 70), 0.3, False), ((9, 50), 0.8, False), ((1, 1), 1.0, False), ((30, 30), 1.0, False),
+    ((20, 64), "edges", False), ((20, 64), "one", False), ((21, 61), "odd", False),
+    ((1, 300), 0.5, False), ((300, 1), 0.5, False), ((45, 70), 0.5, True)])
+def test_pi_scan_kernel(cuda, depth, shape, holes, flat):
+    """holes=1.0: all-invalid warps, no valid pixel within reach; flat: one
+    colour everywhere, so every ray ties and the lowest ray must win."""
     rng = np.random.default_rng(depth + shape[0])
-    disp = _holed_map(rng, shape, holes)     # holes=1.0: no valid pixel within reach
-    img = rng.integers(0, 256, shape + (3,)).astype(np.float32)
+    disp = _holed_map(rng, shape, holes)
+    img = np.full(shape + (3,), 77.0, np.float32) if flat else \
+        rng.integers(0, 256, shape + (3,)).astype(np.float32)
     offs = _t(refine.pi_offsets(depth), cuda)
     d, im = _t(disp, cuda), _t(img, cuda)
     assert torch.equal(ck.pi_scan(d, im, offs, -32),

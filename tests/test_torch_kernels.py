@@ -76,6 +76,59 @@ def test_arm_taps_area_plain_exact(axis):
     np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("axis", [1, 2])
+def test_arm_taps_area_plain_equals_integer_count(axis):
+    """The fact kernel B's area mode rests on: the ascending float sum of the
+    support counts equals their integer sum (a prefix-sum difference)
+    converted to float, here at max_arm 127 with arms up to 127, where a
+    window holds 255 counts of up to 255 each."""
+    rng = np.random.default_rng(20 + axis)
+    m = 127
+    vol = rng.random((3, 140, 150)).astype(np.float32)
+    an1, ap1, an, ap = (_arms8(rng, vol.shape, 128) for _ in range(4))
+    an[:, ::7], ap[:, ::5] = 127, 127    # windows reaching max_arm on either side
+    an[:, 3::11], ap[:, 4::13] = 0, 0
+    t = [torch.from_numpy(a) for a in (vol, an1, ap1, an, ap)]
+    ours = arms.arm_bounded_sum_area_plain(*t, axis, m)
+
+    n = vol.shape[axis]
+    count = (np.minimum(an1, m).astype(np.int64) + np.minimum(ap1, m) + 1)
+    prefix = np.concatenate([np.zeros_like(count.take([0], axis)), np.cumsum(count, axis)], axis)
+    pos = np.arange(n).reshape([-1 if a == axis else 1 for a in range(3)])
+    lo = pos - np.minimum(np.minimum(an, m), pos)
+    hi = pos + np.minimum(np.minimum(ap, m), n - 1 - pos)
+    area = (np.take_along_axis(prefix, hi + 1, axis)
+            - np.take_along_axis(prefix, lo, axis)).astype(np.float32)
+    assert area.max() > 1 << 14  # far beyond what int8 or a short window holds
+    sums = arms.arm_bounded_sum_plain(t[0], t[3], t[4], axis, m).numpy()
+    np.testing.assert_array_equal(ours.numpy(), sums / np.maximum(area, np.float32(1.0)))
+
+
+@pytest.mark.parametrize("axis", [1, 2])
+def test_arm_taps_area_plain_long_arms_match_pallas(axis):
+    """At max_arm 127 with arms up to 127 a support count reaches 255, past
+    int8: the plain area pass counts it in int32, as the JAX package's
+    Pallas kernel (``_taps_kernel_area``, interpret mode) does. The costs
+    are small integers, so every sum is exact whatever order each side adds
+    in, and the two agree exactly where their area counts do."""
+    from mystereomatching_tpu.ops.pallas_kernels import sublane_pass_area
+
+    rng = np.random.default_rng(30 + axis)
+    m = 127
+    vol = rng.integers(0, 8, (2, 150, 20)).astype(np.float32)
+    an1, ap1, an, ap = (_arms8(rng, vol.shape, 128) for _ in range(4))
+    an1[:, ::3], ap1[:, ::2] = 127, 127  # support counts of 255
+    an[:, 5::7], ap[:, 4::5] = 127, 127  # windows reaching max_arm on either side
+    assert (np.minimum(an1, m).astype(np.int32) + np.minimum(ap1, m) + 1).max() == 255
+    ours = arms.arm_bounded_sum_area_plain(
+        *(torch.from_numpy(a) for a in (vol, an1, ap1, an, ap)), axis, m)
+    # sublane_pass_area reduces along axis 1 of [B, A, L]
+    swap = (lambda a: np.swapaxes(a, 1, 2)) if axis == 2 else (lambda a: a)
+    ref = sublane_pass_area(*(jnp.asarray(swap(a)) for a in (vol, an1, ap1, an, ap)), m,
+                            interpret=True)
+    np.testing.assert_array_equal(ours.numpy(), swap(np.asarray(ref)))
+
+
 def test_cbca_plain_exact():
     rng = np.random.default_rng(3)
     vol = rng.random((6, 28, 33)).astype(np.float32)

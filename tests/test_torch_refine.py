@@ -96,13 +96,19 @@ def test_region_vote_histogram_form_raises():
                            torch.ones((4, 4, 5), dtype=torch.int32), 3, int_ratio_quirk=False)
 
 
+@pytest.mark.parametrize("flat", [False, True])
 @pytest.mark.parametrize("depth", [6, 20])
-def test_proper_interpolation_exact(depth):
+def test_proper_interpolation_exact(depth, flat):
+    """flat: one colour everywhere, so every ray that finds a valid pixel
+    ties on the colour difference and the lowest ray must win."""
     rng = np.random.default_rng(depth)
     img, _, holed = _scene(rng, 30, 44, holes=0.6)
     holed[12] = np.where(np.arange(44) % 2, -1, -32)  # an all-invalid row
-    img[:3, :4] = 0.0                                 # colour differences of 255
-    img[-3:, -4:] = 255.0
+    if flat:
+        img[:] = 77.0
+    else:
+        img[:3, :4] = 0.0                             # colour differences of 255
+        img[-3:, -4:] = 255.0
     ref = jax_refine.proper_interpolation(jnp.asarray(holed), jnp.asarray(img), depth, -32)
     ours = refine.proper_interpolation(torch.from_numpy(holed), torch.from_numpy(img),
                                        depth, -32)

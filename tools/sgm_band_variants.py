@@ -6,7 +6,8 @@ Run from the repository root on a machine with an NVIDIA GPU and nvcc:
     python3 tools/sgm_band_variants.py [variant ...]
 
 Each variant is a copy of ``csrc/sgm_scan.cu``, ``csrc/sgm_diag.cu`` and
-``csrc/sgm_band.cuh`` under ``build/variants/`` with other band shapes,
+``csrc/sgm_band.cuh`` under ``build/variants/`` (other headers come from
+``csrc/``) with other band shapes,
 another ring depth, or with the recurrence left out. Its name says which:
 ``h16x64_w4x64_d16x64_r4`` has bands of 16 lines and boxes of 64 pixels
 along H, 4 lines and 64 pixels along W, 16 lines and 64 pixels on the
@@ -84,23 +85,24 @@ def variant_sources(name: str) -> dict:
     return {"sgm_band.cuh": hdr, "sgm_scan.cu": scan, "sgm_diag.cu": diag}
 
 
-def build(names) -> dict:
-    """name -> the loaded library of each variant; prints its ptxas lines."""
+def compile_libs(dirs: dict, files, entry_points, kernel_re: str) -> dict:
+    """name -> the loaded library of each name's directory ``dirs[name]``:
+    nvcc builds ``files`` of it into one library under ``build/variants/``
+    (one nvcc a name, all at once; headers not beside the sources come from
+    this tree's csrc/), and binds ``entry_points`` with this tree's
+    signatures. Prints the registers and spills of each kernel whose mangled
+    name matches ``kernel_re`` (its first group is printed)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc")
+    stem = "_".join(Path(f).stem for f in files)
     procs, libs = {}, {}
-    for name in names:
-        d = OUT / re.sub(r"\W", "_", name)
-        d.mkdir(parents=True, exist_ok=True)
-        src = Path(name)
-        if not src.is_dir():
-            src = d
-            for file, text in variant_sources(name).items():
-                (d / file).write_text(text)
-        libs[name] = d / "lib.so"
-        cmd = [nvcc, *ck.NVCC_FLAGS, "-shared", "-o", str(libs[name]),
-               str(src / "sgm_scan.cu"), str(src / "sgm_diag.cu")]
+    for name, src in dirs.items():
+        out = OUT / re.sub(r"\W", "_", name)
+        out.mkdir(parents=True, exist_ok=True)
+        libs[name] = out / f"lib_{stem}.so"
+        cmd = [nvcc, *ck.NVCC_FLAGS, "-I", str(ck.CSRC), "-shared", "-o", str(libs[name]),
+               *(str(Path(src) / f) for f in files)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
     for name, p in procs.items():
@@ -109,15 +111,31 @@ def build(names) -> dict:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            m = re.search(r"(sgm_(?:scan|diag)_kernelILi[24]E\w*?)EEv", line)
+            m = re.search(kernel_re, line)
             if m and "Compiling entry" in line:
                 print(f"{name}: {m.group(1)}: {lines[i + 2].strip()}; {lines[i + 3].strip()}")
         lib = ctypes.CDLL(str(libs[name]))
-        for fn in ("mysm_sgm_scan", "mysm_sgm_diag"):
+        for fn in entry_points:
             getattr(lib, fn).argtypes = ck._SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
+
+
+def build(names) -> dict:
+    """name -> the loaded library of each variant; prints its ptxas lines."""
+    dirs = {}
+    for name in names:
+        if Path(name).is_dir():
+            dirs[name] = name
+            continue
+        d = OUT / re.sub(r"\W", "_", name)
+        d.mkdir(parents=True, exist_ok=True)
+        for file, text in variant_sources(name).items():
+            (d / file).write_text(text)
+        dirs[name] = d
+    return compile_libs(dirs, ("sgm_scan.cu", "sgm_diag.cu"), ("mysm_sgm_scan", "mysm_sgm_diag"),
+                        r"(sgm_(?:scan|diag)_kernelILi[24]E\w*?)EEv")
 
 
 def main() -> int:
