@@ -12,7 +12,8 @@ Phases, each of which raises (exit code 1) on failure:
    (one nvcc a source, all started together);
 3. kernels: each kernel against its plain torch version on the card, on
    the inputs the default preset gives it for a Teddy-sized pair (375x450,
-   D=60), with its device time (torch.profiler), its time between CUDA
+   D=60), with its device time (torch.profiler; CUDA events around each
+   call where the profiler drops events), its time between CUDA
    events around the wrapper, its plain version's and its bound (kernel E,
    ``sgm_diag``, on the same CBCA volumes); then kernel B on a
    [32, 1988, 2880] volume and the proper-interpolation kernel on a
@@ -36,12 +37,26 @@ Phases, each of which raises (exit code 1) on failure:
    just before it, in which all seven kernels must launch (``sgm_diag``
    4 times) and whose three maps must equal the plain path's; its bad-1.0
    rate; kernel and plain frame times, peak device memory, and a profile;
-6. timing: ms/frame and MP*disp/s of the kernel path and of the same
+6. fullres_occfill: the preset at its two bench-suite configurations
+   (scripts/bench_suite.py:53-58), uncut: A, ``get_model("fullres_occfill",
+   max_disp=191)`` at 1000x1400 (float32, left and right volumes), and B,
+   ``get_model("fullres_occfill", max_disp=255, vol_dtype="bfloat16",
+   compute_both_volumes=False)`` at 1280x1500 (one bfloat16 volume, the
+   cooperative WTA). On B's own inputs the bfloat16 instances of kernels B
+   (its four launch kinds on the CBCA input), C (4 axis directions) and E
+   (4 diagonals) on the CBCA volume, and D on the cooperative WTA's two
+   volumes, each against its plain version with its bound at the bfloat16
+   widths. Each frame with the launch counts set to 0 just before it: the
+   asserted launches (kernel B 8 times in A, 4 in B, and in B every launch
+   of B, C and D a bfloat16 one), the three maps equal to the plain path's,
+   both DISP_OCC and DISP_MIS in its classifying LR check, its bad-1.0
+   rate, kernel and plain frame times, peak device memory and a profile;
+7. timing: ms/frame and MP*disp/s of the kernel path and of the same
    pipeline with every kernel replaced by its plain torch version, for the
    full default configuration and for ``do_refine=False``, in alternating
    rounds; the refine chain alone, kernel and plain; and the peak device
    memory of a frame;
-7. profile: ``torch.profiler`` over frames of the full default
+8. profile: ``torch.profiler`` over frames of the full default
    configuration: device time, idle share, launches per frame, the largest
    device kernels and each hand kernel's device time a launch.
 
@@ -49,7 +64,9 @@ Each phase prints its seconds.
 
 The line before the last is ``{"kernels": [...]}`` (each row's ``case``
 names what was measured: kernels B, C and E at full width, on the
-``sgm8_full`` frame, with that frame's launches); the last line is
+``sgm8_full`` frame, with that frame's launches; the bfloat16 instances
+``*_bf16`` on frame B, with its launches; ``ms_from`` says whether ``ms``
+came from the profiler or from CUDA events); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -113,6 +130,18 @@ SGM_KERNELS = {  # name -> (kernel, plain version, its four directions)
     "sgm_scan": (ck.sgm_scan, sgm_ops.sgm_scan_plain, AXES),
     "sgm_diag": (ck.sgm_diag_scan, sgm_ops.sgm_diag_scan_plain, DIAGONALS),
 }
+# fullres_occfill's bench-suite configurations: frame -> (make_synthetic_pair
+# arguments, the preset's overrides)
+OCCFILL = {
+    "A": (dict(h=1000, w=1400, max_disp=191, seed=0), {}),
+    "B": (dict(h=1280, w=1500, max_disp=255, seed=0),
+          dict(vol_dtype="bfloat16", compute_both_volumes=False)),
+}
+# a fullres_occfill frame's launches, kernel B's aside (8 with two volumes, 4 with one)
+OCCFILL_LAUNCHES = {"arms_grow": 2, "sgm_scan": 4, "wta": 2, "arm_reduce": 8, "pi_scan": 2,
+                    "sgm_diag": 0}
+BF16_ROWS = {f"{name}_bf16": name for name in ck.launches_bf16}  # kernels line rows
+OCCFILL_REPS = 3
 FRAME_REPS = 10
 PROFILE_FRAMES = 5
 SGM8_REPS = 5
@@ -146,38 +175,60 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, kernel=None, reps: int = 20, launches: int = 1, tries: int = 3) -> float:
-    """Mean device time of fn() in ms from torch.profiler's device events,
-    after a warm-up: the ``launches`` launches of ``{kernel}_kernel`` a call
-    only, or every device event when kernel is None. Before each rep a
-    256 MiB fill evicts the 50 MB L2, so inputs come from HBM as in a frame;
-    the fill's own events are not counted. The profiler can drop events: a
-    kernel's mean is taken over the launches it recorded, and a profile that
-    recorded fewer than 90% of them is taken again, at most ``tries`` times
-    in all, before this raises."""
+def event_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
+    """Mean ms of fn() between two CUDA events recorded just before and just
+    after each call, with the L2 flushed before each start event, after a
+    warm-up: the device span of the call, gaps between its launches
+    included."""
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    stops = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    fn()
+    torch.cuda.synchronize()
+    for start, stop in zip(starts, stops):
+        flush.fill_(0)
+        start.record()
+        fn()
+        stop.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in zip(starts, stops)) / reps
+
+
+def device_ms(fn, kernel=None, reps: int = 20, launches: int = 1, tries: int = 3):
+    """(mean device ms of fn(), where it was read). From torch.profiler's
+    device events, after a warm-up: the ``launches`` launches of
+    ``{kernel}_kernel`` a call only, or every device event when kernel is
+    None. Before each rep a 256 MiB fill evicts the 50 MB L2, so inputs come
+    from HBM as in a frame; the fill's own events are not counted. The
+    profiler can drop events: a kernel's mean is taken over the launches it
+    recorded, and a profile that recorded under 90% of them (or of the
+    fills, when kernel is None) is taken again, at most ``tries`` times in
+    all. After that the time is read from CUDA events around each call
+    (:func:`event_ms`), and the second value says so."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
     fn()
     torch.cuda.synchronize()
+    what = kernel or "the call"
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 flush.fill_(0)
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA and "FillFunctor" not in e.name
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        fills = sum("FillFunctor" in e.name for e in device)
+        us = [e.time_range.elapsed_us() for e in device if "FillFunctor" not in e.name
               and (kernel is None or f"{kernel}_kernel" in e.name)]
-        if not us:
-            raise AssertionError(f"profiler recorded no device time for {kernel or 'the call'}")
-        if kernel is None:
-            return sum(us) / 1e3 / reps
-        if len(us) >= 0.9 * reps * launches:
-            return sum(us) / 1e3 / (len(us) / launches)
-        print(f"  profiler recorded {len(us)} of {reps * launches} {kernel} launches; "
-              "profiling again")
-    raise AssertionError(f"profiler recorded under 90% of the {kernel} launches {tries} times")
+        if kernel is None and us and fills >= 0.9 * reps:
+            return sum(us) / 1e3 / reps, "profiler"
+        if kernel is not None and len(us) >= 0.9 * reps * launches:
+            return sum(us) / 1e3 / (len(us) / launches), "profiler"
+        want = f"{reps * launches} {kernel} launches" if kernel else f"{reps} fills"
+        print(f"  profiler recorded {len(us) if kernel else fills} of {want}; profiling again")
+    print(f"  profiler recorded under 90% of the events of {what} {tries} times; its device "
+          "time is read from CUDA events around each call")
+    return event_ms(fn, flush, reps), "cuda events"
 
 
 def bound(nbytes: float, nops: float):
@@ -267,8 +318,8 @@ def sgm_case(vols, pscales, cfg, name: str):
     """Kernel C (``sgm_scan``) over the four axis directions of the
     [G, D, H, W] volumes, or kernel E (``sgm_diag``) over the four
     diagonals, as (kernel, plain, bytes, operations): each direction reads
-    the volumes and the scales once and writes its path costs once; 7
-    operations an element."""
+    the volumes (float32 or bfloat16) and the float32 scales once and writes
+    its path costs once; 7 operations an element."""
     kernel, plain, dirs = SGM_KERNELS[name]
 
     def run(fn):
@@ -276,7 +327,8 @@ def sgm_case(vols, pscales, cfg, name: str):
                             for d in dirs])
 
     return (lambda: run(kernel), lambda: run(plain),
-            len(dirs) * (vols.numel() * 8 + vols[:, 0].numel() * 4), len(dirs) * 7 * vols.numel())
+            len(dirs) * (vols.numel() * 2 * vols.element_size() + vols[:, 0].numel() * 4),
+            len(dirs) * 7 * vols.numel())
 
 
 def teddy_inputs(dev) -> dict:
@@ -350,22 +402,22 @@ def cbca_launches(vol, arms_int, m, iterations=2):
 
 def cbca_kinds(vol, arms_int, m, iterations=2):
     """:func:`cbca_launches` as (kind, (kernel, plain, bytes, operations)):
-    a sum pass reads vol and two int8 arms and writes out, an area pass
-    reads two more arms; one operation a tap in a sum pass, 6 in an area
-    pass."""
-    n = vol.numel()
+    a sum pass reads vol and two int8 arms and writes out (10 bytes an
+    element in float32, 6 in bfloat16), an area pass reads two more arms
+    (12 or 8); one operation a tap in a sum pass, 6 in an area pass."""
+    n, es = vol.numel(), vol.element_size()
     kinds = []
     for kind, (v, an, ap, ax, an1, ap1) in cbca_launches(vol, arms_int, m, iterations):
         if an1 is None:
             case = (lambda v=v, a=an, b=ap, ax=ax: ck.arm_taps(v, a, b, ax, m),
                     lambda v=v, a=an, b=ap, ax=ax: arms_ops.arm_bounded_sum_plain(v, a, b, ax, m),
-                    n * (4 + 2 + 4), taps(an, ap, ax, m))
+                    n * (2 * es + 2), taps(an, ap, ax, m))
         else:
             case = (lambda v=v, a=an, b=ap, ax=ax, a1=an1, b1=ap1:
                     ck.arm_taps(v, a, b, ax, m, a1, b1),
                     lambda v=v, a=an, b=ap, ax=ax, a1=an1, b1=ap1:
                     arms_ops.arm_bounded_sum_area_plain(v, a1, b1, a, b, ax, m),
-                    n * (4 + 4 + 4), 6 * taps(an, ap, ax, m))
+                    n * (2 * es + 4), 6 * taps(an, ap, ax, m))
         kinds.append((kind, case))
     return kinds
 
@@ -423,17 +475,17 @@ def run_case(name, what, case, card_line, library=None):
     if isinstance(got, tuple):
         got, want = torch.cat(got), torch.cat(want)
     err = compare(name, got, want)
-    ms = device_ms(kernel, name, launches=launches)
+    ms, ms_from = device_ms(kernel, name, launches=launches)
     host_ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, reps=3)
     bound_ms, bound_by = bound(nbytes, nops)
-    library_ms = device_ms(library) if library is not None else None
+    library_ms = device_ms(library)[0] if library is not None else None
     lib = f", library {library_ms:.4f} ms device" if library_ms is not None else ""
     print(f"kernel {name}: equal to plain (max |err| {err}); {what}: {ms:.4f} ms device "
           f"({host_ms:.4f} ms between events) vs plain {plain_ms:.4f} ms{lib}; bound "
           f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.3f} MB, {nops / 1e6:.3f} M ops), "
           f"{bound_ms / ms:.3f} of it [{card_line}]")
     return dict(max_abs_err=err, ms=ms, host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, case=what)
+                bound_by=bound_by, library_ms=library_ms, ms_from=ms_from, case=what)
 
 
 def fullres_image(rng):
@@ -590,10 +642,11 @@ def phase_slice(dev) -> dict:
     return run_scenes(dev, do_refine=True)
 
 
-def frame_ms(pipe, left, right, reps: int = FRAME_REPS):
+def frame_ms(pipe, left, right, reps: int = FRAME_REPS, warm_up: bool = True):
     """Quartiles of host-clock ms per frame, each synchronised, after a
-    warm-up frame."""
-    pipe(left, right)
+    warm-up frame unless ``warm_up`` is false."""
+    if warm_up:
+        pipe(left, right)
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -751,8 +804,8 @@ def phase_sgm8(dev, card_line: str):
                               card_line)
         kernel, _, dirs = SGM_KERNELS[name]
         for d in dirs:
-            ms = device_ms(lambda: kernel(vols, pscales[d], cfg.sgm_p1_eff, cfg.sgm_p2_eff,
-                                          *scan_args(d)), name)
+            ms, _ = device_ms(lambda: kernel(vols, pscales[d], cfg.sgm_p1_eff, cfg.sgm_p2_eff,
+                                             *scan_args(d)), name)
             print(f"kernel {name} direction (rv, ru) = {d}: {ms:.4f} ms device on "
                   f"{list(vols.shape)} [{card_line}]")
     del vols, pscales
@@ -797,6 +850,146 @@ def phase_sgm8(dev, card_line: str):
     return rows, counts
 
 
+def bf16_kernel_rows(left, right, cfg, label: str, card_line: str) -> dict:
+    """The bfloat16 instances of kernels B, C, E and D on a bfloat16 frame's
+    own inputs, each against its plain version: B's four launch kinds on the
+    CBCA input, C's four axis directions and E's four diagonals on the CBCA
+    volume, D on the cooperative WTA's two volumes (with torch.argmin on
+    each as the library call). Returns the rows of the kernels line."""
+    rows = {}
+    vol, arms_int = frame_cbca_inputs(left, right, cfg)
+    vol = vol.to(torch.bfloat16)
+    kinds = cbca_kinds(vol, arms_int, cfg.arm_l_out)
+    for kind, case in kinds:
+        run_case("arm_taps", f"{label}: bf16 {kind} on the frame's CBCA input {list(vol.shape)}",
+                 case, card_line)
+    rows["arm_taps_bf16"] = run_case(
+        "arm_taps", f"{label}: bf16, the frame's four launch kinds (sum along W, area along H, "
+        f"sum along H, area along W) on its CBCA input {list(vol.shape)}",
+        combined([case for _, case in kinds]), card_line)
+    del kinds
+    float32_instance("arm_taps", "the four launch kinds",
+                     combined([c for _, c in cbca_kinds(vol.float(), arms_int, cfg.arm_l_out)]),
+                     4, card_line)
+    agg = agg_ops.cbca(vol, arms_int, cfg.cbca_iterations, cfg.arm_l_out)
+    del vol, arms_int
+    vols = agg[None].contiguous()
+    pscales = {d: sgm_ops.penalty_scale(left, *d, cfg.sgm_cor_dif_thres,
+                                        cfg.sgm_redu_coeff)[None].contiguous()
+               for d in sgm_ops.DIRECTIONS_8}
+    for name, what in (("sgm_scan", "4 axis directions"), ("sgm_diag", "4 diagonals")):
+        rows[f"{name}_bf16"] = run_case(
+            name, f"{label}: bf16, {what} over the frame's CBCA volume {list(vols.shape)}",
+            sgm_case(vols, pscales, cfg, name), card_line)
+        float32_instance(name, what, sgm_case(vols.float(), pscales, cfg, name), 4, card_line)
+    sgm_vol = sgm_ops.sgm_multi([agg], [left], 4, cfg.sgm_p1_eff, cfg.sgm_p2_eff,
+                                cfg.sgm_cor_dif_thres, cfg.sgm_redu_coeff)[0]
+    del vols, agg
+    coop = [wta_ops.cooperative_volume(sgm_vol, lor, cfg.choose_small) for lor in (0, 1)]
+    del sgm_vol
+    cs = cfg.choose_small
+    hw = coop[0][0].numel()
+    rows["wta_bf16"] = run_case(
+        "wta", f"{label}: bf16, both volumes of the cooperative WTA {list(coop[0].shape)}",
+        (lambda: tuple(ck.wta(v, cs) for v in coop),
+         lambda: tuple(wta_ops.wta_plain(v, cs) for v in coop),
+         2 * (coop[0].numel() * 2 + hw * 4), 2 * coop[0].numel()),
+        card_line, lambda: tuple(torch.argmin(v, 0) for v in coop))
+    coop = [v.float() for v in coop]
+    float32_instance("wta", "both volumes", (lambda: tuple(ck.wta(v, cs) for v in coop),), 2,
+                     card_line)
+    return rows
+
+
+def float32_instance(name: str, what: str, case, launches: int, card_line: str) -> None:
+    """Prints the device time of kernel ``name``'s float32 instance on the
+    same values widened to float32 (``case[0]``), beside its bfloat16 row:
+    what the storage type alone changes at this shape."""
+    ms, _ = device_ms(case[0], name, launches=launches)
+    print(f"kernel {name}: float32 instance on the same values, {what}: {ms:.4f} ms device "
+          f"[{card_line}]")
+
+
+def occfill_frame(name: str, card_line: str, dev):
+    """One fullres_occfill frame of OCCFILL: the bfloat16 kernels on its
+    inputs (frame B), then the frame through StereoPipeline with the
+    launch counts set to 0 just before it. Returns (rows, launches,
+    bfloat16 launches)."""
+    params, overrides = OCCFILL[name]
+    pair = make_synthetic_pair(**params)
+    left = torch.from_numpy(pair.left).to(dev)
+    right = torch.from_numpy(pair.right).to(dev)
+    cfg = get_model("fullres_occfill", max_disp=params["max_disp"], **overrides)
+    shape = (params["h"], params["w"])
+    bf16 = cfg.vol_dtype == "bfloat16"
+    label = (f"fullres_occfill {name} {shape[0]}x{shape[1]} D={cfg.num_disp} {cfg.vol_dtype}"
+             f"{', cooperative WTA' if not cfg.compute_both_volumes else ', left+right'}")
+    rows = bf16_kernel_rows(left.float(), right.float(), cfg, label, card_line) if bf16 else {}
+
+    pipe = StereoPipeline(cfg, device=dev)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    out = pipe(left, right)
+    torch.cuda.synchronize()
+    counts, counts_bf16 = dict(ck.launches), dict(ck.launches_bf16)
+    check_launches(label, counts, cfg)
+    want = dict(OCCFILL_LAUNCHES, arm_taps=8 if cfg.compute_both_volumes else 4)
+    for kernel, n in want.items():
+        if counts[kernel] != n:
+            raise AssertionError(f"{label}: {kernel} launched {counts[kernel]} times, not {n}")
+    for kernel, n in counts_bf16.items():
+        if n != (want[kernel] if bf16 else 0):
+            raise AssertionError(f"{label}: {n} of {kernel}'s launches were bfloat16 ones")
+    print(f"{label}: bfloat16 launches {json.dumps(counts_bf16)}")
+    check_maps(label, out, cfg, shape, dev)
+    with plain_path():
+        plain_out = pipe(left, right)
+    for key in ("disp_left_raw", "disp_right_raw", "disparity"):
+        if not torch.equal(out[key], plain_out[key]):
+            raise AssertionError(f"{label}: kernel and plain paths disagree on {key}")
+    del plain_out
+    lrc = refine_ops.lr_consistency_classify(out["disp_left_raw"], out["disp_right_raw"],
+                                             cfg.num_disp, cfg.lr_max_diff, cfg.disp_occ,
+                                             cfg.disp_mis)
+    n_occ, n_mis = int((lrc == cfg.disp_occ).sum()), int((lrc == cfg.disp_mis).sum())
+    if not (n_occ and n_mis):
+        raise AssertionError(f"{label}: the LR check gave {n_occ} DISP_OCC and {n_mis} "
+                             "DISP_MIS pixels; the frame must reach both")
+    bad1 = bad_pixel_rate(out["disparity"], torch.from_numpy(pair.gt).to(dev),
+                          torch.from_numpy(pair.masks["nonocc"]).to(dev))
+    print(f"{label}: kernel path equal to plain path on the three maps; LR check: {n_occ} px "
+          f"DISP_OCC, {n_mis} px DISP_MIS, of {lrc.numel()}; final map: "
+          f"{int((out['disparity'] < 0).sum())} px negative; bad-1.0 nonocc {bad1:.6f}")
+    del out, lrc
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    pipe(left, right)
+    torch.cuda.synchronize()
+    print(f"timing {label}: peak device memory of a kernel-path frame "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB [{card_line}]")
+    mp_disp = shape[0] * shape[1] * cfg.num_disp / 1e6
+    for path, ctx, reps in (("plain", plain_path, 1),
+                            ("kernel", contextlib.nullcontext, OCCFILL_REPS),
+                            ("kernel", contextlib.nullcontext, OCCFILL_REPS),
+                            ("plain", plain_path, 1)):
+        with ctx():
+            q1, med, q3 = frame_ms(pipe, left, right, reps, warm_up=path == "kernel")
+        print(f"timing {label}, {path} path: median {med:.3f} ms/frame (quartiles "
+              f"{q1:.3f}-{q3:.3f}, n={reps}), {mp_disp / med * 1e3:.3f} MP*disp/s [{card_line}]")
+    profile_frames(pipe, left, right, label, card_line, 2, warm_up=1)
+    return rows, counts, counts_bf16
+
+
+def phase_occfill(dev, card_line: str):
+    """fullres_occfill's frames A and B. Returns the rows of the bfloat16
+    kernels and frame B's bfloat16 launches."""
+    occfill_frame("A", card_line, dev)
+    torch.cuda.empty_cache()
+    rows, _, counts_bf16 = occfill_frame("B", card_line, dev)
+    torch.cuda.empty_cache()
+    return rows, counts_bf16
+
+
 def timed(phase, *args):
     t0 = time.perf_counter()
     result = phase(*args)
@@ -816,11 +1009,17 @@ def main() -> int:
     sgm_rows, sgm8_counts = timed(phase_sgm8, dev, card_line)
     for name in sgm_rows:
         rows[name], counts[name] = sgm_rows[name], sgm8_counts[name]
+    bf16_rows, bf16_counts = timed(phase_occfill, dev, card_line)
     timed(phase_timing, dev, card_line)
     timed(phase_profile, dev, card_line)
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
                     launches=counts[name], **rows[name])
                for name, (src, tpu) in KERNELS.items()]
+    # the bfloat16 instances, with frame B's launches (kernel E runs on no
+    # 4-path frame: its row has 0)
+    kernels += [dict(name=row, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
+                     launches=bf16_counts[name], **bf16_rows[row])
+                for row, name in BF16_ROWS.items()]
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,9 @@ is the reference it is tested against.
 Ported so far: the default preset ``census_grad_cbca_sgm``
 (``default_config()``) end to end: censusGrad cost -> cross arms -> CBCA ->
 4-path SGM -> WTA -> LR check -> region vote -> proper interpolation ->
-3x3 median.
+3x3 median; ``sgm8_full`` (8-path SGM, uniqueness check, subpixel
+enhancement); and ``fullres_occfill`` (classifying LR check, background
+fill), in float32 or with bfloat16 volumes and the cooperative WTA.
 """
 
 from mystereomatching_tpu_torch.config import MatchConfig, default_config

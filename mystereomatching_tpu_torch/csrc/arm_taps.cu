@@ -13,7 +13,8 @@
 // with e a unit step along H or W, arms capped at max_arm and taps off the
 // image skipped, and area1 = min(an1, m) + min(ap1, m) + 1 the support count
 // of the first pass (arms an1/ap1). All arms are int8 [D, H, W] planes of
-// the per-disparity intersected arms.
+// the per-disparity intersected arms. vol and out are float32, or
+// bfloat16 (the JAX package's vol_dtype="bfloat16").
 //
 // Sum order: ascending offset, from x - an to x + ap, starting from 0.0f,
 // with __fadd_rn: the order of the JAX CPU path
@@ -23,6 +24,12 @@
 // in [-255, 255] and a window holds at most 255 of them, so every partial
 // sum is an integer below 2^24 in magnitude and the ascending float sum is
 // exactly the integer sum converted to float.
+//
+// In bfloat16 the order is the same and every add rounds to bfloat16, as
+// the JAX CPU path computes it (storage.cuh): acc = bf16(acc + tap) from
+// 0, the area count likewise as a running bfloat16 sum of the area1
+// values (exact up to 256, rounded beyond, unlike the float32 count), and
+// the area mode's result is bf16(float(sum) / max(float(count), 1)).
 //
 // What bounds it on the H100: bytes. A pass reads vol and the int8 arm
 // planes once and writes out once; at the mean window of real scenes (about
@@ -35,7 +42,10 @@
 // when W % 4 == 0 and vol is 16-byte aligned, 4-byte ones otherwise), the
 // int8 arm planes as the aligned 16-byte words that cover each row. The
 // area count min(an1, m) + min(ap1, m) + 1 is computed once per staged
-// element and kept as int16.
+// element and kept as int16. A bfloat16 volume is staged as the aligned
+// 16-byte words covering its row segment, as the arm planes are, and
+// widened into the float rows the sums read; the sums then run as in
+// float32, rounding as above.
 // - Along W: a warp owns one row of the [D * H, W] volume over a tile of at
 //   most kTileCap columns plus max_arm columns of halo on each side (whole
 //   rows up to kTileCap). It stages the row, counts its areas and sums
@@ -50,10 +60,12 @@
 //   in 32 different banks; a window is added as at most two runs of
 //   consecutive ring rows.
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
+#include "storage.cuh"
 
 namespace {
 
@@ -61,6 +73,8 @@ using mysm::cp_async16;
 using mysm::cp_async4;
 using mysm::cp_async_commit;
 using mysm::cp_async_wait;
+using mysm::kIsBf16;
+using mysm::round_to;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -73,13 +87,14 @@ static_assert(kStrip == 32 && kStage % kWarps == 0, "along H: a lane a column, a
 
 __host__ __device__ constexpr int round_up(int x, int a) { return (x + a - 1) / a * a; }
 
+template <typename T>
 struct Volume {
-  const float* vol;
+  const T* vol;
   const int8_t* an;   // the output's arms
   const int8_t* ap;
   const int8_t* an1;  // the first pass's arms (area mode)
   const int8_t* ap1;
-  float* out;
+  T* out;
   long long rows;  // D * H rows of W elements
   int h, w, max_arm;
 };
@@ -106,6 +121,8 @@ __device__ __forceinline__ void copy_word(int8_t* dst, const int8_t* src, int q)
 }
 constexpr int kBWords = kStrip / kWord + 1;  // along H: the words covering a strip's int8 row
 constexpr int kBPitch = kWord * kBWords;     // along H: the bytes a staged int8 row takes
+constexpr int kVWords = 2 * kStrip / kWord + 1;  // along H: the same for a bfloat16 row
+constexpr int kVPitch = kWord * kVWords;
 
 // Starts copying the covering words of [src, src + n) into dst, word q by
 // thread t + i * nt; returns first_byte(src).
@@ -115,31 +132,50 @@ __device__ __forceinline__ int stage_bytes(int8_t* dst, const int8_t* src, int n
   return first_byte(src);
 }
 
+// The area count of a window: an exact int in float32, a float holding the
+// running bfloat16 sum in bfloat16.
+template <typename T>
+using Count = std::conditional_t<kIsBf16<T>, float, int>;
+
 // Adds n taps, `stride` elements apart from vol[0], to acc in ascending
-// offset, and in area mode their area counts (from area[0]) to count.
-template <bool kArea>
+// offset, and in area mode their area counts (from area[0]) to count,
+// rounding each add to T.
+template <typename T, bool kArea>
 __device__ __forceinline__ void add_taps(const float* vol, const int16_t* area, int n,
-                                         int stride, float& acc, int& count) {
+                                         int stride, float& acc, Count<T>& count) {
 #pragma unroll 4
   for (int k = 0; k < n; ++k) {
-    acc = __fadd_rn(acc, vol[k * stride]);
-    if (kArea) count += area[k * stride];
+    acc = round_to<T>(__fadd_rn(acc, vol[k * stride]));
+    if constexpr (kArea && kIsBf16<T>) {
+      count = round_to<T>(__fadd_rn(count, static_cast<float>(area[k * stride])));
+    } else if constexpr (kArea) {
+      count += area[k * stride];
+    }
   }
 }
 
-// The output: the sum, or in area mode the sum over the counted area.
-template <bool kArea>
-__device__ __forceinline__ float result(float acc, int count) {
-  return kArea ? __fdiv_rn(acc, fmaxf(static_cast<float>(count), 1.0f)) : acc;
+// The output: the sum, or in area mode the sum over the counted area, as T.
+template <typename T, bool kArea>
+__device__ __forceinline__ T result(float acc, Count<T> count) {
+  return mysm::narrow<T>(kArea ? __fdiv_rn(acc, fmaxf(static_cast<float>(count), 1.0f)) : acc);
+}
+
+// Along W, the bytes of a warp's row of shared memory: vol widened to float
+// (pitch floats), the area counts (pitch int16, area mode), the planes an,
+// ap (an1, ap1) at bpitch bytes each, then in bfloat16 the words covering
+// the staged vol segment.
+template <typename T, bool kArea>
+__host__ __device__ constexpr int w_row_bytes(int pitch, int bpitch) {
+  return 4 * pitch + (kArea ? 2 * pitch + 2 * bpitch : 0) + 2 * bpitch +
+         (kIsBf16<T> ? 2 * pitch + 2 * kWord : 0);
 }
 
 // Along W: warp j of block b owns row 8 (b / n_tiles) + j of the [D * H, W]
-// volume over tile b % n_tiles, columns [c0, c0 + tile) and the halo. A row
-// of shared memory: vol (pitch floats), the area counts (pitch int16, area
-// mode), then the planes an, ap (an1, ap1) at bpitch bytes each.
-template <bool kArea, bool kVec>
+// volume over tile b % n_tiles, columns [c0, c0 + tile) and the halo, in a
+// row of shared memory laid out as w_row_bytes says.
+template <typename T, bool kArea, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-    arm_taps_kernel_w(Volume v, int tile, int n_tiles, int pitch, int bpitch) {
+    arm_taps_kernel_w(Volume<T> v, int tile, int n_tiles, int pitch, int bpitch) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const long long r = static_cast<long long>(blockIdx.x / n_tiles) * kWarps + warp;
@@ -150,12 +186,15 @@ __global__ void __launch_bounds__(kThreads)
   const int s = max(0, c0 - m) & ~3;
   const int e = kVec ? round_up(min(w, c1 + m), 4) : min(w, c1 + m);
   const int n = e - s;
-  const int row_bytes = 4 * pitch + (kArea ? 2 * pitch + 2 * bpitch : 0) + 2 * bpitch;
-  float* vs = reinterpret_cast<float*>(smem + warp * row_bytes);
+  float* vs = reinterpret_cast<float*>(smem + warp * w_row_bytes<T, kArea>(pitch, bpitch));
   int16_t* as = reinterpret_cast<int16_t*>(vs + pitch);
   int8_t* bs = reinterpret_cast<int8_t*>(as + (kArea ? pitch : 0));
+  int8_t* vraw = bs + (kArea ? 4 : 2) * bpitch;  // bfloat16: the words covering vol
   const long long off = r * w + s;
-  if (kVec) {
+  int sh_vol = 0;
+  if constexpr (kIsBf16<T>) {
+    sh_vol = stage_bytes(vraw, reinterpret_cast<const int8_t*>(v.vol + off), 2 * n, lane, 32);
+  } else if (kVec) {
     for (int q = lane; 4 * q < n; q += 32) cp_async16(vs + 4 * q, v.vol + off + 4 * q);
   } else {
     for (int q = lane; q < n; q += 32) cp_async4(vs + q, v.vol + off + q);
@@ -170,10 +209,13 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_commit();
   cp_async_wait<0>();
   __syncwarp();
-  if (kArea) {
+  if (kArea || kIsBf16<T>) {
     for (int q = lane; q < n; q += 32) {
-      as[q] = static_cast<int16_t>(
-          area1(bs[2 * bpitch + sh_an1 + q], bs[3 * bpitch + sh_ap1 + q], m));
+      if constexpr (kIsBf16<T>) vs[q] = mysm::widen(reinterpret_cast<const T*>(vraw + sh_vol)[q]);
+      if (kArea) {
+        as[q] = static_cast<int16_t>(
+            area1(bs[2 * bpitch + sh_an1 + q], bs[3 * bpitch + sh_ap1 + q], m));
+      }
     }
     __syncwarp();
   }
@@ -182,9 +224,9 @@ __global__ void __launch_bounds__(kThreads)
     const int lo = -min(min(static_cast<int>(bs[sh_an + q]), m), c);
     const int hi = min(min(static_cast<int>(bs[bpitch + sh_ap + q]), m), w - 1 - c);
     float acc = 0.0f;
-    int count = 0;
-    add_taps<kArea>(vs + q + lo, as + q + lo, hi - lo + 1, 1, acc, count);
-    v.out[r * w + c] = result<kArea>(acc, count);
+    Count<T> count = 0;
+    add_taps<T, kArea>(vs + q + lo, as + q + lo, hi - lo + 1, 1, acc, count);
+    v.out[r * w + c] = result<T, kArea>(acc, count);
   }
 }
 
@@ -196,12 +238,14 @@ __global__ void __launch_bounds__(kThreads)
 // as the words covering it). At iteration i stage i is in, the next
 // kInFlight - 2 stages are in flight, and the warps sum the rows of stage
 // i - lag (lag * kStage >= max_arm). In area mode an1 and ap1 go into a
-// buffer of kInFlight stages, whose counts are taken once stage i is in.
+// buffer of kInFlight stages, whose counts are taken once stage i is in; a
+// bfloat16 vol goes into such a buffer too ([kInFlight][kStage][kVPitch],
+// each row as the words covering it), and is widened into the ring then.
 // Thread (warp j, lane) handles rows j, j + 8, j + 16 and j + 24 of a
 // stage, in column lane of the strip.
-template <bool kArea, bool kVec>
+template <typename T, bool kArea, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-    arm_taps_kernel_h(Volume v, int n_strips, int ring, int lag) {
+    arm_taps_kernel_h(Volume<T> v, int n_strips, int ring, int lag) {
   constexpr int kEach = kStage / kWarps;  // rows of a stage a thread handles
   constexpr int kPlanes = kArea ? 4 : 2;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -209,6 +253,7 @@ __global__ void __launch_bounds__(kThreads)
   int16_t* as = reinterpret_cast<int16_t*>(vs + ring * kStrip);
   int8_t* own = reinterpret_cast<int8_t*>(as + (kArea ? ring * kStrip : 0));
   int8_t* first = own + ring * 2 * kBPitch;  // an1, ap1: [kInFlight][kStage][2][kBPitch]
+  int8_t* vstage = first + (kArea ? kInFlight * kStage * 2 * kBPitch : 0);  // bfloat16 vol
   const int m = v.max_arm, h = v.h, w = v.w;
   const int s = static_cast<int>(blockIdx.x % n_strips) * kStrip;
   const long long plane_row = static_cast<long long>(blockIdx.x / n_strips) * h;
@@ -227,13 +272,30 @@ __global__ void __launch_bounds__(kThreads)
   auto shift = [&](int p, int vo) {
     return static_cast<int>((low[p] + static_cast<unsigned>(vo) * static_cast<unsigned>(w)) % kWord);
   };
+  // the same for the bfloat16 vol's staged rows
+  const unsigned low_vol =
+      static_cast<unsigned>(reinterpret_cast<uintptr_t>(v.vol + plane_row * w + s));
+  auto vol_shift = [&](int vo) {
+    return static_cast<int>(
+        (low_vol + static_cast<unsigned>(vo) * static_cast<unsigned>(2 * w)) % kWord);
+  };
 
   auto load = [&](int st) {  // vol and the int8 planes of stage st
     if (st < n_stages) {
       const int v0 = st * kStage, rows = min(kStage, h - v0);
       const int slot0 = (st % ring_stages) * kStage;
       const long long g0 = (plane_row + v0) * w + s;
-      if (kVec) {
+      if constexpr (kIsBf16<T>) {
+        int8_t* buf = vstage + (st % kInFlight) * kStage * kVPitch;
+        for (int it = threadIdx.x; it < kStage * kVWords; it += kThreads) {
+          const int q = it % kVWords, row = it / kVWords;
+          const int8_t* src =
+              reinterpret_cast<const int8_t*>(v.vol + g0 + row * static_cast<long long>(w));
+          if (row < rows && q < covering_words(src, 2 * (e - s))) {
+            copy_word(buf + row * kVPitch, src, q);
+          }
+        }
+      } else if (kVec) {
         for (int it = threadIdx.x; it < kStage * kStrip / 4; it += kThreads) {
           const int row = it / (kStrip / 4), q = 4 * (it % (kStrip / 4));
           if (row < rows && s + q < e) {
@@ -270,15 +332,24 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_wait<kInFlight - 2>();
     __syncthreads();  // stage i is in; iteration i - 1's sums are done
     load(i + kInFlight - 1);
-    if (kArea && i < n_stages) {  // stage i's area counts
+    if ((kArea || kIsBf16<T>) && i < n_stages) {  // stage i's area counts, bfloat16 vol
       const int8_t* buf = first + (i % kInFlight) * kStage * 2 * kBPitch;
+      const int8_t* vbuf = vstage + (i % kInFlight) * kStage * kVPitch;
 #pragma unroll
       for (int x = 0; x < kEach; ++x) {
         const int row = row_of(x), vo = i * kStage + row;
         if (vo >= h) continue;
-        as[(slot_i + row) * kStrip + lane] = static_cast<int16_t>(
-            area1(buf[row * 2 * kBPitch + shift(2, vo) + lane],
-                  buf[(row * 2 + 1) * kBPitch + shift(3, vo) + lane], m));
+        if (kArea) {
+          as[(slot_i + row) * kStrip + lane] = static_cast<int16_t>(
+              area1(buf[row * 2 * kBPitch + shift(2, vo) + lane],
+                    buf[(row * 2 + 1) * kBPitch + shift(3, vo) + lane], m));
+        }
+        if constexpr (kIsBf16<T>) {
+          if (s + lane < e) {
+            vs[(slot_i + row) * kStrip + lane] =
+                mysm::widen(reinterpret_cast<const T*>(vbuf + row * kVPitch + vol_shift(vo))[lane]);
+          }
+        }
       }
       __syncthreads();
     }
@@ -303,10 +374,10 @@ __global__ void __launch_bounds__(kThreads)
       }
       const int n1 = min(n, ring - a);
       float acc = 0.0f;
-      int count = 0;
-      add_taps<kArea>(vs + a * kStrip + lane, as + a * kStrip + lane, n1, kStrip, acc, count);
-      add_taps<kArea>(vs + lane, as + lane, n - n1, kStrip, acc, count);
-      v.out[(plane_row + vo) * w + s + lane] = result<kArea>(acc, count);
+      Count<T> count = 0;
+      add_taps<T, kArea>(vs + a * kStrip + lane, as + a * kStrip + lane, n1, kStrip, acc, count);
+      add_taps<T, kArea>(vs + lane, as + lane, n - n1, kStrip, acc, count);
+      v.out[(plane_row + vo) * w + s + lane] = result<T, kArea>(acc, count);
     }
   }
 }
@@ -323,42 +394,67 @@ cudaError_t launch_with(Kernel kernel, long long blocks, int bytes, cudaStream_t
   return cudaGetLastError();
 }
 
-template <bool kArea>
-cudaError_t launch(const Volume& v, bool along_w, cudaStream_t stream) {
+template <typename T, bool kArea>
+cudaError_t launch(const Volume<T>& v, bool along_w, cudaStream_t stream) {
   const int m = v.max_arm;
-  const bool vec = v.w % 4 == 0 && reinterpret_cast<uintptr_t>(v.vol) % 16 == 0;
+  // float32 rows of 4-byte-aligned length take 16-byte copies; bfloat16
+  // ones come as covering words whatever W
+  const bool vec =
+      !kIsBf16<T> && v.w % 4 == 0 && reinterpret_cast<uintptr_t>(v.vol) % 16 == 0;
   if (along_w) {
     const int n_tiles0 = (v.w + kTileCap - 1) / kTileCap;
     const int tile = round_up((v.w + n_tiles0 - 1) / n_tiles0, 4);
     const int n_tiles = (v.w + tile - 1) / tile;
     const int pitch = round_up(tile + 2 * m + 8, 8);  // the staged columns, at most
     const int bpitch = round_up(pitch + 2 * kWord - 4, kWord);  // the words covering them
-    const int bytes = kWarps * (4 * pitch + (kArea ? 2 * pitch + 2 * bpitch : 0) + 2 * bpitch);
+    const int bytes = kWarps * w_row_bytes<T, kArea>(pitch, bpitch);
     const long long blocks = (v.rows + kWarps - 1) / kWarps * n_tiles;
-    auto kernel = vec ? arm_taps_kernel_w<kArea, true> : arm_taps_kernel_w<kArea, false>;
+    auto kernel = arm_taps_kernel_w<T, kArea, false>;
+    if constexpr (!kIsBf16<T>) {
+      if (vec) kernel = arm_taps_kernel_w<T, kArea, true>;
+    }
     return launch_with(kernel, blocks, bytes, stream, v, tile, n_tiles, pitch, bpitch);
   }
   const int n_strips = (v.w + kStrip - 1) / kStrip;
   const int lag = (m + kStage - 1) / kStage;
   const int ring = (kInFlight + 2 * lag) * kStage;  // >= (kInFlight + lag) * kStage + m
   const int bytes = ring * kStrip * (4 + (kArea ? 2 : 0)) + ring * 2 * kBPitch +
-                    (kArea ? kInFlight * kStage * 2 * kBPitch : 0);
+                    (kArea ? kInFlight * kStage * 2 * kBPitch : 0) +
+                    (kIsBf16<T> ? kInFlight * kStage * kVPitch : 0);
   const long long blocks = v.rows / v.h * n_strips;
-  auto kernel = vec ? arm_taps_kernel_h<kArea, true> : arm_taps_kernel_h<kArea, false>;
+  auto kernel = arm_taps_kernel_h<T, kArea, false>;
+  if constexpr (!kIsBf16<T>) {
+    if (vec) kernel = arm_taps_kernel_h<T, kArea, true>;
+  }
   return launch_with(kernel, blocks, bytes, stream, v, n_strips, ring, lag);
+}
+
+template <typename T>
+int launch_mode(const void* vol, const int8_t* an, const int8_t* ap, const int8_t* an1,
+                const int8_t* ap1, void* out, int nd, int h, int w, int along_w, int max_arm,
+                void* stream) {
+  if (max_arm < 0 || max_arm > 127) return static_cast<int>(cudaErrorInvalidValue);
+  const Volume<T> v{static_cast<const T*>(vol), an, ap, an1, ap1, static_cast<T*>(out),
+                    static_cast<long long>(nd) * h, h, w, max_arm};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(an1 != nullptr ? launch<T, true>(v, along_w != 0, s)
+                                         : launch<T, false>(v, along_w != 0, s));
 }
 
 }  // namespace
 
-// vol/out: [D, H, W] float32; an/ap (and an1/ap1 in area mode, else null):
+// vol/out: [D, H, W] float32 (mysm_arm_taps) or bfloat16
+// (mysm_arm_taps_bf16); an/ap (and an1/ap1 in area mode, else null):
 // [D, H, W] int8. along_w: 1 reduces along W, 0 along H. max_arm: 0-127.
 extern "C" int mysm_arm_taps(const float* vol, const int8_t* an, const int8_t* ap,
                              const int8_t* an1, const int8_t* ap1, float* out,
                              int nd, int h, int w, int along_w, int max_arm,
                              void* stream) {
-  if (max_arm < 0 || max_arm > 127) return static_cast<int>(cudaErrorInvalidValue);
-  const Volume v{vol, an, ap, an1, ap1, out, static_cast<long long>(nd) * h, h, w, max_arm};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(an1 != nullptr ? launch<true>(v, along_w != 0, s)
-                                         : launch<false>(v, along_w != 0, s));
+  return launch_mode<float>(vol, an, ap, an1, ap1, out, nd, h, w, along_w, max_arm, stream);
+}
+extern "C" int mysm_arm_taps_bf16(const void* vol, const int8_t* an, const int8_t* ap,
+                                  const int8_t* an1, const int8_t* ap1, void* out, int nd, int h,
+                                  int w, int along_w, int max_arm, void* stream) {
+  return launch_mode<mysm::bf16>(vol, an, ap, an1, ap1, out, nd, h, w, along_w, max_arm,
+                                 stream);
 }

@@ -12,7 +12,11 @@
 // (so the first step gives L = C, the reference's scan-edge rule,
 // h:2277-2279). The operation order is that of sgm._scan_down and the TPU
 // kernels; with -fmad=false the result is bit-identical to the plain torch
-// versions.
+// versions. The volumes are float32 or bfloat16 (the storage type T). In
+// bfloat16 every operation rounds to bfloat16 (storage.cuh), P1 s and P2 s
+// too before they are added, as the JAX CPU path computes it; the carried
+// path costs stay in registers as floats holding bfloat16 values, and the
+// edge fill is bfloat16's largest finite value.
 //
 // What bounds it on the H100: bytes. Each direction reads the costs and the
 // penalty scales once and writes the path costs once; the recurrence itself
@@ -31,10 +35,14 @@
 // - All threads copy the next stages' boxes from device memory into a ring of
 //   ring_depth stages in shared memory with 4-byte cp.async (consecutive
 //   threads on consecutive columns), while the warps run the recurrence on the
-//   current stage. The ring is kMaxRing stages deep where that many fit in a
-//   block's 227 KB, else as deep as fits. TMA does not fit: it needs 16-byte
-//   global strides, and W * 4 is not one in general (W = 450, and the odd
-//   widths of the tests).
+//   current stage. A bfloat16 cost is copied as the aligned 4-byte word that
+//   holds it, into its float's slot of the box; the recurrence takes the
+//   word's half that holds the cost (from the parity of its element index,
+//   kept for each box pixel) and widens it. A box therefore takes the same
+//   shared memory in both types. The ring is kMaxRing stages deep where
+//   that many fit in a block's 227 KB, else as deep as fits. TMA does not
+//   fit: it needs 16-byte global strides, and W * 4 is not one in general
+//   (W = 450, and the odd widths of the tests).
 // - The recurrence reads C from the box and writes L in place over it; after
 //   the stage the block stores the box back out, row segments whole. One
 //   __syncthreads before and one after the recurrence, per stage.
@@ -43,12 +51,13 @@
 //   the copies (32 consecutive pixels of one disparity) stay conflict-free.
 #pragma once
 
-#include <cfloat>
+#include <cstdint>
 #include <type_traits>
 
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
+#include "storage.cuh"
 
 namespace mysm {
 
@@ -56,40 +65,62 @@ constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kMaxRing = 4;           // stages in shared memory, at most
 constexpr int kMaxSmem = 227 * 1024;  // bytes of shared memory a block may have
 
-// floats of one stage: a box of kBox pixels for nd disparities, and its scales
-__host__ __device__ constexpr int stage_floats(int nd, int box) { return nd * (box + 1) + box; }
+// 4-byte words of one stage: a box of kBox pixels for nd disparities, its
+// scales and, in bfloat16, the parity of each pixel's element index in
+// disparity plane 0
+template <typename T>
+__host__ __device__ constexpr int stage_words(int nd, int box) {
+  return nd * (box + 1) + box + (kIsBf16<T> ? box : 0);
+}
 
 // stages in shared memory for up to 32 kSlots disparities
-template <int kSlots, int kBox>
+template <typename T, int kSlots, int kBox>
 constexpr int ring_depth =
-    kMaxSmem / (4 * stage_floats(32 * kSlots, kBox)) < kMaxRing
-        ? kMaxSmem / (4 * stage_floats(32 * kSlots, kBox))
+    kMaxSmem / (4 * stage_words<T>(32 * kSlots, kBox)) < kMaxRing
+        ? kMaxSmem / (4 * stage_words<T>(32 * kSlots, kBox))
         : kMaxRing;
 
+// The cost in box slot i: the float itself, or in bfloat16 the half of the
+// staged word that holds it (the upper one when its element index is odd).
+template <typename T>
+__device__ __forceinline__ float box_cost(const float* box, int i, int odd) {
+  if constexpr (kIsBf16<T>) {
+    const unsigned word = __float_as_uint(box[i]);
+    return __uint_as_float(odd ? word & 0xffff0000u : word << 16);
+  } else {
+    return box[i];
+  }
+}
+
 // n steps of one scan line through a box: pixel idx, idx + stride, ...;
-// costs at box[d * kPitch + idx] are replaced by the path costs, scales at
-// scale[idx]. prev carries the line's last path costs between calls.
-template <int kSlots, int kPitch>
-__device__ __forceinline__ void sgm_steps(float* box, const float* scale, int idx, int stride,
-                                          int n, int nd, float p1, float p2,
-                                          float (&prev)[kSlots]) {
+// costs at box[d * kPitch + idx] are replaced by the path costs (floats),
+// scales at scale[idx], and in bfloat16 the parities at parity[idx], which
+// flip from one disparity plane to the next when the plane is odd
+// (plane_odd). prev carries the line's last path costs between calls.
+template <typename T, int kSlots, int kPitch>
+__device__ __forceinline__ void sgm_steps(float* box, const float* scale, const int* parity,
+                                          int plane_odd, int idx, int stride, int n, int nd,
+                                          float p1, float p2, float (&prev)[kSlots]) {
+  constexpr float kBig = kMaxValue<T>;
   const int lane = threadIdx.x & 31;
   for (int t = 0; t < n; ++t, idx += stride) {
+    const int odd0 = kIsBf16<T> ? parity[idx] : 0;
     float c[kSlots];
 #pragma unroll
     for (int k = 0; k < kSlots; ++k) {
-      c[k] = k * 32 + lane < nd ? box[(k * 32 + lane) * kPitch + idx] : 0.0f;
+      const int d = k * 32 + lane;
+      c[k] = d < nd ? box_cost<T>(box, d * kPitch + idx, odd0 ^ (d & plane_odd)) : 0.0f;
     }
     const float s = scale[idx];
-    float min_l = FLT_MAX;
+    float min_l = kBig;
 #pragma unroll
     for (int k = 0; k < kSlots; ++k) {
       if (k * 32 + lane < nd) min_l = fminf(min_l, prev[k]);
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) min_l = fminf(min_l, __shfl_xor_sync(kFullMask, min_l, o));
-    const float p1s = __fmul_rn(p1, s);
-    const float jump = __fadd_rn(min_l, __fmul_rn(p2, s));
+    const float p1s = round_to<T>(__fmul_rn(p1, s));
+    const float jump = round_to<T>(__fadd_rn(min_l, round_to<T>(__fmul_rn(p2, s))));
 
     float cur[kSlots];
 #pragma unroll
@@ -97,17 +128,18 @@ __device__ __forceinline__ void sgm_steps(float* box, const float* scale, int id
       const int d = k * 32 + lane;
       // d - 1: lane - 1 of this slot, or lane 31 of the slot below
       float up = __shfl_up_sync(kFullMask, prev[k], 1);
-      const float below = __shfl_sync(kFullMask, k > 0 ? prev[k - 1] : FLT_MAX, 31);
+      const float below = __shfl_sync(kFullMask, k > 0 ? prev[k - 1] : kBig, 31);
       if (lane == 0) up = below;
       // d + 1: lane + 1 of this slot, or lane 0 of the slot above
       float dn = __shfl_down_sync(kFullMask, prev[k], 1);
-      const float above = __shfl_sync(kFullMask, k + 1 < kSlots ? prev[k + 1] : FLT_MAX, 0);
+      const float above = __shfl_sync(kFullMask, k + 1 < kSlots ? prev[k + 1] : kBig, 0);
       if (lane == 31) dn = above;
-      if (d + 1 >= nd) dn = FLT_MAX;
+      if (d + 1 >= nd) dn = kBig;
       cur[k] = 0.0f;
       if (d < nd) {
-        const float best = fminf(fminf(prev[k], jump), __fadd_rn(fminf(up, dn), p1s));
-        cur[k] = __fsub_rn(__fadd_rn(c[k], best), min_l);
+        const float best =
+            fminf(fminf(prev[k], jump), round_to<T>(__fadd_rn(fminf(up, dn), p1s)));
+        cur[k] = round_to<T>(__fsub_rn(round_to<T>(__fadd_rn(c[k], best)), min_l));
         box[d * kPitch + idx] = cur[k];
       }
     }
@@ -117,7 +149,7 @@ __device__ __forceinline__ void sgm_steps(float* box, const float* scale, int id
 }
 
 // One block's band of one volume: vol/out [D, H, W] costs and path costs
-// and scale [H, W], with plane = H * W. The geometry gives
+// (float or bfloat16) and scale [H, W], with plane = H * W. The geometry gives
 //   kLines:                  the band's scan lines, one warp each;
 //   kBox:                    the pixels of a stage's box;
 //   kCols:                   the box's pixels on each image row (a box
@@ -131,15 +163,15 @@ __device__ __forceinline__ void sgm_steps(float* box, const float* scale, int id
 //                            box pixel of the first and the stride, and
 //                            whether the first is the first step of a line
 //                            (the warp's carry restarts from 0 there).
-template <int kSlots, class Geom>
-__device__ __forceinline__ void sgm_band(const float* __restrict__ vol,
+template <typename T, int kSlots, class Geom>
+__device__ __forceinline__ void sgm_band(const T* __restrict__ vol,
                                          const float* __restrict__ scale,
-                                         float* __restrict__ out, long long plane, int nd,
+                                         T* __restrict__ out, long long plane, int nd,
                                          float p1, float p2, const Geom& geom) {
   constexpr int kBox = Geom::kBox, kPitch = kBox + 1;
   constexpr int kThreads = Geom::kLines * 32;
   constexpr int kDStride = kThreads / kBox;  // disparities between a thread's copies
-  constexpr int kRing = ring_depth<kSlots, kBox>;
+  constexpr int kRing = ring_depth<T, kSlots, kBox>;
   static_assert(kThreads % kBox == 0, "every thread copies the same pixel of each box");
   static_assert(kRing >= 2, "the ring holds the current stage and the next");
   extern __shared__ float ring[];
@@ -147,14 +179,29 @@ __device__ __forceinline__ void sgm_band(const float* __restrict__ vol,
   const int d0 = threadIdx.x / kBox;      // its first disparity
   const int line = threadIdx.x / 32;
   const int n_stages = geom.n_stages();
-  auto box_of = [&](int s) { return ring + (s % kRing) * stage_floats(nd, kBox); };
+  const int plane_odd = static_cast<int>(plane & 1);
+  auto box_of = [&](int s) { return ring + (s % kRing) * stage_words<T>(nd, kBox); };
   auto load = [&](int s) {
     if (s >= n_stages) return;
     const long long off = geom.pixel(s, b);
     if (off < 0) return;
     float* box = box_of(s);
-    for (int d = d0; d < nd; d += kDStride) cp_async4(box + d * kPitch + b, vol + d * plane + off);
-    if (d0 == 0) cp_async4(box + nd * kPitch + b, scale + off);
+    for (int d = d0; d < nd; d += kDStride) {
+      const T* src = vol + d * plane + off;
+      if constexpr (kIsBf16<T>) {  // the aligned word holding it
+        cp_async4(box + d * kPitch + b,
+                  reinterpret_cast<const void*>(reinterpret_cast<uintptr_t>(src) & ~uintptr_t{3}));
+      } else {
+        cp_async4(box + d * kPitch + b, src);
+      }
+    }
+    if (d0 == 0) {
+      cp_async4(box + nd * kPitch + b, scale + off);
+      if constexpr (kIsBf16<T>) {
+        reinterpret_cast<int*>(box + nd * kPitch + kBox)[b] =
+            static_cast<int>((reinterpret_cast<uintptr_t>(vol + off) >> 1) & 1);
+      }
+    }
   };
 
   float prev[kSlots];
@@ -179,11 +226,13 @@ __device__ __forceinline__ void sgm_band(const float* __restrict__ vol,
 #pragma unroll
       for (int k = 0; k < kSlots; ++k) prev[k] = 0.0f;
     }
-    sgm_steps<kSlots, kPitch>(box, box + nd * kPitch, idx, stride, n, nd, p1, p2, prev);
+    sgm_steps<T, kSlots, kPitch>(box, box + nd * kPitch,
+                                 reinterpret_cast<const int*>(box + nd * kPitch + kBox), plane_odd,
+                                 idx, stride, n, nd, p1, p2, prev);
     __syncthreads();  // every line's path costs of stage s are in the box
     const long long off = geom.pixel(s, b);
     if (off >= 0) {
-      for (int d = d0; d < nd; d += kDStride) out[d * plane + off] = box[d * kPitch + b];
+      for (int d = d0; d < nd; d += kDStride) out[d * plane + off] = narrow<T>(box[d * kPitch + b]);
     }
   }
 }
@@ -206,14 +255,13 @@ bool with_slots(int nd, F&& f) {
 }
 
 // Launches kernel<<<blocks, Geom's threads, ring>>> with the ring of boxes
-// for nd <= 32 kSlots disparities as dynamic shared memory (above 48 KB it
-// must be allowed first, for each instance; the carveout asks for all of
-// it, so that blocks whose rings are small share an SM); returns the CUDA
-// error.
-template <int kSlots, class Geom, typename Kernel, typename... Args>
+// of storage type T for nd <= 32 kSlots disparities as dynamic shared memory
+// (above 48 KB it must be allowed first, for each instance; the carveout
+// asks for all of it, so that blocks whose rings are small share an SM);
+// returns the CUDA error.
+template <typename T, int kSlots, class Geom, typename Kernel, typename... Args>
 cudaError_t launch_band(Kernel kernel, unsigned blocks, int nd, void* stream, Args... args) {
-  const int bytes = ring_depth<kSlots, Geom::kBox> * stage_floats(nd, Geom::kBox) *
-                    static_cast<int>(sizeof(float));
+  const int bytes = ring_depth<T, kSlots, Geom::kBox> * stage_words<T>(nd, Geom::kBox) * 4;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) {

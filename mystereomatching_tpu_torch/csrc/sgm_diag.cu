@@ -4,7 +4,8 @@
 // mystereomatching_tpu/ops/pallas_kernels.py (called through
 // `sgm_diag_scan_pallas` from `sgm.sgm_directions`).
 //
-// What it computes, for G volumes [G, D, H, W] and a predecessor offset
+// What it computes, for G volumes [G, D, H, W] (float32 or bfloat16) and a
+// predecessor offset
 // (rv, ru) with rv, ru in {-1, +1}: the recurrence of sgm_band.cuh along
 // every diagonal line, each pixel p = (v, u) following p + r = (v + rv,
 // u + ru). Rows are walked from the predecessor's side: step t is row
@@ -77,34 +78,47 @@ struct Diagonal {
   }
 };
 
-template <int kSlots>
+template <typename T, int kSlots>
 __global__ void __launch_bounds__(Diagonal::kLines * 32, 1)
-    sgm_diag_kernel(const float* __restrict__ vol, const float* __restrict__ pscale,
-                    float* __restrict__ out, int nd, int h, int w, int nb, int rv, int ru,
+    sgm_diag_kernel(const T* __restrict__ vol, const float* __restrict__ pscale,
+                    T* __restrict__ out, int nd, int h, int w, int nb, int rv, int ru,
                     float p1, float p2) {
   const int gi = blockIdx.x / nb;
   const long long plane = static_cast<long long>(h) * w;
   const long long vol_off = static_cast<long long>(gi) * nd * plane;
-  mysm::sgm_band<kSlots>(vol + vol_off, pscale + gi * plane, out + vol_off, plane, nd, p1, p2,
-                         Diagonal{h, w, rv, ru, static_cast<int>(blockIdx.x % nb), nb});
+  mysm::sgm_band<T, kSlots>(vol + vol_off, pscale + gi * plane, out + vol_off, plane, nd, p1,
+                            p2, Diagonal{h, w, rv, ru, static_cast<int>(blockIdx.x % nb), nb});
 }
 
-}  // namespace
-
-// vol/out: [G, D, H, W] float32, D <= 256; pscale: [G, H, W] float32;
-// rv, ru: the predecessor offset, each -1 or +1.
-extern "C" int mysm_sgm_diag(const float* vol, const float* pscale, float* out, int g, int nd,
-                             int h, int w, int rv, int ru, float p1, float p2, void* stream) {
-  if ((rv != 1 && rv != -1) || (ru != 1 && ru != -1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <typename T>
+cudaError_t launch(const void* vol, const float* pscale, void* out, int g, int nd, int h, int w,
+                   int rv, int ru, float p1, float p2, void* stream) {
+  if ((rv != 1 && rv != -1) || (ru != 1 && ru != -1)) return cudaErrorInvalidValue;
   const int nb = (w + Diagonal::kLines - 1) / Diagonal::kLines + 1;
   const unsigned blocks = static_cast<unsigned>(static_cast<long long>(g) * nb);
   cudaError_t err = cudaErrorInvalidValue;
   mysm::with_slots(nd, [&](auto slots) {
     constexpr int kSlots = decltype(slots)::value;
-    err = mysm::launch_band<kSlots, Diagonal>(sgm_diag_kernel<kSlots>, blocks, nd, stream, vol,
-                                              pscale, out, nd, h, w, nb, rv, ru, p1, p2);
+    err = mysm::launch_band<T, kSlots, Diagonal>(sgm_diag_kernel<T, kSlots>, blocks, nd, stream,
+                                                 static_cast<const T*>(vol), pscale,
+                                                 static_cast<T*>(out), nd, h, w, nb, rv, ru, p1,
+                                                 p2);
   });
-  return static_cast<int>(err);
+  return err;
+}
+
+}  // namespace
+
+// vol/out: [G, D, H, W] float32 (mysm_sgm_diag) or bfloat16
+// (mysm_sgm_diag_bf16), D <= 256; pscale: [G, H, W] float32; rv, ru: the
+// predecessor offset, each -1 or +1.
+extern "C" int mysm_sgm_diag(const float* vol, const float* pscale, float* out, int g, int nd,
+                             int h, int w, int rv, int ru, float p1, float p2, void* stream) {
+  return static_cast<int>(launch<float>(vol, pscale, out, g, nd, h, w, rv, ru, p1, p2, stream));
+}
+extern "C" int mysm_sgm_diag_bf16(const void* vol, const float* pscale, void* out, int g,
+                                  int nd, int h, int w, int rv, int ru, float p1, float p2,
+                                  void* stream) {
+  return static_cast<int>(
+      launch<mysm::bf16>(vol, pscale, out, g, nd, h, w, rv, ru, p1, p2, stream));
 }

@@ -4,9 +4,9 @@
 // mystereomatching_tpu/ops/pallas_kernels.py (called through
 // `sgm_scan_pallas` from `sgm.sgm_directions`).
 //
-// What it computes, for G volumes [G, D, H, W] and one scan direction: the
-// recurrence of sgm_band.cuh along every column (along H) or row (along W),
-// from the far end when `reverse`.
+// What it computes, for G volumes [G, D, H, W] (float32 or bfloat16) and
+// one scan direction: the recurrence of sgm_band.cuh along every column
+// (along H) or row (along W), from the far end when `reverse`.
 //
 // What bounds it on the H100: bytes (sgm_band.cuh): the costs and scales
 // read once and the path costs written once.
@@ -67,41 +67,56 @@ struct AlongW {
   }
 };
 
-template <int kSlots, class Geom>
+template <typename T, int kSlots, class Geom>
 __global__ void __launch_bounds__(Geom::kLines * 32, 1)
-    sgm_scan_kernel(const float* __restrict__ vol, const float* __restrict__ pscale,
-                    float* __restrict__ out, int nd, int h, int w, int n_bands, int reverse,
+    sgm_scan_kernel(const T* __restrict__ vol, const float* __restrict__ pscale,
+                    T* __restrict__ out, int nd, int h, int w, int n_bands, int reverse,
                     float p1, float p2) {
   const int gi = blockIdx.x / n_bands;
   const int band = blockIdx.x % n_bands;
   const long long plane = static_cast<long long>(h) * w;
   const long long vol_off = static_cast<long long>(gi) * nd * plane;
-  mysm::sgm_band<kSlots>(vol + vol_off, pscale + gi * plane, out + vol_off, plane, nd, p1, p2,
-                         Geom{h, w, band * Geom::kLines, reverse});
+  mysm::sgm_band<T, kSlots>(vol + vol_off, pscale + gi * plane, out + vol_off, plane, nd, p1,
+                            p2, Geom{h, w, band * Geom::kLines, reverse});
 }
 
-template <class Geom>
-cudaError_t launch(const float* vol, const float* pscale, float* out, int g, int nd, int h,
+template <typename T, class Geom>
+cudaError_t launch(const void* vol, const float* pscale, void* out, int g, int nd, int h,
                    int w, int reverse, float p1, float p2, void* stream) {
   const int n_bands = ((std::is_same_v<Geom, AlongW> ? h : w) + Geom::kLines - 1) / Geom::kLines;
   const unsigned blocks = static_cast<unsigned>(static_cast<long long>(g) * n_bands);
   cudaError_t err = cudaErrorInvalidValue;
   mysm::with_slots(nd, [&](auto slots) {
     constexpr int kSlots = decltype(slots)::value;
-    err = mysm::launch_band<kSlots, Geom>(sgm_scan_kernel<kSlots, Geom>, blocks, nd, stream, vol,
-                                          pscale, out, nd, h, w, n_bands, reverse, p1, p2);
+    err = mysm::launch_band<T, kSlots, Geom>(sgm_scan_kernel<T, kSlots, Geom>, blocks, nd,
+                                             stream, static_cast<const T*>(vol), pscale,
+                                             static_cast<T*>(out), nd, h, w, n_bands, reverse,
+                                             p1, p2);
   });
   return err;
 }
 
+template <typename T>
+cudaError_t launch_axis(const void* vol, const float* pscale, void* out, int g, int nd, int h,
+                        int w, int along_w, int reverse, float p1, float p2, void* stream) {
+  return along_w ? launch<T, AlongW>(vol, pscale, out, g, nd, h, w, reverse, p1, p2, stream)
+                 : launch<T, AlongH>(vol, pscale, out, g, nd, h, w, reverse, p1, p2, stream);
+}
+
 }  // namespace
 
-// vol/out: [G, D, H, W] float32, D <= 256; pscale: [G, H, W] float32.
-// along_w: 1 scans along W, 0 along H; reverse: 1 scans from the far end.
-extern "C" int mysm_sgm_scan(const float* vol, const float* pscale, float* out, int g,
-                             int nd, int h, int w, int along_w, int reverse, float p1,
-                             float p2, void* stream) {
+// vol/out: [G, D, H, W] float32 (mysm_sgm_scan) or bfloat16
+// (mysm_sgm_scan_bf16), D <= 256; pscale: [G, H, W] float32. along_w: 1
+// scans along W, 0 along H; reverse: 1 scans from the far end.
+extern "C" int mysm_sgm_scan(const float* vol, const float* pscale, float* out, int g, int nd,
+                             int h, int w, int along_w, int reverse, float p1, float p2,
+                             void* stream) {
   return static_cast<int>(
-      along_w ? launch<AlongW>(vol, pscale, out, g, nd, h, w, reverse, p1, p2, stream)
-              : launch<AlongH>(vol, pscale, out, g, nd, h, w, reverse, p1, p2, stream));
+      launch_axis<float>(vol, pscale, out, g, nd, h, w, along_w, reverse, p1, p2, stream));
+}
+extern "C" int mysm_sgm_scan_bf16(const void* vol, const float* pscale, void* out, int g,
+                                  int nd, int h, int w, int along_w, int reverse, float p1,
+                                  float p2, void* stream) {
+  return static_cast<int>(launch_axis<mysm::bf16>(vol, pscale, out, g, nd, h, w, along_w,
+                                                  reverse, p1, p2, stream));
 }

@@ -5,10 +5,12 @@
 // from `wta.wta`).
 //
 // What it computes: out[v, u] = the first d achieving min_d vol[d, v, u]
-// (max for choose_small = 0), int32 [H, W], as jnp.argmin / torch.argmin.
+// (max for choose_small = 0), int32 [H, W], as jnp.argmin / torch.argmin,
+// for a float32 or a bfloat16 volume. A bfloat16 cost is widened to float
+// before it is compared; widening keeps the order, so the result is exact.
 //
 // What bounds it on the H100: memory. It reads the [D, H, W] volume once
-// (4 D bytes a pixel) and writes 4 bytes a pixel.
+// (4 D or 2 D bytes a pixel) and writes 4 bytes a pixel.
 //
 // Design: one thread per pixel, looping over d with a strict comparison
 // so that the first occurrence wins. Threads of a warp are neighbours
@@ -17,16 +19,19 @@
 
 #include <cuda_runtime.h>
 
+#include "storage.cuh"
+
 namespace {
 
-__global__ void wta_kernel(const float* __restrict__ vol, int32_t* __restrict__ out,
-                           int nd, long long hw, int choose_small) {
+template <typename T>
+__global__ void wta_kernel(const T* __restrict__ vol, int32_t* __restrict__ out, int nd,
+                           long long hw, int choose_small) {
   const long long p = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (p >= hw) return;
-  float best = vol[p];
+  float best = mysm::widen(vol[p]);
   int arg = 0;
   for (int d = 1; d < nd; ++d) {
-    const float c = vol[d * hw + p];
+    const float c = mysm::widen(vol[d * hw + p]);
     if (choose_small ? c < best : c > best) {
       best = c;
       arg = d;
@@ -35,14 +40,26 @@ __global__ void wta_kernel(const float* __restrict__ vol, int32_t* __restrict__ 
   out[p] = arg;
 }
 
+template <typename T>
+int launch(const void* vol, int32_t* out, int nd, long long hw, int choose_small,
+           cudaStream_t stream) {
+  const int threads = 256;
+  wta_kernel<T><<<static_cast<unsigned>((hw + threads - 1) / threads), threads, 0, stream>>>(
+      static_cast<const T*>(vol), out, nd, hw, choose_small);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// vol: [D, H, W] float32; out: [H, W] int32.
-extern "C" int mysm_wta(const float* vol, int32_t* out, int nd, int h, int w,
-                        int choose_small, void* stream) {
-  const long long hw = static_cast<long long>(h) * w;
-  const int threads = 256;
-  wta_kernel<<<static_cast<unsigned>((hw + threads - 1) / threads), threads, 0,
-               static_cast<cudaStream_t>(stream)>>>(vol, out, nd, hw, choose_small);
-  return static_cast<int>(cudaGetLastError());
+// vol: [D, H, W] float32 (mysm_wta) or bfloat16 (mysm_wta_bf16); out:
+// [H, W] int32.
+extern "C" int mysm_wta(const float* vol, int32_t* out, int nd, int h, int w, int choose_small,
+                        void* stream) {
+  return launch<float>(vol, out, nd, static_cast<long long>(h) * w, choose_small,
+                       static_cast<cudaStream_t>(stream));
+}
+extern "C" int mysm_wta_bf16(const void* vol, int32_t* out, int nd, int h, int w,
+                             int choose_small, void* stream) {
+  return launch<mysm::bf16>(vol, out, nd, static_cast<long long>(h) * w, choose_small,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -20,8 +20,10 @@ _H, _W = 1, 2  # axes of a [D, H, W] volume
 
 def cbca(vol: torch.Tensor, arms_int: torch.Tensor, iterations: int = 2,
          max_arm: int = 34) -> torch.Tensor:
-    """vol: [D, H, W] float32; arms_int: [4, D, H, W] int8 intersected arms
-    (left, right, up, down). Returns the aggregated [D, H, W] volume."""
+    """vol: [D, H, W] float32 or bfloat16 (every tap's add and the division
+    round in it, as the JAX CPU path does); arms_int: [4, D, H, W] int8
+    intersected arms (left, right, up, down). Returns the aggregated
+    [D, H, W] volume in vol's dtype."""
     arm_l, arm_r, arm_u, arm_d = arms_int.unbind(0)
     horizontal = (_W, arm_l, arm_r)
     vertical = (_H, arm_u, arm_d)

@@ -125,7 +125,8 @@ def arm_bounded_sum_plain(vol: torch.Tensor, arm_neg: torch.Tensor,
 
     The taps are added in ascending offset from -max_arm to +max_arm,
     masked taps adding 0.0 — the JAX CPU path's order
-    (``arms._arm_bounded_reduce_taps``), so the sums are bit-identical.
+    (``arms._arm_bounded_reduce_taps``), so the sums are bit-identical. Each
+    add rounds in ``vol``'s dtype (float32 or bfloat16), as there.
     """
     n = vol.shape[axis]
     pad = [0, 0] * (vol.ndim - 1 - axis) + [max_arm, max_arm]
@@ -140,18 +141,20 @@ def arm_bounded_sum_plain(vol: torch.Tensor, arm_neg: torch.Tensor,
 
 def arm_bounded_sum(vol: torch.Tensor, arm_neg: torch.Tensor,
                     arm_pos: torch.Tensor, axis: int, max_arm: int) -> torch.Tensor:
-    """Arm-bounded sum of a [D, H, W] volume along H (axis 1) or W (axis 2);
-    arms are int8 [D, H, W]."""
+    """Arm-bounded sum of a [D, H, W] float32 or bfloat16 volume along H
+    (axis 1) or W (axis 2); arms are int8 [D, H, W]."""
     if ck.on_cuda(vol):
         return ck.arm_taps(vol, arm_neg, arm_pos, axis, max_arm)
     return arm_bounded_sum_plain(vol, arm_neg, arm_pos, axis, max_arm)
 
 
-def _area(arm_neg: torch.Tensor, arm_pos: torch.Tensor, max_arm: int) -> torch.Tensor:
-    """min(arm_neg, m) + min(arm_pos, m) + 1 as float32, counted in int32:
-    int8 arms would wrap past 127 once max_arm exceeds 63."""
+def _area(arm_neg: torch.Tensor, arm_pos: torch.Tensor, max_arm: int,
+          dtype: torch.dtype) -> torch.Tensor:
+    """min(arm_neg, m) + min(arm_pos, m) + 1 in ``dtype``, counted in int32:
+    int8 arms would wrap past 127 once max_arm exceeds 63. The count is at
+    most 255, exact in bfloat16 too."""
     return (torch.clamp(arm_neg.to(torch.int32), max=max_arm)
-            + torch.clamp(arm_pos.to(torch.int32), max=max_arm) + 1).to(torch.float32)
+            + torch.clamp(arm_pos.to(torch.int32), max=max_arm) + 1).to(dtype)
 
 
 def arm_bounded_sum_area_plain(vol: torch.Tensor, an1: torch.Tensor,
@@ -159,8 +162,10 @@ def arm_bounded_sum_area_plain(vol: torch.Tensor, an1: torch.Tensor,
                                arm_pos: torch.Tensor, axis: int,
                                max_arm: int) -> torch.Tensor:
     """Plain torch CBCA second pass: the arm-bounded sums of ``vol`` and of
-    the first pass's support count min(an1,m) + min(ap1,m) + 1, divided."""
-    stacked = torch.stack([vol, _area(an1, ap1, max_arm)])
+    the first pass's support count min(an1,m) + min(ap1,m) + 1, divided.
+    Both sums round at each tap in ``vol``'s dtype; in bfloat16 the count's
+    partial sums above 256 round too, as the JAX CPU path's do."""
+    stacked = torch.stack([vol, _area(an1, ap1, max_arm, vol.dtype)])
     s = arm_bounded_sum_plain(stacked, arm_neg[None], arm_pos[None], axis + 1,
                               max_arm)
     return s[0] / torch.clamp(s[1], min=1.0)

@@ -12,6 +12,9 @@ Each wrapper checks device, dtype, shape and contiguity, allocates the
 output, launches on torch's current stream, raises if the launch failed,
 and adds one to its entry of :data:`launches`. Wrappers take CUDA tensors
 only; the op modules run their plain torch versions for CPU tensors.
+Kernels B, C, D and E take float32 or bfloat16 volumes (the JAX package's
+``vol_dtype``), each type through an entry point of its own, and refuse
+any other dtype.
 """
 
 from __future__ import annotations
@@ -32,9 +35,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# launches of each kernel since the last reset_launches()
+# launches of each kernel since the last reset_launches(), of either dtype
 launches = {"arms_grow": 0, "arm_taps": 0, "sgm_scan": 0, "wta": 0,
             "arm_reduce": 0, "pi_scan": 0, "sgm_diag": 0}
+# of those, the launches of the bfloat16 instances of kernels B, C, D and E
+launches_bf16 = {"arm_taps": 0, "sgm_scan": 0, "wta": 0, "sgm_diag": 0}
 REDUCE_OPS = {"sum": 0, "min": 1, "max": 2}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -50,11 +55,16 @@ _SIGNATURES = {
     "mysm_pi_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mysm_sgm_diag": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
 }
+# the bfloat16 entry points of kernels B, C, D and E: the float32 ones' arguments
+_BF16 = ("mysm_arm_taps", "mysm_sgm_scan", "mysm_wta", "mysm_sgm_diag")
+_SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in _BF16})
+VOL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, launches_bf16):
+        for name in counts:
+            counts[name] = 0
 
 
 def on_cuda(t: torch.Tensor) -> bool:
@@ -127,13 +137,13 @@ def _load() -> ctypes.CDLL:
     return _lib
 
 
-def _check(t: torch.Tensor, what: str, dtype: torch.dtype, shape=None,
-           device=None) -> None:
+def _check(t: torch.Tensor, what: str, dtype, shape=None, device=None) -> None:
+    """dtype: one torch dtype, or a tuple of those accepted."""
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
         raise ValueError(f"{what}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
@@ -148,6 +158,15 @@ def _launch(name: str, fn, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
     launches[name] += 1
+
+
+def _launch_vol(name: str, lib: ctypes.CDLL, entry: str, vol: torch.Tensor, *args) -> None:
+    """Launches kernel ``name`` through ``entry`` or, for a bfloat16 vol,
+    ``entry``_bf16, with vol's pointer first."""
+    bf16 = vol.dtype == torch.bfloat16
+    _launch(name, getattr(lib, f"{entry}_bf16" if bf16 else entry), vol.data_ptr(), *args)
+    if bf16:
+        launches_bf16[name] += 1
 
 
 def arms_grow(img: torch.Tensor, sched: Sequence[float], neigh_thresh: float,
@@ -171,9 +190,10 @@ def arms_grow(img: torch.Tensor, sched: Sequence[float], neigh_thresh: float,
 def arm_taps(vol: torch.Tensor, arm_neg: torch.Tensor, arm_pos: torch.Tensor,
              axis: int, max_arm: int, an1: Optional[torch.Tensor] = None,
              ap1: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Kernel B. Arm-bounded sum of vol [D, H, W] float32 along H (axis 1)
-    or W (axis 2) with int8 [D, H, W] arms; with an1/ap1 (area mode) the
-    sum is divided by the summed support count of those first-pass arms."""
+    """Kernel B. Arm-bounded sum of vol [D, H, W] float32 or bfloat16 along
+    H (axis 1) or W (axis 2) with int8 [D, H, W] arms; with an1/ap1 (area
+    mode) the sum is divided by the summed support count of those
+    first-pass arms. The output has vol's dtype."""
     if vol.ndim != 3 or axis not in (1, 2):
         raise ValueError(f"arm_taps: expected [D, H, W] and axis 1 or 2, got "
                          f"{tuple(vol.shape)}, axis {axis}")
@@ -181,7 +201,7 @@ def arm_taps(vol: torch.Tensor, arm_neg: torch.Tensor, arm_pos: torch.Tensor,
         raise ValueError(f"arm_taps: max_arm {max_arm} outside [0, 127]")
     if (an1 is None) != (ap1 is None):
         raise ValueError("arm_taps: area mode needs both an1 and ap1")
-    _check(vol, "arm_taps vol", torch.float32)
+    _check(vol, "arm_taps vol", VOL_DTYPES)
     arms = [arm_neg, arm_pos] + ([an1, ap1] if an1 is not None else [])
     for a in arms:
         _check(a, "arm_taps arms", torch.int8, vol.shape, vol.device)
@@ -189,47 +209,48 @@ def arm_taps(vol: torch.Tensor, arm_neg: torch.Tensor, arm_pos: torch.Tensor,
     d, h, w = vol.shape
     with torch.cuda.device(vol.device):
         out = torch.empty_like(vol)
-        _launch("arm_taps", lib.mysm_arm_taps, vol.data_ptr(), arm_neg.data_ptr(),
-                arm_pos.data_ptr(), an1.data_ptr() if an1 is not None else None,
-                ap1.data_ptr() if ap1 is not None else None, out.data_ptr(),
-                d, h, w, int(axis == 2), int(max_arm))
+        _launch_vol("arm_taps", lib, "mysm_arm_taps", vol, arm_neg.data_ptr(),
+                    arm_pos.data_ptr(), an1.data_ptr() if an1 is not None else None,
+                    ap1.data_ptr() if ap1 is not None else None, out.data_ptr(),
+                    d, h, w, int(axis == 2), int(max_arm))
     return out
 
 
 def sgm_scan(vol: torch.Tensor, pscale: torch.Tensor, p1: float, p2: float,
              axis: int, reverse: bool) -> torch.Tensor:
-    """Kernel C. SGM path costs of vol [G, D, H, W] float32 (D <= 256)
-    scanned along H (axis 2) or W (axis 3), from the far end when
-    ``reverse``; pscale: [G, H, W] float32 penalty scale."""
+    """Kernel C. SGM path costs of vol [G, D, H, W] float32 or bfloat16
+    (D <= 256, the output in vol's dtype) scanned along H (axis 2) or W
+    (axis 3), from the far end when ``reverse``; pscale: [G, H, W] float32
+    penalty scale."""
     if vol.ndim != 4 or axis not in (2, 3):
         raise ValueError(f"sgm_scan: expected [G, D, H, W] and axis 2 or 3, got "
                          f"{tuple(vol.shape)}, axis {axis}")
     g, d, h, w = vol.shape
     if d > 256:
         raise ValueError(f"sgm_scan: D={d} exceeds 256")
-    _check(vol, "sgm_scan vol", torch.float32)
+    _check(vol, "sgm_scan vol", VOL_DTYPES)
     _check(pscale, "sgm_scan pscale", torch.float32, (g, h, w), vol.device)
     lib = _load()
     with torch.cuda.device(vol.device):
         out = torch.empty_like(vol)
-        _launch("sgm_scan", lib.mysm_sgm_scan, vol.data_ptr(), pscale.data_ptr(),
-                out.data_ptr(), g, d, h, w, int(axis == 3), int(bool(reverse)),
-                float(p1), float(p2))
+        _launch_vol("sgm_scan", lib, "mysm_sgm_scan", vol, pscale.data_ptr(),
+                    out.data_ptr(), g, d, h, w, int(axis == 3), int(bool(reverse)),
+                    float(p1), float(p2))
     return out
 
 
 def wta(vol: torch.Tensor, choose_small: bool = True) -> torch.Tensor:
     """Kernel D. First-occurrence argmin (argmax unless choose_small) over
-    D of vol [D, H, W] float32 -> int32 [H, W]."""
+    D of vol [D, H, W] float32 or bfloat16 -> int32 [H, W]."""
     if vol.ndim != 3:
         raise ValueError(f"wta: expected [D, H, W], got {tuple(vol.shape)}")
-    _check(vol, "wta vol", torch.float32)
+    _check(vol, "wta vol", VOL_DTYPES)
     lib = _load()
     d, h, w = vol.shape
     with torch.cuda.device(vol.device):
         out = torch.empty((h, w), dtype=torch.int32, device=vol.device)
-        _launch("wta", lib.mysm_wta, vol.data_ptr(), out.data_ptr(), d, h, w,
-                int(bool(choose_small)))
+        _launch_vol("wta", lib, "mysm_wta", vol, out.data_ptr(), d, h, w,
+                    int(bool(choose_small)))
     return out
 
 
@@ -283,20 +304,21 @@ def pi_scan(disp: torch.Tensor, image: torch.Tensor, offsets: torch.Tensor,
 
 def sgm_diag_scan(vol: torch.Tensor, pscale: torch.Tensor, p1: float, p2: float,
                   rv: int, ru: int) -> torch.Tensor:
-    """Kernel E. SGM path costs of vol [G, D, H, W] float32 (D <= 256)
-    along the diagonal with predecessor offset (rv, ru), each -1 or +1;
-    pscale: [G, H, W] float32 penalty scale."""
+    """Kernel E. SGM path costs of vol [G, D, H, W] float32 or bfloat16
+    (D <= 256, the output in vol's dtype) along the diagonal with
+    predecessor offset (rv, ru), each -1 or +1; pscale: [G, H, W] float32
+    penalty scale."""
     if vol.ndim != 4 or rv not in (-1, 1) or ru not in (-1, 1):
         raise ValueError(f"sgm_diag_scan: expected [G, D, H, W] and rv, ru in (-1, 1), "
                          f"got {tuple(vol.shape)}, ({rv}, {ru})")
     g, d, h, w = vol.shape
     if d > 256:
         raise ValueError(f"sgm_diag_scan: D={d} exceeds 256")
-    _check(vol, "sgm_diag_scan vol", torch.float32)
+    _check(vol, "sgm_diag_scan vol", VOL_DTYPES)
     _check(pscale, "sgm_diag_scan pscale", torch.float32, (g, h, w), vol.device)
     lib = _load()
     with torch.cuda.device(vol.device):
         out = torch.empty_like(vol)
-        _launch("sgm_diag", lib.mysm_sgm_diag, vol.data_ptr(), pscale.data_ptr(),
-                out.data_ptr(), g, d, h, w, int(rv), int(ru), float(p1), float(p2))
+        _launch_vol("sgm_diag", lib, "mysm_sgm_diag", vol, pscale.data_ptr(),
+                    out.data_ptr(), g, d, h, w, int(rv), int(ru), float(p1), float(p2))
     return out

@@ -1,10 +1,12 @@
-"""Disparity refinement of the default and ``sgm8_full`` presets: LR check,
-region vote, proper interpolation, subpixel enhancement and the median.
+"""Disparity refinement of the default, ``sgm8_full`` and ``fullres_occfill``
+presets: LR check (plain and classifying), region vote, proper
+interpolation, background fill, subpixel enhancement and the median.
 
 Counterpart of those chains' functions in
 ``mystereomatching_tpu/ops/refine.py`` (refine() stereoMatching.cpp:1138-1511).
 Disparity maps are int32 [H, W]; the plain LR check marks a failure -1
-(cpp:2277) and the other sentinels are negative too (DISP_OCC -32, h:215-218).
+(cpp:2277) and the other sentinels are negative too (DISP_OCC -32, DISP_MIS
+-48, h:215-218).
 Region vote's arm-bounded reductions run kernel B's integer mode
 (``arms.arm_bounded_reduce``); proper interpolation runs the CUDA kernel
 ``csrc/pi_scan.cu`` on a CUDA tensor and :func:`proper_interpolation_plain`
@@ -39,6 +41,29 @@ def lr_consistency(d_left: torch.Tensor, d_right: torch.Tensor,
     dr = torch.gather(d_right, 1, x.clamp(0, w - 1).to(torch.int64))
     ok = (d_left >= 0) & (x >= 0) & ((d_left - dr).abs() <= max_diff)
     return torch.where(ok, d_left, torch.full_like(d_left, -1))
+
+
+def lr_consistency_classify(d_left: torch.Tensor, d_right: torch.Tensor,
+                            num_disp: int, max_diff: int = 0, disp_occ: int = -32,
+                            disp_mis: int = -48) -> torch.Tensor:
+    """Classifying LRC (cpp:2284-2364): the pixels :func:`lr_consistency`
+    fails become ``disp_mis`` where some right pixel x with 0 <= d_R(x) <
+    num_disp maps onto their column (x + d_R(x) == u), else ``disp_occ``.
+
+    The existence test scatters a count onto the columns; only ``> 0`` is
+    read, so the order of the adds does not matter."""
+    h, w = d_left.shape
+    u = torch.arange(w, dtype=d_left.dtype, device=d_left.device)[None, :]
+    x = u - d_left
+    dr = torch.gather(d_right, 1, x.clamp(0, w - 1).to(torch.int64))
+    ok = (d_left >= 0) & (x >= 0) & ((d_left - dr).abs() <= max_diff)
+    tgt = u + d_right
+    src = (d_right >= 0) & (d_right < num_disp) & (tgt < w)
+    mark = torch.zeros((h, w), dtype=torch.int32, device=d_left.device)
+    mark.scatter_add_(1, tgt.clamp(0, w - 1).to(torch.int64), src.to(torch.int32))
+    fill = torch.where(mark > 0, torch.full_like(d_left, disp_mis),
+                       torch.full_like(d_left, disp_occ))
+    return torch.where(ok, d_left, fill)
 
 
 def region_vote(disp: torch.Tensor, arms: torch.Tensor, num_disp: int,
@@ -151,6 +176,33 @@ def proper_interpolation(disp: torch.Tensor, image: torch.Tensor,
     if ck.on_cuda(disp):
         return ck.pi_scan(disp.contiguous(), image, offsets, disp_occ)
     return proper_interpolation_plain(disp, image, offsets, disp_occ)
+
+
+def _nearest_valid_left(disp: torch.Tensor) -> torch.Tensor:
+    """Per row, the value of the nearest valid (>= 0) pixel strictly to the
+    left, -1 where there is none: a running max of the valid pixels' column
+    indices, then a gather. The JAX package packs value and column into one
+    int32 key for its TPU scan, which limits W * num_disp; this has no
+    such limit."""
+    w = disp.shape[1]
+    u = torch.arange(w, dtype=torch.int64, device=disp.device)[None, :]
+    col = torch.where(disp >= 0, u, -1)
+    col = torch.cat([torch.full_like(col[:, :1], -1), col[:, :-1]], 1).cummax(1).values
+    return torch.where(col >= 0, torch.gather(disp, 1, col.clamp(min=0)),
+                       torch.full_like(disp, -1))
+
+
+def bg_interpolation(disp: torch.Tensor, num_disp: int = 1024) -> torch.Tensor:
+    """Horizontal nearest-valid fill of the invalid pixels of an int32
+    [H, W] map, taking the smaller (background) disparity of the two sides
+    where both exist (backgroundInterpolateCore cpp:7010-7044, search depth
+    unbounded). ``num_disp`` is kept for the JAX signature; the fill does
+    not need it."""
+    left = _nearest_valid_left(disp)
+    right = _nearest_valid_left(disp.flip(1)).flip(1)
+    both = (left >= 0) & (right >= 0)
+    fill = torch.where(both, torch.minimum(left, right), torch.maximum(left, right))
+    return torch.where((disp < 0) & (fill >= 0), fill, disp)
 
 
 def subpixel_enhance(disp: torch.Tensor, vol: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,8 @@ Counterpart of ``mystereomatching_tpu/ops/sgm.py`` (``penalty_scale``,
 ``_scan_down``, ``scan_direction``, ``sgm``, ``sgm_multi``,
 ``sgm_directions``). Each axis direction's path costs are CUDA kernel C
 (``csrc/sgm_scan.cu``) on a CUDA tensor, each diagonal's kernel E
-(``csrc/sgm_diag.cu``).
+(``csrc/sgm_diag.cu``). Volumes are float32 or bfloat16; in bfloat16 every
+operation rounds to it (see :func:`_step`), the direction sum's adds too.
 
 Recurrence (updateCost h:2268-2274), along the scan from the predecessor:
     L(p,d) = C(p,d) + min(L(p-r,d), minL + P2 s, min(L(p-r,d-1), L(p-r,d+1)) + P1 s) - minL
@@ -31,9 +32,6 @@ DIRECTIONS_8: Tuple[Tuple[int, int], ...] = (
     (1, -1), (1, 1), (-1, 1), (-1, -1),
 )
 
-_FLT_MAX = torch.finfo(torch.float32).max
-
-
 def penalty_scale(image: torch.Tensor, rv: int, ru: int, thres: int = 15,
                   coeff: float = 4.0) -> torch.Tensor:
     """Per-pixel P1/P2 multiplier for predecessor offset (rv, ru): 1/coeff
@@ -48,13 +46,19 @@ def _step(prev: torch.Tensor, cost: torch.Tensor, ps: torch.Tensor, p1: float,
           p2: float) -> torch.Tensor:
     """One step of the recurrence, ``sgm._scan_down``'s in its operation
     order: prev [G, D, L] predecessors' path costs (0 outside the image),
-    cost [G, D, L], ps [G, 1, L] -> the [G, D, L] path costs."""
-    big = torch.full_like(prev[:, :1], _FLT_MAX)
+    cost [G, D, L], ps [G, 1, L] float32 -> the [G, D, L] path costs.
+
+    Every operation rounds in the volume's dtype. In bfloat16 the scaled
+    penalties p1 s and p2 s are rounded to it first: the JAX package's
+    penalty scale is a weakly typed float32, so its adds stay in bfloat16,
+    where torch would promote them to float32. The edge fill is the dtype's
+    largest finite value."""
+    big = torch.full_like(prev[:, :1], torch.finfo(prev.dtype).max)
     min_l = prev.amin(1, keepdim=True)
     up = torch.cat([big, prev[:, :-1]], 1)
     dn = torch.cat([prev[:, 1:], big], 1)
-    best = torch.minimum(torch.minimum(prev, min_l + p2 * ps),
-                         torch.minimum(up, dn) + p1 * ps)
+    p1s, p2s = (p1 * ps).to(prev.dtype), (p2 * ps).to(prev.dtype)
+    best = torch.minimum(torch.minimum(prev, min_l + p2s), torch.minimum(up, dn) + p1s)
     return cost + best - min_l
 
 

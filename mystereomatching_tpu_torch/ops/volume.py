@@ -33,3 +33,13 @@ def valid_mask(w: int, num_disp: int, lor: int, device) -> torch.Tensor:
     idx = _disparity_index(w, num_disp, lor, device)
     ok = idx >= 0 if lor == 0 else idx < w
     return ok[:, None, :]
+
+
+def flip_volume_lr(vol_left: torch.Tensor) -> torch.Tensor:
+    """Reindex a left-reference [D, H, W] volume into the right view:
+    vmR[d, v, u] = vmL[d, v, (u + d) mod W] (qx_stereo_flip_corr_vol,
+    NL/qx_basic.cpp:577), with the JAX package's wrap-around for u + d >= W.
+    One gather along W; its index is broadcast over H, not materialised."""
+    nd, h, w = vol_left.shape
+    idx = _disparity_index(w, nd, 1, vol_left.device) % w          # [D, W]
+    return torch.gather(vol_left, 2, idx[:, None, :].expand(nd, h, w))

@@ -1,16 +1,21 @@
-"""Disparity decision: winner-take-all, uniqueness check, quadratic subpixel.
+"""Disparity decision: winner-take-all, cooperative WTA, uniqueness check,
+quadratic subpixel.
 
-Counterpart of ``wta``, ``uniqueness_mask`` and ``subpixel_quadratic`` in
-``mystereomatching_tpu/ops/wta.py`` (gen_dispFromVm cpp:3928-3967, wta_Co
-cpp:2709-2792). WTA is CUDA kernel D (``csrc/wta.cu``) on a CUDA tensor;
-the other two have no TPU kernel and are plain torch on every device.
+Counterpart of ``wta``, ``wta_pair_cooperative``, ``uniqueness_mask`` and
+``subpixel_quadratic`` in ``mystereomatching_tpu/ops/wta.py``
+(gen_dispFromVm cpp:3928-3967, wta_Co cpp:2709-2792). WTA is CUDA kernel D
+(``csrc/wta.cu``) on a CUDA tensor, float32 or bfloat16; the others have no
+TPU kernel of their own and are plain torch on every device.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from mystereomatching_tpu_torch.ops import cuda_kernels as ck
+from mystereomatching_tpu_torch.ops.volume import flip_volume_lr
 
 
 def wta_plain(vol: torch.Tensor, choose_small: bool = True) -> torch.Tensor:
@@ -24,6 +29,33 @@ def wta(vol: torch.Tensor, choose_small: bool = True) -> torch.Tensor:
     if ck.on_cuda(vol):
         return ck.wta(vol, choose_small)
     return wta_plain(vol, choose_small)
+
+
+def cooperative_volume(vol_left: torch.Tensor, lor: int,
+                       choose_small: bool = True) -> torch.Tensor:
+    """The volume the cooperative WTA decides view ``lor`` from, given one
+    left-reference [D, H, W] volume: for the left view (0) the volume with d
+    > u masked, for the right view (1) the volume reindexed into the right
+    view (:func:`flip_volume_lr`) with d > W - 1 - u masked. The mask is
+    +-float32 max cast to the volume's dtype (+-inf in bfloat16, as in the
+    JAX package)."""
+    nd, _, w = vol_left.shape
+    bad = torch.tensor(torch.finfo(torch.float32).max * (1 if choose_small else -1),
+                       device=vol_left.device).to(vol_left.dtype)
+    u = torch.arange(w, device=vol_left.device)[None, :]
+    d = torch.arange(nd, device=vol_left.device)[:, None]
+    if lor == 0:
+        return torch.where(((u - d) >= 0)[:, None, :], vol_left, bad)
+    return torch.where(((u + d) < w)[:, None, :], flip_volume_lr(vol_left), bad)
+
+
+def wta_pair_cooperative(vol_left: torch.Tensor,
+                         choose_small: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d_left, d_right) int32 maps from one left-reference [D, H, W] volume,
+    the reference's cooperative WTA (wta_Co cpp:2709-2792) without its
+    DISP_SCALE encoding: each the WTA of its :func:`cooperative_volume`."""
+    return tuple(wta(cooperative_volume(vol_left, lor, choose_small), choose_small)
+                 for lor in (0, 1))
 
 
 def uniqueness_mask(vol: torch.Tensor, disp: torch.Tensor,

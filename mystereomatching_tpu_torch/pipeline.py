@@ -2,12 +2,16 @@
 
 Counterpart of ``mystereomatching_tpu/pipeline.py`` for the stages ported
 so far: the default censusGrad cost, cross arms, CBCA, 4- or 8-path SGM and
-WTA on the left and right volumes, the uniqueness check, then the
-refinement (LR check, region vote, proper interpolation, and either the
-median or subpixel enhancement with its median) and the decision-time
-subpixel (``sub_ipol``). That covers the presets ``census_grad_cbca_sgm``
-(with or without ``do_refine``) and ``sgm8_full``. A configuration that
-needs any other stage raises ``NotImplementedError`` naming it.
+WTA on the left and right volumes, or the cooperative WTA of the left
+volume alone, in float32 or bfloat16 volumes, the uniqueness check, then
+the refinement (LR check, plain or classifying, region vote, proper
+interpolation, the background fill, and either the median or subpixel
+enhancement with its median) and the decision-time subpixel
+(``sub_ipol``). That covers the presets ``census_grad_cbca_sgm`` (with or
+without ``do_refine``), ``sgm8_full`` and ``fullres_occfill`` (with its
+bfloat16 cooperative variant, but not its disparity streaming). A
+configuration that needs any other stage raises ``NotImplementedError``
+naming it.
 
 PyTorch runs eagerly: :class:`StereoPipeline` only validates the
 configuration and moves the inputs to its device. On a CUDA device the
@@ -40,23 +44,23 @@ def to_gray(img: torch.Tensor) -> torch.Tensor:
     return ((9797 * r + 19234 * g + 3737 * b) >> 15).to(torch.float32)
 
 
+VOL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def check_supported(cfg: MatchConfig) -> None:
     """Raise NotImplementedError for a stage this package does not run yet."""
     refining = cfg.do_refine
     unported = [
-        (refining and cfg.lrc_classify, "lrc_classify"),
         (refining and cfg.do_fill_surrounding, "do_fill_surrounding"),
         (refining and cfg.do_pkr, "do_pkr"),
         (refining and cfg.do_region_vote and cfg.rv_use_combine_bg, "rv_use_combine_bg"),
         (refining and cfg.do_region_vote and not cfg.rv_use_combine_bg
          and not cfg.rv_int_ratio_quirk, "rv_int_ratio_quirk=False (histogram region vote)"),
         (refining and cfg.do_cbbi, "do_cbbi"),
-        (refining and cfg.do_bg_ipol, "do_bg_ipol"),
+        (refining and cfg.do_bg_ipol and cfg.bg_ipol_kitti, "bg_ipol_kitti"),
         (refining and cfg.do_wm, "do_wm"),
         (refining and cfg.do_da, "do_da"),
         (refining and cfg.do_rv_whole_image, "do_rv_whole_image"),
-        (refining and cfg.do_lr_consis and not cfg.compute_both_volumes,
-         "do_lr_consis with compute_both_volumes=False (cooperative WTA)"),
         (cfg.cost != "census_grad", f"cost {cfg.cost!r}"),
         (cfg.aggregation != "cbca", f"aggregation {cfg.aggregation!r}"),
         (cfg.cbca_double_win, "cbca_double_win"),
@@ -65,7 +69,7 @@ def check_supported(cfg: MatchConfig) -> None:
         (cfg.do_vmtop, "do_vmtop"),
         (cfg.d_stream_block != 0, "d_stream_block"),
         (cfg.pyramid_levels > 1, "pyramid_levels > 1"),
-        (cfg.vol_dtype != "float32", f"vol_dtype {cfg.vol_dtype!r}"),
+        (cfg.vol_dtype not in VOL_DTYPES, f"vol_dtype {cfg.vol_dtype!r}"),
     ]
     missing = [name for hit, name in unported if hit]
     if missing:
@@ -90,7 +94,9 @@ def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
     """L1 + L2: the CBCA-aggregated cost volumes of the needed views.
 
     Returns (vols, arms_pair): vols is {0: volL, 1: volR} (volR only when
-    the LR check is on); arms_pair is the two images' [4, H, W] cross arms.
+    the LR check is on and ``compute_both_volumes``), in ``vol_dtype`` from
+    the cast after the cost on; arms_pair is the two images' [4, H, W]
+    cross arms.
     """
     gl, gr = to_gray(left), to_gray(right)
     n_imgs = 2 if (cfg.compute_both_volumes and cfg.do_lr_consis) else 1
@@ -98,7 +104,7 @@ def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
     vols = {}
     for lor in range(n_imgs):
         vol = cost_ops.compute_cost_volume(left, right, gl, gr, cfg, lor,
-                                           arms=arms_pair[lor])
+                                           arms=arms_pair[lor]).to(VOL_DTYPES[cfg.vol_dtype])
         arms_int = arms_ops.intersect_arms(arms_pair[0], arms_pair[1],
                                            cfg.num_disp, lor)
         vols[lor] = agg_ops.cbca(vol, arms_int, cfg.cbca_iterations,
@@ -107,8 +113,10 @@ def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
 
 
 def optimize(vols, left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
-    """L3: SGM over all volumes together, then WTA on each and, with
-    ``uniq_check``, DISP_INV where the left map fails the uniqueness test.
+    """L3: SGM over all volumes together, then WTA on each (the cooperative
+    WTA of the left volume alone when it is the only one and the LR check
+    needs a right map) and, with ``uniq_check``, DISP_INV where the left
+    map fails the uniqueness test.
 
     Returns (d_left, d_right or None, vol_left after optimization)."""
     images = {0: left, 1: right}
@@ -118,8 +126,13 @@ def optimize(vols, left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
         num_directions=cfg.sgm_scan_num, p1=cfg.sgm_p1_eff, p2=cfg.sgm_p2_eff,
         cor_dif_thres=cfg.sgm_cor_dif_thres, redu_coeff=cfg.sgm_redu_coeff)
     vols = dict(zip(lors, out))
-    dl = wta_ops.wta(vols[0], cfg.choose_small)
-    dr = wta_ops.wta(vols[1], cfg.choose_small) if 1 in vols else None
+    if 1 in vols:
+        dl = wta_ops.wta(vols[0], cfg.choose_small)
+        dr = wta_ops.wta(vols[1], cfg.choose_small)
+    elif cfg.do_refine and cfg.do_lr_consis:
+        dl, dr = wta_ops.wta_pair_cooperative(vols[0], cfg.choose_small)
+    else:
+        dl, dr = wta_ops.wta(vols[0], cfg.choose_small), None
     if cfg.uniq_check:
         # UniqCk (wta_Co cpp:2763-2775): refinement fills these pixels
         bad = wta_ops.uniqueness_mask(vols[0], dl, cfg.uniqueness_ratio)
@@ -129,15 +142,21 @@ def optimize(vols, left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
 
 def refine(d_left: torch.Tensor, d_right, vol_left, left: torch.Tensor,
            arms0: torch.Tensor, cfg: MatchConfig) -> torch.Tensor:
-    """L4 (refine() cpp:1347-1511) for the stages ported: LR check, region
-    vote, proper interpolation, then subpixel enhancement from vol_left (the
-    left volume after SGM; only read with ``do_subpixel``) and its median,
-    or the last median, in the JAX package's order, on the left map. arms0:
+    """L4 (refine() cpp:1347-1511) for the stages ported: LR check (plain,
+    or classifying failures as DISP_OCC or DISP_MIS), region vote, proper
+    interpolation, the background fill, then subpixel enhancement from
+    vol_left (the left volume after SGM; only read with ``do_subpixel``)
+    and its median, or the last median, in the JAX package's order, on the
+    left map. arms0:
     the left image's [4, H, W] cross arms. Returns a float32 map with
     ``do_subpixel``, else int32."""
     d = d_left
     if cfg.do_lr_consis and d_right is not None:
-        d = refine_ops.lr_consistency(d, d_right, cfg.lr_max_diff)
+        if cfg.lrc_classify:
+            d = refine_ops.lr_consistency_classify(d, d_right, cfg.num_disp, cfg.lr_max_diff,
+                                                   cfg.disp_occ, cfg.disp_mis)
+        else:
+            d = refine_ops.lr_consistency(d, d_right, cfg.lr_max_diff)
     if cfg.do_region_vote:
         for _ in range(cfg.region_vote_iters):
             d = refine_ops.region_vote(d, arms0, cfg.num_disp, cfg.rv_s_thres,
@@ -147,6 +166,8 @@ def refine(d_left: torch.Tensor, d_right, vol_left, left: torch.Tensor,
         for _ in range(cfg.proper_ipol_iters):
             d = refine_ops.proper_interpolation(d, left, cfg.pi_search_depth,
                                                 cfg.disp_occ)
+    if cfg.do_bg_ipol:
+        d = refine_ops.bg_interpolation(d, cfg.num_disp)
     if cfg.do_subpixel:
         # the float map; the reference keeps a separate SE buffer
         return refine_ops.median_blur_disp(refine_ops.subpixel_enhance(d, vol_left),

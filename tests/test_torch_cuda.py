@@ -66,10 +66,9 @@ ARM_TAPS_CASES = [((7, 33, 41), 34), ((1, 9, 511), 34), ((2, 9, 512), 34), ((1, 
                   ((2, 9000, 9), 34)]
 
 
-@pytest.mark.parametrize("shape,max_arm", ARM_TAPS_CASES)
-@pytest.mark.parametrize("axis", [1, 2])
-@pytest.mark.parametrize("area", [False, True])
-def test_arm_taps_kernel(cuda, shape, max_arm, axis, area):
+def _arm_taps_case(cuda, shape, max_arm, axis, area, dtype):
+    """Kernel B and its plain version on random costs of ``dtype`` and
+    random int8 arms (some at 0, some at 127)."""
     rng = np.random.default_rng(axis + 2 * area + shape[2] + max_arm)
 
     def arm():
@@ -82,7 +81,7 @@ def test_arm_taps_kernel(cuda, shape, max_arm, axis, area):
             a = buf[1:].view(shape).copy_(a)
         return a
 
-    vol = _t(rng.random(shape).astype(np.float32), cuda)
+    vol = _t(rng.random(shape).astype(np.float32), cuda).to(dtype)
     an1, ap1, an, ap = (arm() for _ in range(4))
     if area:
         got = ck.arm_taps(vol, an, ap, axis, max_arm, an1=an1, ap1=ap1)
@@ -90,7 +89,27 @@ def test_arm_taps_kernel(cuda, shape, max_arm, axis, area):
     else:
         got = ck.arm_taps(vol, an, ap, axis, max_arm)
         want = arms.arm_bounded_sum_plain(vol, an, ap, axis, max_arm)
+    assert got.dtype == dtype
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,max_arm", ARM_TAPS_CASES)
+@pytest.mark.parametrize("axis", [1, 2])
+@pytest.mark.parametrize("area", [False, True])
+def test_arm_taps_kernel(cuda, shape, max_arm, axis, area):
+    _arm_taps_case(cuda, shape, max_arm, axis, area, torch.float32)
+
+
+# In bfloat16 the volume's rows are staged as the 16-byte words covering
+# them (8 elements a word), so W % 8 and the rows' alignment matter: the
+# shapes above cover W % 8 from 0 to 7 (with D odd, the arm planes are
+# unaligned too). The area pass's running count rounds once it passes 256:
+# with max_arm 34 or 127 most windows' counts pass it.
+@pytest.mark.parametrize("shape,max_arm", ARM_TAPS_CASES + [((3, 70, 77), 127), ((2, 8, 15), 2)])
+@pytest.mark.parametrize("axis", [1, 2])
+@pytest.mark.parametrize("area", [False, True])
+def test_arm_taps_kernel_bf16(cuda, shape, max_arm, axis, area):
+    _arm_taps_case(cuda, shape, max_arm, axis, area, torch.bfloat16)
 
 
 # The SGM kernels stage bands of scan lines through a ring of 4 stages (3
@@ -102,40 +121,99 @@ def test_arm_taps_kernel(cuda, shape, max_arm, axis, area):
 SGM_DS = [1, 31, 32, 33, 37, 60, 128, 255, 256]
 
 
+SGM_SCAN_SHAPES = [(2, 11, 19), (1, 3, 15), (2, 4, 16), (1, 5, 17), (2, 11, 35), (1, 1, 1),
+                   (2, 1, 49), (1, 2, 65), (1, 13, 1), (2, 49, 13), (1, 50, 41)]
+SGM_DIAG_SHAPES = [(21, 30), (40, 7), (1, 17), (17, 1), (8, 8), (8, 9), (9, 9), (18, 18), (1, 1),
+                   (13, 35), (60, 9), (9, 60), (3, 45)]
+
+
+def _sgm_inputs(cuda, seed, shape, dtype):
+    """Random [G, D, H, W] costs in [0, 3) of ``dtype`` and float32 scales."""
+    rng = np.random.default_rng(seed)
+    vol = _t((rng.random(shape) * 3).astype(np.float32), cuda).to(dtype)
+    ps = _t(np.where(rng.random(shape[:1] + shape[2:]) < 0.3, 0.25, 1.0).astype(np.float32),
+            cuda)
+    return vol, ps
+
+
 @pytest.mark.parametrize("nd", SGM_DS)
-@pytest.mark.parametrize("g,h,w", [(2, 11, 19), (1, 3, 15), (2, 4, 16), (1, 5, 17), (2, 11, 35),
-                                   (1, 1, 1), (2, 1, 49), (1, 2, 65), (1, 13, 1), (2, 49, 13),
-                                   (1, 50, 41)])
+@pytest.mark.parametrize("g,h,w", SGM_SCAN_SHAPES)
 @pytest.mark.parametrize("axis,reverse", [(2, False), (2, True), (3, False), (3, True)])
 def test_sgm_scan_kernel(cuda, nd, g, h, w, axis, reverse):
-    rng = np.random.default_rng(nd + h * w)
-    vol = _t((rng.random((g, nd, h, w)) * 3).astype(np.float32), cuda)
-    ps = _t(np.where(rng.random((g, h, w)) < 0.3, 0.25, 1.0).astype(np.float32), cuda)
+    vol, ps = _sgm_inputs(cuda, nd + h * w, (g, nd, h, w), torch.float32)
     assert torch.equal(ck.sgm_scan(vol, ps, 1.0, 3.0, axis, reverse),
                        sgm.sgm_scan_plain(vol, ps, 1.0, 3.0, axis, reverse))
 
 
+# In bfloat16 each cost is staged as the aligned 4-byte word holding it, so
+# the parity of its element index matters: odd planes H * W flip it from
+# one disparity to the next, odd G * D * H * W from one volume to the next.
 @pytest.mark.parametrize("nd", SGM_DS)
-@pytest.mark.parametrize("shape", [(21, 30), (40, 7), (1, 17), (17, 1), (8, 8), (8, 9), (9, 9),
-                                   (18, 18), (1, 1), (13, 35), (60, 9), (9, 60), (3, 45)])
+@pytest.mark.parametrize("g,h,w", SGM_SCAN_SHAPES)
+@pytest.mark.parametrize("axis,reverse", [(2, False), (2, True), (3, False), (3, True)])
+def test_sgm_scan_kernel_bf16(cuda, nd, g, h, w, axis, reverse):
+    vol, ps = _sgm_inputs(cuda, nd + h * w, (g, nd, h, w), torch.bfloat16)
+    got = ck.sgm_scan(vol, ps, 1.0, 3.0, axis, reverse)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, sgm.sgm_scan_plain(vol, ps, 1.0, 3.0, axis, reverse))
+
+
+def _sgm_diag_case(cuda, nd, shape, g, dtype):
+    vol, ps = _sgm_inputs(cuda, nd * 7 + shape[0] + g, (g, nd) + shape, dtype)
+    for rv, ru in sgm.DIRECTIONS_8[4:]:
+        assert torch.equal(ck.sgm_diag_scan(vol, ps, 1.0, 3.0, rv, ru),
+                           sgm.sgm_diag_scan_plain(vol, ps, 1.0, 3.0, rv, ru)), (rv, ru)
+
+
+@pytest.mark.parametrize("nd", SGM_DS)
+@pytest.mark.parametrize("shape", SGM_DIAG_SHAPES)
 @pytest.mark.parametrize("g", [1, 2])
 def test_sgm_diag_kernel(cuda, nd, shape, g):
     """Kernel E on every diagonal, lines of every length, the corner's
     line included, against its plain version; 8x8 to 18x18 have 15, 16, 17
     and 35 lines, and (60, 9), (9, 60) and (3, 45) far more lines of the
     longest length than a band holds."""
-    rng = np.random.default_rng(nd * 7 + shape[0] + g)
-    vol = _t((rng.random((g, nd) + shape) * 3).astype(np.float32), cuda)
-    ps = _t(np.where(rng.random((g,) + shape) < 0.3, 0.25, 1.0).astype(np.float32), cuda)
-    for rv, ru in sgm.DIRECTIONS_8[4:]:
-        assert torch.equal(ck.sgm_diag_scan(vol, ps, 1.0, 3.0, rv, ru),
-                           sgm.sgm_diag_scan_plain(vol, ps, 1.0, 3.0, rv, ru)), (rv, ru)
+    _sgm_diag_case(cuda, nd, shape, g, torch.float32)
+
+
+@pytest.mark.parametrize("nd", SGM_DS)
+@pytest.mark.parametrize("shape", SGM_DIAG_SHAPES)
+@pytest.mark.parametrize("g", [1, 2])
+def test_sgm_diag_kernel_bf16(cuda, nd, shape, g):
+    _sgm_diag_case(cuda, nd, shape, g, torch.bfloat16)
 
 
 @pytest.mark.parametrize("choose_small", [True, False])
 def test_wta_kernel(cuda, choose_small):
     vol = _t(np.random.default_rng(6).integers(0, 3, (11, 14, 15)).astype(np.float32), cuda)
     assert torch.equal(ck.wta(vol, choose_small), wta.wta_plain(vol, choose_small))
+
+
+@pytest.mark.parametrize("shape", [(11, 14, 15), (256, 9, 33)])
+@pytest.mark.parametrize("choose_small", [True, False])
+def test_wta_kernel_bf16(cuda, shape, choose_small):
+    """Ties (integer costs) and +-inf, the cooperative WTA's mask in
+    bfloat16."""
+    rng = np.random.default_rng(shape[0])
+    vol = rng.integers(0, 3, shape).astype(np.float32) + rng.random(shape).astype(np.float32) / 8
+    vol[rng.random(shape) < 0.2] = np.inf if choose_small else -np.inf
+    vol = _t(vol, cuda).to(torch.bfloat16)
+    assert torch.equal(ck.wta(vol, choose_small), wta.wta_plain(vol, choose_small))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_volume_kernels_refuse_other_dtypes(cuda, dtype):
+    vol = torch.zeros((2, 3, 5, 7), dtype=dtype, device=cuda)
+    ps = torch.ones((2, 5, 7), device=cuda)
+    arm = torch.zeros((3, 5, 7), dtype=torch.int8, device=cuda)
+    calls = [lambda: ck.arm_taps(vol[0], arm, arm, 2, 4),
+             lambda: ck.arm_taps(vol[0], arm, arm, 1, 4, arm, arm),
+             lambda: ck.sgm_scan(vol, ps, 1.0, 3.0, 2, False),
+             lambda: ck.sgm_diag_scan(vol, ps, 1.0, 3.0, 1, 1),
+             lambda: ck.wta(vol[0])]
+    for call in calls:
+        with pytest.raises(TypeError):
+            call()
 
 
 @pytest.mark.parametrize("shape", [(33, 41), (1, 1), (5, 70)])
@@ -219,3 +297,24 @@ def test_sgm8_full_kernel_path_equals_plain_path(cuda, do_subpixel, h, w, max_di
     cpu = port.StereoPipeline(cfg, device="cpu")(pair.left, pair.right)
     for key in ("disp_left_raw", "disp_right_raw"):
         assert torch.equal(gpu[key].cpu(), cpu[key]), key
+
+
+@pytest.mark.parametrize("variant", [{}, dict(vol_dtype="bfloat16", compute_both_volumes=False)])
+def test_fullres_occfill_kernel_path_equals_plain_path(cuda, variant):
+    """fullres_occfill in float32 with both volumes, and in bfloat16 with
+    the cooperative WTA, on the card: the kernels against their plain
+    versions on the same device, and the launches a frame (kernel B 8 or 4
+    times, D twice either way)."""
+    pair = make_synthetic_pair(h=48, w=64, max_disp=15, seed=3, noise_sigma=0.5)
+    cfg = get_model("fullres_occfill", max_disp=15, **variant)
+    pipe = port.StereoPipeline(cfg, device=cuda)
+    ck.reset_launches()
+    gpu = pipe(pair.left, pair.right)
+    used = kernels_launched(cfg)
+    assert all((n > 0) == (k in used) for k, n in ck.launches.items()), ck.launches
+    assert ck.launches["arm_taps"] == (8 if cfg.compute_both_volumes else 4)
+    assert ck.launches["wta"] == 2 and ck.launches["sgm_scan"] == 4
+    with mock.patch.object(ck, "on_cuda", lambda t: False):
+        plain = pipe(pair.left, pair.right)
+    for key in ("disp_left_raw", "disp_right_raw", "disparity"):
+        assert torch.equal(gpu[key], plain[key]), key

@@ -79,7 +79,7 @@ def variant_sources(name: str) -> dict:
     hdr = sub(r"constexpr int kMaxRing = \d+;", f"constexpr int kMaxRing = {ring};",
               (ck.CSRC / "sgm_band.cuh").read_text())
     if m.group(8):
-        hdr = sub(r"(\n\s*sgm_steps<kSlots, kPitch>\(.*\);)", r"\n#if 0\1\n#endif", hdr)
+        hdr = sub(r"(\n\s*sgm_steps<T, kSlots, kPitch>\([^;]*\);)", r"\n#if 0\1\n#endif", hdr)
     scan = band(band((ck.CSRC / "sgm_scan.cu").read_text(), "AlongH", lh, bh), "AlongW", lw, bw)
     diag = band((ck.CSRC / "sgm_diag.cu").read_text(), "Diagonal", ld, bd)
     return {"sgm_band.cuh": hdr, "sgm_scan.cu": scan, "sgm_diag.cu": diag}
@@ -135,7 +135,7 @@ def build(names) -> dict:
             (d / file).write_text(text)
         dirs[name] = d
     return compile_libs(dirs, ("sgm_scan.cu", "sgm_diag.cu"), ("mysm_sgm_scan", "mysm_sgm_diag"),
-                        r"(sgm_(?:scan|diag)_kernelILi[24]E\w*?)EEv")
+                        r"(sgm_(?:scan|diag)_kernelIf\w*?)EEv")
 
 
 def main() -> int:
