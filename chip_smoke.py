@@ -51,12 +51,36 @@ Phases, each of which raises (exit code 1) on failure:
    of B, C and D a bfloat16 one), the three maps equal to the plain path's,
    both DISP_OCC and DISP_MIS in its classifying LR check, its bad-1.0
    rate, kernel and plain frame times, peak device memory and a profile;
-7. timing: ms/frame and MP*disp/s of the kernel path and of the same
+7. row bands: the row-band pipeline (``parallel.run_row_bands``), one
+   process a rank, one card a rank over NCCL where there are cards enough,
+   else every rank on card 0 over gloo (the phase prints which). First
+   kernel C's carried-in row and in-image mask (``sgm_scan_ext``) against
+   their plain versions, in float32 and bfloat16, each with its bound and
+   device time, at the shapes the banded sgm8_full frame launches: a W
+   chunk [1, 128, 250, 125] of band 1's CBCA volume scanned down from band
+   0's boundary row, and a chunk [1, 128, 250, 219] of band 1's skewed
+   diagonal buffer with its in-image mask, from band 0's boundary row; and
+   (the rows' ``whole_band``) on the whole band [1, 128, 250, 1000] and its
+   whole skewed buffer [1, 128, 250, 1749] from a random initial row. Then
+   over 3 bands of 250 rows, 8 W chunks: the downward vertical path costs
+   and two diagonals' gathered on rank 0 must equal kernels C's and E's on
+   the whole volume bit for bit; sgm8_full's three maps (raw, refined
+   integer, float) must equal the dense pipeline's with its directions
+   summed in the band path's order (the same kernels' path costs, another
+   association than the dense sum's) exactly; against the dense maps the
+   differing pixels are counted, and the float map may differ by more
+   than 1e-4 at no more than 16 pixels and by 1e-2 nowhere. Then
+   fullres_occfill's frame A over 4 bands through ``run_row_bands``: its
+   map must equal the dense map exactly. Each banded frame is run again
+   through the measurement harness (``parallel._harness``), three frames,
+   and prints its wall time, each rank's device time, peak memory,
+   launches and communication; a failing rank fails the script;
+8. timing: ms/frame and MP*disp/s of the kernel path and of the same
    pipeline with every kernel replaced by its plain torch version, for the
    full default configuration and for ``do_refine=False``, in alternating
    rounds; the refine chain alone, kernel and plain; and the peak device
    memory of a frame;
-8. profile: ``torch.profiler`` over frames of the full default
+9. profile: ``torch.profiler`` over frames of the full default
    configuration: device time, idle share, launches per frame, the largest
    device kernels and each hand kernel's device time a launch.
 
@@ -65,8 +89,10 @@ Each phase prints its seconds.
 The line before the last is ``{"kernels": [...]}`` (each row's ``case``
 names what was measured: kernels B, C and E at full width, on the
 ``sgm8_full`` frame, with that frame's launches; the bfloat16 instances
-``*_bf16`` on frame B, with its launches; ``ms_from`` says whether ``ms``
-came from the profiler or from CUDA events); the last line is
+``*_bf16`` on frame B, with its launches; kernel C's new entry points
+``sgm_scan_ext*`` on a W chunk of the banded sgm8_full frame's inputs, with
+the launches summed over its ranks; ``ms_from`` says whether ``ms`` came from the
+profiler or from CUDA events); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -94,8 +120,11 @@ from mystereomatching_tpu_torch.ops import cuda_kernels as ck
 from mystereomatching_tpu_torch.ops import refine as refine_ops
 from mystereomatching_tpu_torch.ops import sgm as sgm_ops
 from mystereomatching_tpu_torch.ops import wta as wta_ops
-from mystereomatching_tpu_torch.pipeline import (compute_volumes, kernels_launched, refine,
-                                                  to_gray)
+from mystereomatching_tpu_torch.parallel import _harness as band_harness
+from mystereomatching_tpu_torch.parallel import run_row_bands
+from mystereomatching_tpu_torch.parallel.launch import band_pipeline
+from mystereomatching_tpu_torch.parallel.sharded import _cost_halo, sgm_band_direction
+from mystereomatching_tpu_torch.pipeline import compute_volumes, kernels_launched, refine, to_gray
 from mystereomatching_tpu_torch.utils.metrics import bad_pixel_rate
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -139,8 +168,26 @@ OCCFILL = {
 }
 # a fullres_occfill frame's launches, kernel B's aside (8 with two volumes, 4 with one)
 OCCFILL_LAUNCHES = {"arms_grow": 2, "sgm_scan": 4, "wta": 2, "arm_reduce": 8, "pi_scan": 2,
-                    "sgm_diag": 0}
-BF16_ROWS = {f"{name}_bf16": name for name in ck.launches_bf16}  # kernels line rows
+                    "sgm_diag": 0, "sgm_scan_ext": 0}
+BF16_ROWS = {f"{name}_bf16": name for name in ("arm_taps", "sgm_scan", "wta", "sgm_diag")}
+# kernel C's scan with the row-band pipeline's inputs: kernels line row ->
+# (the TPU kernel's lines it replaces, storage type, with the in-image mask)
+EXT_ROWS = {
+    "sgm_scan_ext": ("mystereomatching_tpu/ops/pallas_kernels.py:788", torch.float32, False),
+    "sgm_scan_ext_mask": ("mystereomatching_tpu/ops/pallas_kernels.py:803", torch.float32, True),
+    "sgm_scan_ext_bf16": ("mystereomatching_tpu/ops/pallas_kernels.py:788", torch.bfloat16,
+                          False),
+    "sgm_scan_ext_mask_bf16": ("mystereomatching_tpu/ops/pallas_kernels.py:803",
+                               torch.bfloat16, True),
+}
+ROW_BANDS_CHUNKS = 8
+ROW_BANDS_SGM8 = 3       # ranks: 250-row bands of the 750-row frame
+ROW_BANDS_OCCFILL = 4    # ranks: 250-row bands of frame A's 1000 rows
+ROW_BANDS_FRAMES = 3     # a warm-up, a timed frame, then a profiled one
+# sgm8_full's banded float map against the dense one (another association
+# of the direction sum): at most this many pixels beyond the first bound,
+# none beyond the second (5 px, 5.49e-4 at most, on an H100)
+FLOAT_PX, FLOAT_TOL, FLOAT_MAX = 16, 1e-4, 1e-2
 OCCFILL_REPS = 3
 FRAME_REPS = 10
 PROFILE_FRAMES = 5
@@ -990,6 +1037,288 @@ def phase_occfill(dev, card_line: str):
     return rows, counts_bf16
 
 
+def row_band_devices(n: int):
+    """(devices, backend) for n ranks: one card a rank over NCCL where there
+    are cards enough, else all on card 0 over gloo."""
+    if torch.cuda.device_count() >= n:
+        return [f"cuda:{i}" for i in range(n)], "nccl"
+    return ["cuda:0"] * n, "gloo"
+
+
+def frame_volume(left, right, cfg) -> torch.Tensor:
+    """The left view's CBCA volume [D, H, W] of a pair, as the dense path
+    computes it."""
+    vols, _ = compute_volumes(left, right, cfg.replace(compute_both_volumes=False))
+    return vols[0]
+
+
+def direction_band(mesh, left, right, cfg, n_chunks, direction):
+    """Rank job: the band's path costs of one direction of the frame's left
+    CBCA volume, through the row-band pipeline's SGM (sgm_band_direction)."""
+    lf = torch.from_numpy(left).to(mesh.device, torch.float32)
+    rf = torch.from_numpy(right).to(mesh.device, torch.float32)
+    vol = frame_volume(lf, rf, cfg)
+    h = vol.shape[1] // mesh.n_row
+    rows = slice(mesh.row_index * h, (mesh.row_index + 1) * h)
+    return sgm_band_direction(vol[:, rows].contiguous(), lf[rows].contiguous(), cfg,
+                              *direction, n_chunks, mesh)
+
+
+def direction_dense(gathered, left, right, cfg, n_chunks, direction):
+    """On rank 0: the gathered band path costs against the dense kernel's
+    (C along an axis, E on a diagonal) on the whole volume."""
+    del n_chunks
+    lf = torch.from_numpy(left).to(gathered.device, torch.float32)
+    rf = torch.from_numpy(right).to(gathered.device, torch.float32)
+    vol = frame_volume(lf, rf, cfg)[None].contiguous()
+    ps = sgm_ops.penalty_scale(lf, *direction, cfg.sgm_cor_dif_thres,
+                               cfg.sgm_redu_coeff)[None].contiguous()
+    diagonal = bool(direction[0] and direction[1])
+    name = "sgm_diag" if diagonal else "sgm_scan"
+    scan = sgm_ops.sgm_diag_scan if diagonal else sgm_ops.sgm_scan  # C or E on the card
+    want = scan(vol, ps, cfg.sgm_p1_eff, cfg.sgm_p2_eff, *scan_args(direction))[0]
+    err = float((gathered.double() - want.double()).abs().max())
+    return dict(equal=bool(torch.equal(gathered, want)), max_abs_err=err, dense=name)
+
+
+def ext_case(vol, pscale, init, mask, cfg):
+    """Kernel C with a carried-in row (and mask) as (kernel, plain, bytes,
+    operations): the volume read and the path costs written once, the
+    scales, the mask and the initial row read once; 7 operations an element,
+    8 with the mask."""
+    p1, p2 = cfg.sgm_p1_eff, cfg.sgm_p2_eff
+    n, es = vol.numel(), vol.element_size()
+    nbytes = 2 * n * es + pscale.numel() * 4 + init.numel() * es
+    if mask is not None:
+        nbytes += mask.numel() * 4
+    return (lambda: ck.sgm_scan(vol, pscale, p1, p2, 2, False, init=init, mask=mask),
+            lambda: sgm_ops.sgm_scan_plain(vol, pscale, p1, p2, 2, False, init,
+                                           mask.to(vol.dtype) if mask is not None else None),
+            nbytes, (8 if mask is not None else 7) * n)
+
+
+def band_scan_inputs(vol, left, cfg, band: int, skewed: bool):
+    """Band ``band`` (of ROW_BANDS_SGM8) of the frame's [D, Hg, W] volume
+    as the row-band pipeline scans it down: (costs [D, h, Ws], penalty
+    scales [h, Ws], in-image mask [h, Ws] or None). Skewed: the diagonal
+    (-1, 1)'s buffer, skewed by the local row, padded to the global skewed
+    width W + Hg - 1 and rolled by the band's first global row."""
+    hg = vol.shape[1]
+    h = hg // ROW_BANDS_SGM8
+    rows = slice(band * h, (band + 1) * h)
+    v, img = vol[:, rows], left[rows]
+    thres, coeff = cfg.sgm_cor_dif_thres, cfg.sgm_redu_coeff
+    if not skewed:
+        return v.contiguous(), sgm_ops.penalty_scale(img, -1, 0, thres, coeff), None
+    v_s, ok = sgm_ops._skew(v, 1, 0.0)
+    ps_s, _ = sgm_ops._skew(sgm_ops.penalty_scale(img, -1, 1, thres, coeff), 1, 1.0)
+    pad, grow, g0 = torch.nn.functional.pad, hg - h, band * h
+    return (torch.roll(pad(v_s, (0, grow)), g0, -1).contiguous(),
+            torch.roll(pad(ps_s, (0, grow), value=1.0), g0, -1).contiguous(),
+            torch.roll(pad(ok.float(), (0, grow)), g0, -1).contiguous())
+
+
+def ext_kernel_rows(vol, left, cfg, card_line: str) -> dict:
+    """Kernel C's new inputs on the sgm8_full frame's left CBCA volume, in
+    float32 and bfloat16, against the plain version. Each kernels line row
+    is the shape the banded frame launches: one W chunk of band 1 (chunk 0
+    of its band, chunk 1 of its skewed buffer, where the in-image mask
+    begins mid-line), scanned down from band 0's boundary row of that
+    chunk. Its ``whole_band`` is the same input over the band's whole width
+    from a random initial row, one launch where the wavefront makes
+    ROW_BANDS_CHUNKS."""
+    p1, p2 = cfg.sgm_p1_eff, cfg.sgm_p2_eff
+    gen = torch.Generator(device=vol.device).manual_seed(1)
+    rows = {}
+    for row, (_, dtype, masked) in EXT_ROWS.items():
+        (v0, ps0, m0), (v1, ps1, m1) = (band_scan_inputs(vol, left, cfg, b, masked)
+                                        for b in (0, 1))
+        v0, v1 = v0.to(dtype)[None], v1.to(dtype)[None]
+        m0, m1 = (m[None] if masked else None for m in (m0, m1))
+        edge = sgm_ops.sgm_scan_plain(v0, ps0[None], p1, p2, 2, False, None,
+                                      m0.to(dtype) if masked else None)[:, :, -1]
+        ws = v1.shape[-1]
+        cw = -(-ws // ROW_BANDS_CHUNKS)
+        cols = slice(cw, 2 * cw) if masked else slice(0, cw)
+        chunk = [t[..., cols].contiguous() if t is not None else None
+                 for t in (v1, ps1[None], edge, m1)]
+        kind = "skewed diagonal buffer with its in-image mask" if masked else "band"
+        what = (f"W chunk {list(chunk[0].shape)} of band 1's {kind} {str(dtype)[6:]}, "
+                "scanned down from band 0's boundary row")
+        rows[row] = run_case("sgm_scan_ext", what, ext_case(*chunk, cfg), card_line)
+        init = (torch.rand((1, v1.shape[1], ws), generator=gen, device=v1.device) * 4
+                + 0.5).to(dtype)
+        what = f"whole {kind} {list(v1.shape)} {str(dtype)[6:]}, from a random initial row"
+        whole = run_case("sgm_scan_ext", what, ext_case(v1, ps1[None], init, m1, cfg),
+                         card_line)
+        rows[row]["whole_band"] = {k: whole[k] for k in ("case", "ms", "ms_from", "plain_ms",
+                                                         "bound_ms", "max_abs_err")}
+    return rows
+
+
+def sgm_multi_band_order(vol_list, img_list, num_directions: int = 4, p1: float = 1.0,
+                         p2: float = 3.0, cor_dif_thres: int = 15, redu_coeff: float = 4.0):
+    """``sgm_ops.sgm_multi`` with the directions summed in the row-band
+    path's order (``sharded._sgm_sharded``): 0 + down + up + (the horizontal
+    pair) + each diagonal, each direction from the dense kernels."""
+    groups = [((-1, 0),), ((1, 0),), ((0, 1), (0, -1))]
+    if num_directions >= 8:
+        groups += [(d,) for d in DIAGONALS]
+    outs = []
+    for vol, img in zip(vol_list, img_list):
+        out = torch.zeros_like(vol)
+        for dirs in groups:
+            out = out + sgm_ops.sgm_directions([vol], [img], dirs, p1, p2, cor_dif_thres,
+                                               redu_coeff)[0]
+        outs.append(out)
+    return outs
+
+
+def band_report(label: str, reports, card_line: str) -> None:
+    """Each rank's wall time per frame, device time of the profiled frame,
+    peak memory, launches and communication."""
+    for r in reports:
+        comm = r["comm"]
+        chunks, steps = comm["wavefront_chunks"], comm["wavefront_steps"]
+        eff = f"{chunks[0]}/{steps[0]} = {chunks[0] / steps[0]:.3f}" if steps else "none"
+        dev_ms = (f"{r['device_ms']:.3f} ms ({r['nccl_ms']:.3f} of it NCCL's kernels, waits "
+                  "included)" if r["device_ms"] is not None else "not measured")
+        launches = {k: v for k, v in r["launches"].items() if v}
+        print(f"{label} rank {r['rank']} on {r['device']} ({r['backend']}): wall ms/frame "
+              f"{', '.join(f'{t:.3f}' for t in r['wall_ms'])} (the last under the profiler); "
+              f"device {dev_ms}; peak {r['peak_bytes'] / 2**20:.1f} MiB; launches "
+              f"{json.dumps(launches)} (masked sgm_scan_ext "
+              f"{r['launches_masked']['sgm_scan_ext']}); halo {comm['halo_exchanges']} "
+              f"exchanges {comm['halo_bytes']} B sent, wavefront {comm['wavefront_scans']} "
+              f"scans of {eff} chunk steps, {comm['wavefront_bytes']} B sent, gather "
+              f"{comm['gather_bytes']} B, total {comm['total_bytes']} B [{card_line}]")
+        for name, ms, n in r["top_kernels"]:
+            print(f"{label} rank {r['rank']}:   {ms:9.3f} ms {n:6d}x  {name}")
+
+
+def check_band_launches(label: str, reports, masked: bool) -> dict:
+    """Kernel C's new entry points launched over the ranks (with the mask
+    when ``masked``), kernel E never (the band path skews through C).
+    Returns those launches summed over the ranks by kernels line row."""
+    total = collections.Counter()
+    for r in reports:
+        total.update(r["launches"])
+        total.update({f"bf16_{k}": v for k, v in r["launches_bf16"].items()})
+        total.update({f"masked_{k}": v for k, v in r["launches_masked"].items()})
+    if not total["sgm_scan_ext"] or total["sgm_diag"] or \
+            bool(total["masked_sgm_scan_ext"]) != masked:
+        raise AssertionError(f"{label}: launches over the ranks {dict(total)}")
+    masked_bf16 = total["masked_sgm_scan_ext_bf16"]
+    masked_f32 = total["masked_sgm_scan_ext"] - masked_bf16
+    bf16 = total["bf16_sgm_scan_ext"] - masked_bf16
+    return {"sgm_scan_ext": total["sgm_scan_ext"] - bf16 - masked_bf16 - masked_f32,
+            "sgm_scan_ext_mask": masked_f32, "sgm_scan_ext_bf16": bf16,
+            "sgm_scan_ext_mask_bf16": masked_bf16}
+
+
+def phase_row_bands(dev, card_line: str):
+    """The row-band pipeline at full width. Returns the kernels line's rows
+    of sgm_scan_ext and their launches on the banded sgm8_full frame."""
+    torch.cuda.empty_cache()
+    pair = make_synthetic_pair(**SGM8)
+    left = torch.from_numpy(pair.left).to(dev, torch.float32)
+    right = torch.from_numpy(pair.right).to(dev, torch.float32)
+    cfg = get_model("sgm8_full", max_disp=SGM8["max_disp"])
+    label = f"row bands sgm8_full {SGM8['h']}x{SGM8['w']} D={cfg.num_disp}"
+    print(f"{label}: cost halo {_cost_halo(cfg)} rows, bands of "
+          f"{SGM8['h'] // ROW_BANDS_SGM8} rows")
+    rows = ext_kernel_rows(frame_volume(left, right, cfg), left, cfg, card_line)
+
+    # the dense references on this card, in the dense sum's order and in
+    # the band path's
+    cfg_raw = cfg.replace(do_refine=False, sub_ipol=False)
+    cfg_int = cfg.replace(do_subpixel=False, sub_ipol=False)
+    dense, band_order = {}, {}
+    for key, c in (("raw", cfg_raw), ("int", cfg_int), ("float", cfg)):
+        pipe = StereoPipeline(c, device=dev)
+        dense[key] = pipe(left, right)["disparity"]
+        with mock.patch.object(sgm_ops, "sgm_multi", sgm_multi_band_order):
+            band_order[key] = pipe(left, right)["disparity"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    devices, backend = row_band_devices(ROW_BANDS_SGM8)
+    print(f"{label}: {ROW_BANDS_SGM8} ranks on {devices} over {backend}")
+    pipe_args = (pair.left[None], pair.right[None])
+    Job = band_harness.Job
+    jobs = [Job(band_pipeline, pipe_args + (cfg, ROW_BANDS_CHUNKS), row_axis=1, batch_axis=0,
+                frames=ROW_BANDS_FRAMES, profile=True),
+            Job(band_pipeline, pipe_args + (cfg_int, ROW_BANDS_CHUNKS), row_axis=1,
+                batch_axis=0),
+            Job(band_pipeline, pipe_args + (cfg_raw, ROW_BANDS_CHUNKS), row_axis=1,
+                batch_axis=0)]
+    directions = [(-1, 0), (1, 1), (-1, -1)]
+    jobs += [Job(direction_band, (pair.left, pair.right, cfg, ROW_BANDS_CHUNKS, d),
+                 row_axis=1, finish=direction_dense) for d in directions]
+    t0 = time.perf_counter()
+    (band_float, reports), (band_int, _), (band_raw, _), *dirs = band_harness.run_jobs(
+        jobs, ROW_BANDS_SGM8, devices=devices, backend=backend)
+    print(f"{label}: {len(jobs)} jobs over {ROW_BANDS_SGM8} ranks in "
+          f"{time.perf_counter() - t0:.3f} s, processes included")
+    band_report(label, reports, card_line)
+    launches = check_band_launches(label, reports, masked=True)
+    for d, (res, _) in zip(directions, dirs):
+        print(f"{label}: direction {d} over {ROW_BANDS_SGM8} bands vs dense kernel "
+              f"{res['dense']}: equal {res['equal']} (max |err| {res['max_abs_err']})")
+        if not res["equal"]:
+            raise AssertionError(f"{label}: direction {d} differs from the dense kernel's")
+
+    banded = {"raw": band_raw, "int": band_int, "float": band_float}
+    for key, got in banded.items():
+        got = banded[key] = torch.from_numpy(got[0]).to(dev)
+        same = torch.equal(got, band_order[key])
+        print(f"{label}: {key} map equal to the dense one summed in the band order: {same}; "
+              f"differs from the dense one at {int((got != dense[key]).sum())} px")
+        if not same:
+            raise AssertionError(f"{label}: the {key} map differs from the dense pipeline's "
+                                 "with the band path's direction sum")
+    diff = (banded["float"] - dense["float"]).abs()
+    n_over, err = int((diff > FLOAT_TOL).sum()), float(diff.max())
+    print(f"{label}: float map against the dense one: max |diff| {err}, {n_over} px beyond "
+          f"{FLOAT_TOL} (limits {FLOAT_PX} px, {FLOAT_MAX})")
+    if n_over > FLOAT_PX or err >= FLOAT_MAX:
+        raise AssertionError(f"{label}: the float map strays from the dense one: {n_over} px "
+                             f"beyond {FLOAT_TOL}, max {err}")
+    del left, right, dense, band_order, banded, diff
+    torch.cuda.empty_cache()
+
+    # fullres_occfill frame A over 4 bands: the map through the entry
+    # point, then the measured frames
+    params, overrides = OCCFILL["A"]
+    pair = make_synthetic_pair(**params)
+    cfg = get_model("fullres_occfill", max_disp=params["max_disp"], **overrides)
+    label = f"row bands fullres_occfill A {params['h']}x{params['w']} D={cfg.num_disp}"
+    dense = StereoPipeline(cfg, device=dev)(pair.left, pair.right)["disparity"].cpu()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    devices, backend = row_band_devices(ROW_BANDS_OCCFILL)
+    print(f"{label}: {ROW_BANDS_OCCFILL} ranks on {devices} over {backend}; cost halo "
+          f"{_cost_halo(cfg)} rows, bands of {params['h'] // ROW_BANDS_OCCFILL} rows")
+    t0 = time.perf_counter()
+    disp = run_row_bands(pair.left, pair.right, cfg, n_row=ROW_BANDS_OCCFILL,
+                         n_chunks=ROW_BANDS_CHUNKS, devices=devices, backend=backend)
+    print(f"{label}: run_row_bands in {time.perf_counter() - t0:.3f} s, processes included")
+    n_diff = int((disp != dense).sum())
+    print(f"{label}: banded map differs from the dense one at {n_diff} px (budget 0)")
+    if n_diff:
+        raise AssertionError(f"{label}: the banded map differs at {n_diff} px")
+    job = band_harness.Job(band_pipeline, (pair.left[None], pair.right[None], cfg,
+                                           ROW_BANDS_CHUNKS), row_axis=1, batch_axis=0,
+                           frames=ROW_BANDS_FRAMES, profile=True)
+    [(again, reports)] = band_harness.run_jobs([job], ROW_BANDS_OCCFILL, devices=devices,
+                                               backend=backend)
+    band_report(label, reports, card_line)
+    check_band_launches(label, reports, masked=False)
+    if not torch.equal(torch.from_numpy(again[0]), disp):
+        raise AssertionError(f"{label}: the measured frames' map differs from run_row_bands'")
+    return rows, launches
+
+
 def timed(phase, *args):
     t0 = time.perf_counter()
     result = phase(*args)
@@ -1010,6 +1339,7 @@ def main() -> int:
     for name in sgm_rows:
         rows[name], counts[name] = sgm_rows[name], sgm8_counts[name]
     bf16_rows, bf16_counts = timed(phase_occfill, dev, card_line)
+    ext_rows, ext_counts = timed(phase_row_bands, dev, card_line)
     timed(phase_timing, dev, card_line)
     timed(phase_profile, dev, card_line)
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
@@ -1020,6 +1350,11 @@ def main() -> int:
     kernels += [dict(name=row, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
                      launches=bf16_counts[name], **bf16_rows[row])
                 for row, name in BF16_ROWS.items()]
+    # kernel C's new entry points, with the banded sgm8_full frame's launches
+    # summed over its ranks (no banded path runs bfloat16 volumes)
+    kernels += [dict(name=row, route="cuda", source=KERNELS["sgm_scan"][0], replaces=tpu,
+                     launches=ext_counts[row], **ext_rows[row])
+                for row, (tpu, _, _) in EXT_ROWS.items()]
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,9 @@ Ported so far: the default preset ``census_grad_cbca_sgm``
 4-path SGM -> WTA -> LR check -> region vote -> proper interpolation ->
 3x3 median; ``sgm8_full`` (8-path SGM, uniqueness check, subpixel
 enhancement); and ``fullres_occfill`` (classifying LR check, background
-fill), in float32 or with bfloat16 volumes and the cooperative WTA.
+fill), in float32 or with bfloat16 volumes and the cooperative WTA. The
+three presets also run split into row bands over several processes and
+cards (``parallel.run_row_bands``, float32 volumes).
 """
 
 from mystereomatching_tpu_torch.config import MatchConfig, default_config

@@ -10,11 +10,15 @@
 //   L(cur, d) = (C(cur, d) + best) - minL
 // with s = pscale at cur and L(prev) = 0 before the first step of the line
 // (so the first step gives L = C, the reference's scan-edge rule,
-// h:2277-2279). The operation order is that of sgm._scan_down and the TPU
-// kernels; with -fmad=false the result is bit-identical to the plain torch
-// versions. The volumes are float32 or bfloat16 (the storage type T). In
-// bfloat16 every operation rounds to bfloat16 (storage.cuh), P1 s and P2 s
-// too before they are added, as the JAX CPU path computes it; the carried
+// h:2277-2279). Two optional inputs serve the row-band pipeline, whose scans
+// cross the bands: an initial carry, the neighbouring band's last L row, in
+// place of those zeros, and an in-image mask, by which each L is multiplied
+// (0 or 1) before it is stored and carried, for skewed diagonal buffers. The
+// operation order is that of sgm._scan_down and the TPU kernels; with
+// -fmad=false the result is bit-identical to the plain torch versions. The
+// volumes are float32 or bfloat16 (the storage type T). In bfloat16 every
+// operation rounds to bfloat16 (storage.cuh), P1 s and P2 s too before they
+// are added, as the JAX CPU path computes it; the carried
 // path costs stay in registers as floats holding bfloat16 values, and the
 // edge fill is bfloat16's largest finite value.
 //
@@ -66,18 +70,18 @@ constexpr int kMaxRing = 4;           // stages in shared memory, at most
 constexpr int kMaxSmem = 227 * 1024;  // bytes of shared memory a block may have
 
 // 4-byte words of one stage: a box of kBox pixels for nd disparities, its
-// scales and, in bfloat16, the parity of each pixel's element index in
-// disparity plane 0
-template <typename T>
+// scales, in bfloat16 the parity of each pixel's element index in disparity
+// plane 0, and with an in-image mask (kMasked) the mask
+template <typename T, bool kMasked = false>
 __host__ __device__ constexpr int stage_words(int nd, int box) {
-  return nd * (box + 1) + box + (kIsBf16<T> ? box : 0);
+  return nd * (box + 1) + box + (kIsBf16<T> ? box : 0) + (kMasked ? box : 0);
 }
 
 // stages in shared memory for up to 32 kSlots disparities
-template <typename T, int kSlots, int kBox>
+template <typename T, int kSlots, int kBox, bool kMasked = false>
 constexpr int ring_depth =
-    kMaxSmem / (4 * stage_words<T>(32 * kSlots, kBox)) < kMaxRing
-        ? kMaxSmem / (4 * stage_words<T>(32 * kSlots, kBox))
+    kMaxSmem / (4 * stage_words<T, kMasked>(32 * kSlots, kBox)) < kMaxRing
+        ? kMaxSmem / (4 * stage_words<T, kMasked>(32 * kSlots, kBox))
         : kMaxRing;
 
 // The cost in box slot i: the float itself, or in bfloat16 the half of the
@@ -94,13 +98,15 @@ __device__ __forceinline__ float box_cost(const float* box, int i, int odd) {
 
 // n steps of one scan line through a box: pixel idx, idx + stride, ...;
 // costs at box[d * kPitch + idx] are replaced by the path costs (floats),
-// scales at scale[idx], and in bfloat16 the parities at parity[idx], which
+// scales at scale[idx], in bfloat16 the parities at parity[idx], which
 // flip from one disparity plane to the next when the plane is odd
-// (plane_odd). prev carries the line's last path costs between calls.
-template <typename T, int kSlots, int kPitch>
+// (plane_odd), and with kMasked the in-image mask at mask[idx]. prev carries
+// the line's last path costs between calls.
+template <typename T, int kSlots, int kPitch, bool kMasked = false>
 __device__ __forceinline__ void sgm_steps(float* box, const float* scale, const int* parity,
-                                          int plane_odd, int idx, int stride, int n, int nd,
-                                          float p1, float p2, float (&prev)[kSlots]) {
+                                          const float* mask, int plane_odd, int idx, int stride,
+                                          int n, int nd, float p1, float p2,
+                                          float (&prev)[kSlots]) {
   constexpr float kBig = kMaxValue<T>;
   const int lane = threadIdx.x & 31;
   for (int t = 0; t < n; ++t, idx += stride) {
@@ -121,6 +127,7 @@ __device__ __forceinline__ void sgm_steps(float* box, const float* scale, const 
     for (int o = 16; o > 0; o >>= 1) min_l = fminf(min_l, __shfl_xor_sync(kFullMask, min_l, o));
     const float p1s = round_to<T>(__fmul_rn(p1, s));
     const float jump = round_to<T>(__fadd_rn(min_l, round_to<T>(__fmul_rn(p2, s))));
+    const float m = kMasked ? mask[idx] : 1.0f;
 
     float cur[kSlots];
 #pragma unroll
@@ -140,6 +147,7 @@ __device__ __forceinline__ void sgm_steps(float* box, const float* scale, const 
         const float best =
             fminf(fminf(prev[k], jump), round_to<T>(__fadd_rn(fminf(up, dn), p1s)));
         cur[k] = round_to<T>(__fsub_rn(round_to<T>(__fadd_rn(c[k], best)), min_l));
+        if constexpr (kMasked) cur[k] = round_to<T>(__fmul_rn(cur[k], m));
         box[d * kPitch + idx] = cur[k];
       }
     }
@@ -162,16 +170,25 @@ __device__ __forceinline__ void sgm_steps(float* box, const float* scale, const 
 //                            the steps of line l in stage s (returned), the
 //                            box pixel of the first and the stride, and
 //                            whether the first is the first step of a line
-//                            (the warp's carry restarts from 0 there).
-template <typename T, int kSlots, class Geom>
+//                            (the warp's carry restarts there: from 0, or
+//                            from init).
+// init, when not null, is the carry each line starts from: line l's path
+// cost at disparity d is init[d * init_pitch + l]. With kMasked, mask [H, W]
+// holds the in-image mask (0 or 1) by which every path cost is multiplied.
+template <typename T, int kSlots, class Geom, bool kMasked = false>
 __device__ __forceinline__ void sgm_band(const T* __restrict__ vol,
                                          const float* __restrict__ scale,
                                          T* __restrict__ out, long long plane, int nd,
-                                         float p1, float p2, const Geom& geom) {
+                                         float p1, float p2, const Geom& geom,
+                                         const T* __restrict__ init = nullptr,
+                                         long long init_pitch = 0,
+                                         const float* __restrict__ mask = nullptr) {
   constexpr int kBox = Geom::kBox, kPitch = kBox + 1;
   constexpr int kThreads = Geom::kLines * 32;
   constexpr int kDStride = kThreads / kBox;  // disparities between a thread's copies
-  constexpr int kRing = ring_depth<T, kSlots, kBox>;
+  constexpr int kRing = ring_depth<T, kSlots, kBox, kMasked>;
+  // offset of a stage's mask in its box: after the costs, scales and parities
+  constexpr int kMaskAt = kBox + (kIsBf16<T> ? kBox : 0);
   static_assert(kThreads % kBox == 0, "every thread copies the same pixel of each box");
   static_assert(kRing >= 2, "the ring holds the current stage and the next");
   extern __shared__ float ring[];
@@ -180,7 +197,7 @@ __device__ __forceinline__ void sgm_band(const T* __restrict__ vol,
   const int line = threadIdx.x / 32;
   const int n_stages = geom.n_stages();
   const int plane_odd = static_cast<int>(plane & 1);
-  auto box_of = [&](int s) { return ring + (s % kRing) * stage_words<T>(nd, kBox); };
+  auto box_of = [&](int s) { return ring + (s % kRing) * stage_words<T, kMasked>(nd, kBox); };
   auto load = [&](int s) {
     if (s >= n_stages) return;
     const long long off = geom.pixel(s, b);
@@ -201,6 +218,7 @@ __device__ __forceinline__ void sgm_band(const T* __restrict__ vol,
         reinterpret_cast<int*>(box + nd * kPitch + kBox)[b] =
             static_cast<int>((reinterpret_cast<uintptr_t>(vol + off) >> 1) & 1);
       }
+      if constexpr (kMasked) cp_async4(box + nd * kPitch + kMaskAt + b, mask + off);
     }
   };
 
@@ -223,12 +241,16 @@ __device__ __forceinline__ void sgm_band(const T* __restrict__ vol,
     bool begins = false;
     const int n = geom.walk(s, line, idx, stride, begins);
     if (begins) {
+      const int lane = threadIdx.x & 31;
 #pragma unroll
-      for (int k = 0; k < kSlots; ++k) prev[k] = 0.0f;
+      for (int k = 0; k < kSlots; ++k) {
+        const int d = k * 32 + lane;
+        prev[k] = init != nullptr && n > 0 && d < nd ? widen(init[d * init_pitch + line]) : 0.0f;
+      }
     }
-    sgm_steps<T, kSlots, kPitch>(box, box + nd * kPitch,
-                                 reinterpret_cast<const int*>(box + nd * kPitch + kBox), plane_odd,
-                                 idx, stride, n, nd, p1, p2, prev);
+    sgm_steps<T, kSlots, kPitch, kMasked>(
+        box, box + nd * kPitch, reinterpret_cast<const int*>(box + nd * kPitch + kBox),
+        box + nd * kPitch + kMaskAt, plane_odd, idx, stride, n, nd, p1, p2, prev);
     __syncthreads();  // every line's path costs of stage s are in the box
     const long long off = geom.pixel(s, b);
     if (off >= 0) {
@@ -255,13 +277,16 @@ bool with_slots(int nd, F&& f) {
 }
 
 // Launches kernel<<<blocks, Geom's threads, ring>>> with the ring of boxes
-// of storage type T for nd <= 32 kSlots disparities as dynamic shared memory
+// of storage type T (with their masks when kMasked) for nd <= 32 kSlots
+// disparities as dynamic shared memory
 // (above 48 KB it must be allowed first, for each instance; the carveout
 // asks for all of it, so that blocks whose rings are small share an SM);
 // returns the CUDA error.
-template <typename T, int kSlots, class Geom, typename Kernel, typename... Args>
+template <typename T, int kSlots, class Geom, bool kMasked = false, typename Kernel,
+          typename... Args>
 cudaError_t launch_band(Kernel kernel, unsigned blocks, int nd, void* stream, Args... args) {
-  const int bytes = ring_depth<T, kSlots, Geom::kBox> * stage_words<T>(nd, Geom::kBox) * 4;
+  const int bytes = ring_depth<T, kSlots, Geom::kBox, kMasked> *
+                    stage_words<T, kMasked>(nd, Geom::kBox) * 4;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) {

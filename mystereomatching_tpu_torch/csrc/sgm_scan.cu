@@ -20,6 +20,13 @@
 // The loop over stages replaces the TPU's sequential H-chunk grid and its
 // VMEM carry. Directions are start rows, box orders and strides: no
 // transposed or flipped copy is made.
+//
+// The TPU kernel's two optional inputs, which the row-band pipeline passes
+// (parallel/sharded.py), are a second kernel along H, sgm_scan_ext_kernel:
+// `init_ref` (pallas_kernels.py:788-793), each column's carry read from a
+// [G, D, W] row instead of zeros, and `mask_ref` (803-810), each path cost
+// multiplied by a [G, H, W] in-image mask, staged in the box beside the
+// scales. Its own entry points leave the plain scan's instances as they are.
 #include "sgm_band.cuh"
 
 namespace {
@@ -80,6 +87,54 @@ __global__ void __launch_bounds__(Geom::kLines * 32, 1)
                             p2, Geom{h, w, band * Geom::kLines, reverse});
 }
 
+// Along H with a carried-in row (init [G, D, W], or null) and, when kMasked,
+// an in-image mask [G, H, W] of floats 0 or 1.
+template <typename T, int kSlots, bool kMasked>
+__global__ void __launch_bounds__(AlongH::kLines * 32, 1)
+    sgm_scan_ext_kernel(const T* __restrict__ vol, const float* __restrict__ pscale,
+                        const T* __restrict__ init, const float* __restrict__ mask,
+                        T* __restrict__ out, int nd, int h, int w, int n_bands, int reverse,
+                        float p1, float p2) {
+  const int gi = blockIdx.x / n_bands;
+  const int band = blockIdx.x % n_bands;
+  const long long plane = static_cast<long long>(h) * w;
+  const long long vol_off = static_cast<long long>(gi) * nd * plane;
+  const int x0 = band * AlongH::kLines;
+  mysm::sgm_band<T, kSlots, AlongH, kMasked>(
+      vol + vol_off, pscale + gi * plane, out + vol_off, plane, nd, p1, p2,
+      AlongH{h, w, x0, reverse},
+      init != nullptr ? init + static_cast<long long>(gi) * nd * w + x0 : nullptr, w,
+      kMasked ? mask + gi * plane : nullptr);
+}
+
+template <typename T, bool kMasked>
+cudaError_t launch_ext(const void* vol, const float* pscale, const void* init,
+                       const float* mask, void* out, int g, int nd, int h, int w, int reverse,
+                       float p1, float p2, void* stream) {
+  const int n_bands = (w + AlongH::kLines - 1) / AlongH::kLines;
+  const unsigned blocks = static_cast<unsigned>(static_cast<long long>(g) * n_bands);
+  cudaError_t err = cudaErrorInvalidValue;
+  mysm::with_slots(nd, [&](auto slots) {
+    constexpr int kSlots = decltype(slots)::value;
+    err = mysm::launch_band<T, kSlots, AlongH, kMasked>(
+        sgm_scan_ext_kernel<T, kSlots, kMasked>, blocks, nd, stream,
+        static_cast<const T*>(vol), pscale, static_cast<const T*>(init), mask,
+        static_cast<T*>(out), nd, h, w, n_bands, reverse, p1, p2);
+  });
+  return err;
+}
+
+template <typename T>
+cudaError_t launch_ext_any(const void* vol, const float* pscale, const void* init,
+                           const float* mask, void* out, int g, int nd, int h, int w,
+                           int reverse, float p1, float p2, void* stream) {
+  return mask != nullptr
+             ? launch_ext<T, true>(vol, pscale, init, mask, out, g, nd, h, w, reverse, p1, p2,
+                                   stream)
+             : launch_ext<T, false>(vol, pscale, init, mask, out, g, nd, h, w, reverse, p1, p2,
+                                    stream);
+}
+
 template <typename T, class Geom>
 cudaError_t launch(const void* vol, const float* pscale, void* out, int g, int nd, int h,
                    int w, int reverse, float p1, float p2, void* stream) {
@@ -119,4 +174,20 @@ extern "C" int mysm_sgm_scan_bf16(const void* vol, const float* pscale, void* ou
                                   float p2, void* stream) {
   return static_cast<int>(launch_axis<mysm::bf16>(vol, pscale, out, g, nd, h, w, along_w,
                                                   reverse, p1, p2, stream));
+}
+
+// The scan along H with the row-band pipeline's inputs: vol/out as above,
+// init [G, D, W] of vol's type (the carry before the first step, or null
+// for zeros), mask [G, H, W] float32 of 0s and 1s (or null for none).
+extern "C" int mysm_sgm_scan_ext(const float* vol, const float* pscale, const float* init,
+                                 const float* mask, float* out, int g, int nd, int h, int w,
+                                 int reverse, float p1, float p2, void* stream) {
+  return static_cast<int>(launch_ext_any<float>(vol, pscale, init, mask, out, g, nd, h, w,
+                                                reverse, p1, p2, stream));
+}
+extern "C" int mysm_sgm_scan_ext_bf16(const void* vol, const float* pscale, const void* init,
+                                      const float* mask, void* out, int g, int nd, int h,
+                                      int w, int reverse, float p1, float p2, void* stream) {
+  return static_cast<int>(launch_ext_any<mysm::bf16>(vol, pscale, init, mask, out, g, nd, h, w,
+                                                     reverse, p1, p2, stream));
 }

@@ -31,14 +31,20 @@ def central_gradient(img: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def grad_volume(gray_l: torch.Tensor, gray_r: torch.Tensor, num_disp: int,
-                lor: int, trunc: float, arms: torch.Tensor) -> torch.Tensor:
+                lor: int, trunc: float, arms: torch.Tensor,
+                grad_y_pair=None) -> torch.Tensor:
     """Two-direction gradient cost with arm-adaptive weights (grad()
     cpp:603-657 + calgradvm 388-466): a*min(|dGx|,T) + (1-a)*min(|dGy|,T),
     a = shortestH / (shortestH + shortestV) from the reference image's
     cross arms [4, H, W]. Off-image entries take sqrt(2 T^2). As in the JAX
-    package, ``is_grad_norm`` does not apply to this two-direction form."""
+    package, ``is_grad_norm`` does not apply to this two-direction form.
+
+    ``grad_y_pair``: optional (gy_left, gy_right) y-gradients to use instead
+    of the images' own: the row-band pipeline's, whose one-sided rows sit at
+    the true picture borders, not at the band's edges."""
     gx = (central_gradient(gray_l, 1), central_gradient(gray_r, 1))
-    gy = (central_gradient(gray_l, 0), central_gradient(gray_r, 0))
+    gy = (grad_y_pair if grad_y_pair is not None
+          else (central_gradient(gray_l, 0), central_gradient(gray_r, 0)))
     short_h = torch.clamp(torch.minimum(arms[0], arms[1]), min=1).to(torch.float32)
     short_v = torch.clamp(torch.minimum(arms[2], arms[3]), min=1).to(torch.float32)
     a = short_h / (short_h + short_v)
@@ -61,10 +67,12 @@ def exp_fuse2(vm0: torch.Tensor, vm1: torch.Tensor, lam0: float,
 
 def compute_cost_volume(left: torch.Tensor, right: torch.Tensor,
                         gray_l: torch.Tensor, gray_r: torch.Tensor, cfg,
-                        lor: int, arms: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        lor: int, arms: Optional[torch.Tensor] = None,
+                        grad_y_pair=None) -> torch.Tensor:
     """The censusGrad cost (cpp:25-48): exp fusion of the census Hamming
     volume (lam_cen) and the gradient volume (lam_g). ``left``/``right``
-    are unused by this cost and kept for the JAX signature."""
+    are unused by this cost and kept for the JAX signature;
+    ``grad_y_pair`` goes to :func:`grad_volume`."""
     del left, right
     if cfg.cost != "census_grad":
         raise NotImplementedError(f"cost {cfg.cost!r} is not ported yet")
@@ -80,5 +88,5 @@ def compute_cost_volume(left: torch.Tensor, right: torch.Tensor,
         census_ops.census_code_ncsur(gray_r, rv, ru), cfg.num_disp, lor,
         census_ops.ncsur_code_length(rv, ru), cfg.census_trunc_ratio,
         cfg.is_census_norm)
-    grad = grad_volume(gray_l, gray_r, cfg.num_disp, lor, cfg.grad_trunc, arms)
+    grad = grad_volume(gray_l, gray_r, cfg.num_disp, lor, cfg.grad_trunc, arms, grad_y_pair)
     return exp_fuse2(census, grad, cfg.lam_cen, cfg.lam_g)

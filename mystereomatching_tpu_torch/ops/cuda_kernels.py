@@ -14,7 +14,9 @@ and adds one to its entry of :data:`launches`. Wrappers take CUDA tensors
 only; the op modules run their plain torch versions for CPU tensors.
 Kernels B, C, D and E take float32 or bfloat16 volumes (the JAX package's
 ``vol_dtype``), each type through an entry point of its own, and refuse
-any other dtype.
+any other dtype. Kernel C's scan along H with a carried-in row or an
+in-image mask, which the row-band pipeline runs, has entry points of its
+own too (``mysm_sgm_scan_ext``) and is counted apart, as ``sgm_scan_ext``.
 """
 
 from __future__ import annotations
@@ -37,9 +39,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # launches of each kernel since the last reset_launches(), of either dtype
 launches = {"arms_grow": 0, "arm_taps": 0, "sgm_scan": 0, "wta": 0,
-            "arm_reduce": 0, "pi_scan": 0, "sgm_diag": 0}
+            "arm_reduce": 0, "pi_scan": 0, "sgm_diag": 0, "sgm_scan_ext": 0}
 # of those, the launches of the bfloat16 instances of kernels B, C, D and E
-launches_bf16 = {"arm_taps": 0, "sgm_scan": 0, "wta": 0, "sgm_diag": 0}
+launches_bf16 = {"arm_taps": 0, "sgm_scan": 0, "wta": 0, "sgm_diag": 0, "sgm_scan_ext": 0}
+# of those, kernel C's launches with an in-image mask, and of these the bfloat16 ones
+launches_masked = {"sgm_scan_ext": 0, "sgm_scan_ext_bf16": 0}
 REDUCE_OPS = {"sum": 0, "min": 1, "max": 2}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -54,15 +58,16 @@ _SIGNATURES = {
     "mysm_arm_reduce": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mysm_pi_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mysm_sgm_diag": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "mysm_sgm_scan_ext": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
 }
 # the bfloat16 entry points of kernels B, C, D and E: the float32 ones' arguments
-_BF16 = ("mysm_arm_taps", "mysm_sgm_scan", "mysm_wta", "mysm_sgm_diag")
+_BF16 = ("mysm_arm_taps", "mysm_sgm_scan", "mysm_wta", "mysm_sgm_diag", "mysm_sgm_scan_ext")
 _SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in _BF16})
 VOL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
-    for counts in (launches, launches_bf16):
+    for counts in (launches, launches_bf16, launches_masked):
         for name in counts:
             counts[name] = 0
 
@@ -217,11 +222,17 @@ def arm_taps(vol: torch.Tensor, arm_neg: torch.Tensor, arm_pos: torch.Tensor,
 
 
 def sgm_scan(vol: torch.Tensor, pscale: torch.Tensor, p1: float, p2: float,
-             axis: int, reverse: bool) -> torch.Tensor:
+             axis: int, reverse: bool, init: Optional[torch.Tensor] = None,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel C. SGM path costs of vol [G, D, H, W] float32 or bfloat16
     (D <= 256, the output in vol's dtype) scanned along H (axis 2) or W
     (axis 3), from the far end when ``reverse``; pscale: [G, H, W] float32
-    penalty scale."""
+    penalty scale.
+
+    Along H only, as the row-band pipeline scans: init [G, D, W] in vol's
+    dtype is the carry before the first step (instead of zeros), and mask
+    [G, H, W] (0s and 1s, float32 or vol's dtype) multiplies every path
+    cost. Either launches ``sgm_scan_ext``."""
     if vol.ndim != 4 or axis not in (2, 3):
         raise ValueError(f"sgm_scan: expected [G, D, H, W] and axis 2 or 3, got "
                          f"{tuple(vol.shape)}, axis {axis}")
@@ -230,12 +241,37 @@ def sgm_scan(vol: torch.Tensor, pscale: torch.Tensor, p1: float, p2: float,
         raise ValueError(f"sgm_scan: D={d} exceeds 256")
     _check(vol, "sgm_scan vol", VOL_DTYPES)
     _check(pscale, "sgm_scan pscale", torch.float32, (g, h, w), vol.device)
+    if init is not None or mask is not None:
+        return _sgm_scan_ext(vol, pscale, p1, p2, axis, reverse, init, mask)
     lib = _load()
     with torch.cuda.device(vol.device):
         out = torch.empty_like(vol)
         _launch_vol("sgm_scan", lib, "mysm_sgm_scan", vol, pscale.data_ptr(),
                     out.data_ptr(), g, d, h, w, int(axis == 3), int(bool(reverse)),
                     float(p1), float(p2))
+    return out
+
+
+def _sgm_scan_ext(vol, pscale, p1, p2, axis, reverse, init, mask) -> torch.Tensor:
+    """Kernel C along H with a carried-in row and/or an in-image mask."""
+    if axis != 2:
+        raise ValueError("sgm_scan: init and mask are taken along H (axis 2) only")
+    g, d, h, w = vol.shape
+    if init is not None:
+        _check(init, "sgm_scan init", vol.dtype, (g, d, w), vol.device)
+    if mask is not None:
+        _check(mask, "sgm_scan mask", (torch.float32, vol.dtype), (g, h, w), vol.device)
+        mask = mask.to(torch.float32)  # 0 and 1 are exact in either type
+    lib = _load()
+    with torch.cuda.device(vol.device):
+        out = torch.empty_like(vol)
+        _launch_vol("sgm_scan_ext", lib, "mysm_sgm_scan_ext", vol, pscale.data_ptr(),
+                    init.data_ptr() if init is not None else None,
+                    mask.data_ptr() if mask is not None else None, out.data_ptr(),
+                    g, d, h, w, int(bool(reverse)), float(p1), float(p2))
+    if mask is not None:
+        launches_masked["sgm_scan_ext"] += 1
+        launches_masked["sgm_scan_ext_bf16"] += vol.dtype == torch.bfloat16
     return out
 
 

@@ -1,7 +1,8 @@
 """Semi-global matching over the four axis-aligned and four diagonal paths.
 
 Counterpart of ``mystereomatching_tpu/ops/sgm.py`` (``penalty_scale``,
-``_scan_down``, ``scan_direction``, ``sgm``, ``sgm_multi``,
+``_scan_down`` with its carried-in row and in-image mask, ``_skew``,
+``_unskew``, ``scan_direction``, ``sgm``, ``sgm_multi``,
 ``sgm_directions``). Each axis direction's path costs are CUDA kernel C
 (``csrc/sgm_scan.cu``) on a CUDA tensor, each diagonal's kernel E
 (``csrc/sgm_diag.cu``). Volumes are float32 or bfloat16; in bfloat16 every
@@ -20,9 +21,10 @@ on its own:
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from mystereomatching_tpu_torch.ops import cuda_kernels as ck
 
@@ -63,27 +65,67 @@ def _step(prev: torch.Tensor, cost: torch.Tensor, ps: torch.Tensor, p1: float,
 
 
 def sgm_scan_plain(vol: torch.Tensor, pscale: torch.Tensor, p1: float, p2: float,
-                   axis: int, reverse: bool) -> torch.Tensor:
+                   axis: int, reverse: bool, init: Optional[torch.Tensor] = None,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain torch path costs of [G, D, H, W] volumes scanned along H
     (axis 2) or W (axis 3), from the far end when ``reverse``; pscale
-    [G, H, W]. The step is ``sgm._scan_down``'s, in its operation order."""
-    # scan axis first: [S, G, D, L] costs and [S, G, 1, L] scales
+    [G, H, W]. The step is ``sgm._scan_down``'s, in its operation order.
+
+    init: the carry before the first step, [G, D, W] along H ([G, D, H]
+    along W), instead of zeros: the neighbouring row band's last path costs.
+    mask: [G, H, W] of 0s and 1s in vol's dtype, by which each step's path
+    costs are multiplied after their last rounding, and carried so
+    (``_scan_down``'s ``in_image``, ``_sgm_kernel``'s ``mask_ref``)."""
+    # scan axis first: [S, G, D, L] costs and [S, G, 1, L] scales and masks
     v = vol.movedim(axis, 0)
     ps = pscale.movedim(axis - 1, 0)[:, :, None]
+    ms = mask.movedim(axis - 1, 0)[:, :, None] if mask is not None else None
     out = torch.empty_like(v)
-    prev = torch.zeros_like(v[0])
+    prev = init.to(vol.dtype) if init is not None else torch.zeros_like(v[0])
     steps = range(v.shape[0] - 1, -1, -1) if reverse else range(v.shape[0])
     for t in steps:
         prev = _step(prev, v[t], ps[t], p1, p2)
+        if ms is not None:
+            prev = prev * ms[t]
         out[t] = prev
     return out.movedim(0, axis)
 
 
 def sgm_scan(vol: torch.Tensor, pscale: torch.Tensor, p1: float, p2: float,
-             axis: int, reverse: bool) -> torch.Tensor:
+             axis: int, reverse: bool, init: Optional[torch.Tensor] = None,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     if ck.on_cuda(vol):
-        return ck.sgm_scan(vol, pscale, p1, p2, axis, reverse)
-    return sgm_scan_plain(vol, pscale, p1, p2, axis, reverse)
+        return ck.sgm_scan(vol, pscale, p1, p2, axis, reverse, init, mask)
+    return sgm_scan_plain(vol, pscale, p1, p2, axis, reverse, init, mask)
+
+
+def _skew(x: torch.Tensor, sign: int, fill: float):
+    """Skew the rows of [..., H, W] into [..., H, W + H - 1]: row v moves
+    right by v (sign +1) or by H - 1 - v (sign -1), so that a diagonal
+    predecessor becomes the vertical one; the margins take ``fill``.
+    Returns (skewed, in-image mask [H, W + H - 1] bool). The JAX package's
+    pad, flatten, truncate and reshape, gather-free."""
+    h, w = x.shape[-2:]
+    ws = w + h - 1
+    if sign < 0:
+        out, ok = _skew(x.flip(-2), 1, fill)
+        return out.flip(-2), ok.flip(0)
+    lead = x.shape[:-2]
+    flat = F.pad(x, (0, h), value=fill).reshape(lead + (h * (w + h),))
+    out = flat[..., :h * ws].reshape(lead + (h, ws))
+    u = (torch.arange(ws, device=x.device)[None, :]
+         - torch.arange(h, device=x.device)[:, None])
+    return out, (u >= 0) & (u < w)
+
+
+def _unskew(x: torch.Tensor, sign: int, w: int) -> torch.Tensor:
+    """Inverse of :func:`_skew`: [..., H, W + H - 1] -> [..., H, W]."""
+    h, ws = x.shape[-2:]
+    if sign < 0:
+        return _unskew(x.flip(-2), 1, w).flip(-2)
+    lead = x.shape[:-2]
+    flat = F.pad(x.reshape(lead + (h * ws,)), (0, h))
+    return flat.reshape(lead + (h, w + h))[..., :w]
 
 
 def sgm_diag_scan_plain(vol: torch.Tensor, pscale: torch.Tensor, p1: float, p2: float,

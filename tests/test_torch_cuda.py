@@ -158,6 +158,93 @@ def test_sgm_scan_kernel_bf16(cuda, nd, g, h, w, axis, reverse):
     assert torch.equal(got, sgm.sgm_scan_plain(vol, ps, 1.0, 3.0, axis, reverse))
 
 
+# Kernel C's carried-in row and in-image mask, which the row-band pipeline
+# passes to its scans along H (sgm_scan_ext): a nonzero init [G, D, W]; a
+# mask whose ones end mid-line at a different column on each row (as a
+# skewed diagonal buffer's margins do), every fourth row all zeros. Widths
+# at the band's 16 columns - 1, + 0, + 1 and beyond, and not multiples of it.
+SGM_EXT_SHAPES = [(2, 11, 19), (1, 3, 15), (2, 4, 16), (1, 5, 17), (2, 13, 35), (1, 1, 1),
+                  (1, 17, 33), (2, 40, 47)]
+
+
+def _sgm_ext_inputs(cuda, seed, shape, dtype, inputs):
+    vol, ps = _sgm_inputs(cuda, seed, shape, dtype)
+    g, nd, h, w = shape
+    rng = np.random.default_rng(seed + 1)
+    init = None
+    if "init" in inputs:
+        init = _t((rng.random((g, nd, w)) * 4 + 0.5).astype(np.float32), cuda).to(dtype)
+    mask = None
+    if "mask" in inputs:
+        m = np.zeros((g, h, w), np.float32)
+        for v in range(h):
+            m[:, v, v % 5: v % 5 + max(1, w // 2)] = 1.0
+        m[:, ::4] = 0.0
+        mask = _t(m, cuda).to(dtype)
+    return vol, ps, init, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inputs", ["init", "mask", "init_mask"])
+@pytest.mark.parametrize("nd", SGM_DS)
+@pytest.mark.parametrize("g,h,w", SGM_EXT_SHAPES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_sgm_scan_kernel_init_mask(cuda, dtype, inputs, nd, g, h, w, reverse):
+    vol, ps, init, mask = _sgm_ext_inputs(cuda, nd + h * w + len(inputs), (g, nd, h, w), dtype,
+                                          inputs)
+    before = dict(ck.launches)
+    got = ck.sgm_scan(vol, ps, 1.0, 3.0, 2, reverse, init=init, mask=mask)
+    assert ck.launches["sgm_scan_ext"] == before["sgm_scan_ext"] + 1
+    assert ck.launches["sgm_scan"] == before["sgm_scan"]
+    assert got.dtype == dtype
+    assert torch.equal(got, sgm.sgm_scan_plain(vol, ps, 1.0, 3.0, 2, reverse, init, mask))
+
+
+def test_sgm_scan_kernel_init_mask_refusals(cuda):
+    """init and mask only along H, of the volume's shape and type; without
+    them the scan is the plain kernel C, counted as before."""
+    vol, ps, init, mask = _sgm_ext_inputs(cuda, 1, (2, 5, 7, 9), torch.float32, "init_mask")
+    for call in (lambda: ck.sgm_scan(vol, ps, 1.0, 3.0, 3, False, init=init),
+                 lambda: ck.sgm_scan(vol, ps, 1.0, 3.0, 3, False, mask=mask),
+                 lambda: ck.sgm_scan(vol, ps, 1.0, 3.0, 2, False, init=init[:, :, :-1]),
+                 lambda: ck.sgm_scan(vol, ps, 1.0, 3.0, 2, False, mask=mask[:1])):
+        with pytest.raises(ValueError):
+            call()
+    with pytest.raises(TypeError):
+        ck.sgm_scan(vol, ps, 1.0, 3.0, 2, False, init=init.to(torch.bfloat16))
+    before = dict(ck.launches)
+    ck.sgm_scan(vol, ps, 1.0, 3.0, 2, False, init=None, mask=None)
+    assert ck.launches["sgm_scan"] == before["sgm_scan"] + 1
+    assert ck.launches["sgm_scan_ext"] == before["sgm_scan_ext"]
+
+
+@pytest.mark.parametrize("preset", ["census_grad_cbca_sgm", "sgm8_full"])
+def test_row_bands_on_one_card_equal_cpu(cuda, preset):
+    """Two ranks sharing the card (gloo): the row-band maps equal the same
+    bands' maps on the CPU, and each rank launched kernel C's new entry
+    points (sgm_diag none: the band path's diagonals skew through C). The
+    integer maps are held; the float subpixel map of sgm8_full also carries
+    the cost's exp, which rounds differently on the card."""
+    from mystereomatching_tpu_torch.parallel import run_row_bands
+    from mystereomatching_tpu_torch.parallel._harness import Job, run_jobs
+    from mystereomatching_tpu_torch.parallel.launch import band_pipeline
+
+    pair = make_synthetic_pair(h=48, w=64, max_disp=15, seed=3, noise_sigma=0.5)
+    cfg = get_model(preset, max_disp=15, census_rv=2, census_ru=3, cbca_cross_l=3,
+                    cbca_cross_l_out=5, pi_search_depth=4, rv_s_thres=4,
+                    do_subpixel=False, sub_ipol=False)
+    job = Job(band_pipeline, (pair.left[None], pair.right[None], cfg, 3), row_axis=1,
+              batch_axis=0)
+    [(gpu, reports)] = run_jobs([job], 2, devices=[str(cuda)] * 2)
+    gpu = torch.from_numpy(gpu[0])
+    cpu = run_row_bands(pair.left, pair.right, cfg, n_row=2, n_chunks=3, devices=["cpu"] * 2)
+    assert torch.equal(gpu, cpu)
+    for r in reports:
+        assert r["backend"] == "gloo" and r["launches"]["sgm_scan_ext"] > 0
+        assert r["launches"]["sgm_diag"] == 0
+        assert (r["launches_masked"]["sgm_scan_ext"] > 0) == (cfg.sgm_scan_num == 8)
+
+
 def _sgm_diag_case(cuda, nd, shape, g, dtype):
     vol, ps = _sgm_inputs(cuda, nd * 7 + shape[0] + g, (g, nd) + shape, dtype)
     for rv, ru in sgm.DIRECTIONS_8[4:]:

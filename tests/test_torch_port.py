@@ -49,6 +49,13 @@ MODULES = [
     "mystereomatching_tpu_torch.ops.sgm",
     "mystereomatching_tpu_torch.ops.volume",
     "mystereomatching_tpu_torch.ops.wta",
+    "mystereomatching_tpu_torch.parallel",
+    "mystereomatching_tpu_torch.parallel._harness",
+    "mystereomatching_tpu_torch.parallel.counters",
+    "mystereomatching_tpu_torch.parallel.halo",
+    "mystereomatching_tpu_torch.parallel.launch",
+    "mystereomatching_tpu_torch.parallel.mesh",
+    "mystereomatching_tpu_torch.parallel.sharded",
     "mystereomatching_tpu_torch.pipeline",
     "mystereomatching_tpu_torch.utils.metrics",
 ]
