@@ -51,7 +51,23 @@ Phases, each of which raises (exit code 1) on failure:
    of B, C and D a bfloat16 one), the three maps equal to the plain path's,
    both DISP_OCC and DISP_MIS in its classifying LR check, its bad-1.0
    rate, kernel and plain frame times, peak device memory and a profile;
-7. row bands: the row-band pipeline (``parallel.run_row_bands``), one
+7. fullres_occfill frame C: the preset's third bench-suite configuration
+   (scripts/bench_suite.py:59-63), uncut: ``get_model("fullres_occfill",
+   max_disp=255, vol_dtype="bfloat16", compute_both_volumes=False,
+   d_stream_block=32)`` at 1988x2880, cost and CBCA streamed over eight
+   32-disparity blocks. The streamed frame and the same configuration
+   unstreamed (the dense path), each with the launch counts set to 0 just
+   before it and its peak device memory: the streamed frame's launches
+   (kernel B 32 times, every launch of B, C and D a bfloat16 one), its three
+   maps equal to the dense kernel path's and to the streamed plain path's
+   (one frame, untimed, its seconds printed), its peak at most half of the
+   dense frame's; both paths' frame times and profiles. Then each kernel at
+   the shapes this frame launches it, against its plain version: A on the
+   two images, B's four launch kinds on one [32, 1988, 2880] block, C's
+   four directions on the [1, 256, 1988, 2880] CBCA volume, D on the
+   cooperative WTA's two volumes, the region vote's integer passes on the
+   frame's LR map and proper interpolation on its region-voted map;
+8. row bands: the row-band pipeline (``parallel.run_row_bands``), one
    process a rank, one card a rank over NCCL where there are cards enough,
    else every rank on card 0 over gloo (the phase prints which). First
    kernel C's carried-in row and in-image mask (``sgm_scan_ext``) against
@@ -71,16 +87,23 @@ Phases, each of which raises (exit code 1) on failure:
    differing pixels are counted, and the float map may differ by more
    than 1e-4 at no more than 16 pixels and by 1e-2 nowhere. Then
    fullres_occfill's frame A over 4 bands through ``run_row_bands``: its
-   map must equal the dense map exactly. Each banded frame is run again
-   through the measurement harness (``parallel._harness``), three frames,
-   and prints its wall time, each rank's device time, peak memory,
-   launches and communication; a failing rank fails the script;
-8. timing: ms/frame and MP*disp/s of the kernel path and of the same
+   map must equal the dense map exactly; then frame A over 2 bands x 2
+   blocks of 96 disparities (``n_disp=2``: each rank builds the cost and
+   CBCA of its block, and an all-gather over the 'disp' group rebuilds the
+   band's volume), whose map must equal the dense map exactly too. Each
+   banded frame is run again through the measurement harness
+   (``parallel._harness``), three frames, and prints its wall time, each
+   rank's device time, peak memory, launches and communication (halo,
+   wavefront, all-gather and gather bytes); a failing rank fails the script;
+9. copy bandwidth: ``tools/check_bw.py``'s probe kernel ``copy_bw`` (out =
+   in * 1.0001) against its plain version, its rate in each tiling and on
+   a 4 GiB buffer beside ``Tensor.copy_``'s;
+10. timing: ms/frame and MP*disp/s of the kernel path and of the same
    pipeline with every kernel replaced by its plain torch version, for the
    full default configuration and for ``do_refine=False``, in alternating
    rounds; the refine chain alone, kernel and plain; and the peak device
    memory of a frame;
-9. profile: ``torch.profiler`` over frames of the full default
+11. profile: ``torch.profiler`` over frames of the full default
    configuration: device time, idle share, launches per frame, the largest
    device kernels and each hand kernel's device time a launch.
 
@@ -91,8 +114,10 @@ names what was measured: kernels B, C and E at full width, on the
 ``sgm8_full`` frame, with that frame's launches; the bfloat16 instances
 ``*_bf16`` on frame B, with its launches; kernel C's new entry points
 ``sgm_scan_ext*`` on a W chunk of the banded sgm8_full frame's inputs, with
-the launches summed over its ranks; ``ms_from`` says whether ``ms`` came from the
-profiler or from CUDA events); the last line is
+the launches summed over its ranks; the rows ``*_frame_c`` at frame C's
+shapes, with its launches; ``copy_bw`` on the 4 GiB buffer, on no frame's
+path, with the main path's launches, which must be 0; ``ms_from`` says whether ``ms`` came from the profiler or from CUDA
+events); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -115,6 +140,7 @@ from mystereomatching_tpu_torch.data import make_synthetic_pair
 from mystereomatching_tpu_torch.models import get_model
 from mystereomatching_tpu_torch.ops import aggregation as agg_ops
 from mystereomatching_tpu_torch.ops import arms as arms_ops
+from mystereomatching_tpu_torch.ops import bandwidth
 from mystereomatching_tpu_torch.ops import cost as cost_ops
 from mystereomatching_tpu_torch.ops import cuda_kernels as ck
 from mystereomatching_tpu_torch.ops import refine as refine_ops
@@ -168,7 +194,25 @@ OCCFILL = {
 }
 # a fullres_occfill frame's launches, kernel B's aside (8 with two volumes, 4 with one)
 OCCFILL_LAUNCHES = {"arms_grow": 2, "sgm_scan": 4, "wta": 2, "arm_reduce": 8, "pi_scan": 2,
-                    "sgm_diag": 0, "sgm_scan_ext": 0}
+                    "sgm_diag": 0, "sgm_scan_ext": 0, "copy_bw": 0}
+# fullres_occfill's third bench-suite configuration (scripts/bench_suite.py:59-63),
+# frame C: one bfloat16 volume, the cooperative WTA, cost and CBCA streamed
+# over 32-disparity blocks; uncut
+FRAME_C = (dict(h=1988, w=2880, max_disp=255, seed=0),
+           dict(vol_dtype="bfloat16", compute_both_volumes=False, d_stream_block=32))
+# its launches a frame: kernel B 4 a block, 8 blocks
+FRAME_C_LAUNCHES = dict(OCCFILL_LAUNCHES, arm_taps=32)
+FRAME_C_PEAK_SHARE = 0.5  # of the dense frame's peak device memory, at most
+# kernels line row at frame C's shapes -> (kernel, the TPU kernel it replaces there)
+FRAME_C_ROWS = {
+    "arms_grow_frame_c": ("arms_grow", "mystereomatching_tpu/ops/pallas_kernels.py:1069"),
+    "arm_taps_bf16_frame_c": ("arm_taps", "mystereomatching_tpu/ops/pallas_kernels.py:298"),
+    "sgm_scan_bf16_frame_c": ("sgm_scan", "mystereomatching_tpu/ops/pallas_kernels.py:762"),
+    "wta_bf16_frame_c": ("wta", "mystereomatching_tpu/ops/pallas_kernels.py:718"),
+    "arm_reduce_frame_c": ("arm_reduce", "mystereomatching_tpu/ops/pallas_kernels.py:67"),
+    "pi_scan_frame_c": ("pi_scan", "mystereomatching_tpu/ops/pallas_kernels.py:631"),
+}
+COPY_BW = ("mystereomatching_tpu_torch/csrc/copy_bw.cu", "scripts/check_bw.py:28")
 BF16_ROWS = {f"{name}_bf16": name for name in ("arm_taps", "sgm_scan", "wta", "sgm_diag")}
 # kernel C's scan with the row-band pipeline's inputs: kernels line row ->
 # (the TPU kernel's lines it replaces, storage type, with the in-image mask)
@@ -183,6 +227,7 @@ EXT_ROWS = {
 ROW_BANDS_CHUNKS = 8
 ROW_BANDS_SGM8 = 3       # ranks: 250-row bands of the 750-row frame
 ROW_BANDS_OCCFILL = 4    # ranks: 250-row bands of frame A's 1000 rows
+ROW_BANDS_DISP = (2, 2)  # frame A over 2 bands of 500 rows x 2 blocks of 96 disparities
 ROW_BANDS_FRAMES = 3     # a warm-up, a timed frame, then a profiled one
 # sgm8_full's banded float map against the dense one (another association
 # of the direction sum): at most this many pixels beyond the first bound,
@@ -413,10 +458,12 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{name}: {got.dtype}{tuple(got.shape)} vs plain "
                              f"{want.dtype}{tuple(want.shape)}")
-    err = float((got.to(torch.float64) - want.to(torch.float64)).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(f"{name}: differs from its plain version, max |err| {err}")
-    return err
+    if torch.equal(got, want):
+        return 0.0
+    # in chunks: frame C's outputs are 5.9e9 elements, 47 GB in float64
+    err = max(float((g.to(torch.float64) - w.to(torch.float64)).abs().max())
+              for g, w in zip(got.flatten().split(1 << 26), want.flatten().split(1 << 26)))
+    raise AssertionError(f"{name}: differs from its plain version, max |err| {err}")
 
 
 def frame_cbca_inputs(left, right, cfg):
@@ -562,23 +609,31 @@ def fullres_inputs(dev) -> dict:
     return dict(img=img, arms_int=arms_int, vol=vol, disp=disp)
 
 
-def phase_kernels(dev, card_line: str) -> dict:
-    t = teddy_inputs(dev)
-    cfg, left, m = t["cfg"], t["left"], t["cfg"].arm_l_out
+def arms_grow_case(img, arms, cfg):
+    """Kernel A on an [H, W, 3] float32 image whose arms are ``arms``, as
+    (kernel, plain, bytes, operations): the image read and the arms written
+    once; 18 operations a step walked (each arm's steps plus its failing
+    one, within the image and the schedule)."""
     sched = [float(cfg.cbca_c_thresh if k <= cfg.cbca_cross_l else cfg.cbca_c_thresh_out)
              for k in range(1, cfg.cbca_cross_l_out + 1)]
     neigh, min_arm = float(cfg.cbca_c_thresh), cfg.cbca_min_arm
+    room = [torch.minimum(arms_ops.border_floor(*img.shape[:2], dv, du, 1 << 20, img.device),
+                          torch.tensor(len(sched), device=img.device))
+            for dv, du in arms_ops.DIRECTIONS]
+    grow_steps = int(sum(torch.minimum(arms[i] + 1, room[i]).sum() for i in range(4)))
+    return (lambda: ck.arms_grow(img, sched, neigh, min_arm),
+            lambda: arms_ops.grow_arms_plain(img, sched, neigh, min_arm),
+            img.shape[0] * img.shape[1] * (12 + 16), 18 * grow_steps)
+
+
+def phase_kernels(dev, card_line: str) -> dict:
+    t = teddy_inputs(dev)
+    cfg, left, m = t["cfg"], t["left"], t["cfg"].arm_l_out
     vols, sgm_vol = t["vols"], t["sgm_vol"]
     hw = left.shape[0] * left.shape[1]
     arms = t["arms"][0]
-    room = [torch.minimum(arms_ops.border_floor(*left.shape[:2], dv, du, 1 << 20, dev),
-                          torch.tensor(len(sched), device=dev)) for dv, du in arms_ops.DIRECTIONS]
-    grow_steps = int(sum(torch.minimum(arms[i] + 1, room[i]).sum() for i in range(4)))
     cases = {
-        "arms_grow": ("arms of one 375x450 image",
-                      (lambda: ck.arms_grow(left, sched, neigh, min_arm),
-                       lambda: arms_ops.grow_arms_plain(left, sched, neigh, min_arm),
-                       hw * (12 + 16), 18 * grow_steps), None),
+        "arms_grow": ("arms of one 375x450 image", arms_grow_case(left, arms, cfg), None),
         "arm_taps": ("one CBCA iteration (sum pass along W + area pass along H), D=60",
                      cbca_iteration_case(t["vol"], t["arms_int"], m), None),
         "sgm_scan": ("4 directions over the left+right pair [2,60,375,450]",
@@ -1037,6 +1092,199 @@ def phase_occfill(dev, card_line: str):
     return rows, counts_bf16
 
 
+def equal_maps(label: str, got: dict, want: dict, what: str) -> None:
+    for key in ("disp_left_raw", "disp_right_raw", "disparity"):
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"{label}: differs from {what} on {key}, at "
+                                 f"{int((got[key] != want[key]).sum())} px")
+
+
+def frame_c_kernel_rows(left, right, out, cfg, label: str, card_line: str) -> dict:
+    """Each kernel of frame C's path at the shapes the streamed frame
+    launches it, against its plain version: A on the two images, B's four
+    launch kinds on one [32, H, W] block (the first; the last, at the image
+    edge, checked too), C's four directions on the [1, 256, H, W] CBCA
+    volume, D on the cooperative WTA's two volumes, the region vote's
+    integer passes on the frame's LR map and proper interpolation on its
+    region-voted map. Returns the kernels line's rows."""
+    m, db = cfg.arm_l_out, cfg.d_stream_block
+    rows = {}
+    arms_pair = [arms_ops.build_arms(img, cfg) for img in (left, right)]
+    rows["arms_grow_frame_c"] = run_case(
+        "arms_grow", f"{label}: arms of the two images",
+        combined([arms_grow_case(img, a, cfg) for img, a in zip((left, right), arms_pair)]),
+        card_line)
+    block_fn = cost_ops.block_cost_builder(left, right, to_gray(left), to_gray(right), cfg, 0,
+                                           arms=arms_pair[0])
+    for first in (cfg.num_disp - db, 0):
+        ds = torch.arange(first, first + db, device=left.device)
+        blk = block_fn(ds).to(torch.bfloat16)
+        arms_int = arms_ops.intersect_arms_block(arms_pair[0], arms_pair[1], ds, 0)
+        kinds = cbca_kinds(blk, arms_int, m)
+        what = f"block d={first}..{first + db - 1} {list(blk.shape)} bf16"
+        if first == 0:
+            for kind, case in kinds:
+                run_case("arm_taps", f"{label}: {kind} on {what}", case, card_line)
+        row = run_case("arm_taps", f"{label}: the four launch kinds (sum along W, area along "
+                       f"H, sum along H, area along W) on {what}",
+                       combined([case for _, case in kinds]), card_line)
+        del blk, arms_int, kinds
+    rows["arm_taps_bf16_frame_c"] = row
+    del block_fn
+
+    vols, _ = compute_volumes(left, right, cfg)
+    vol = vols.pop(0)[None]
+    pscales = {d: sgm_ops.penalty_scale(left, *d, cfg.sgm_cor_dif_thres,
+                                        cfg.sgm_redu_coeff)[None].contiguous()
+               for d in AXES}
+    rows["sgm_scan_bf16_frame_c"] = run_case(
+        "sgm_scan", f"{label}: 4 axis directions over the CBCA volume {list(vol.shape)} bf16",
+        sgm_case(vol, pscales, cfg, "sgm_scan"), card_line)
+    sgm_vol = sgm_ops.sgm_multi([vol[0]], [left], 4, cfg.sgm_p1_eff, cfg.sgm_p2_eff,
+                                cfg.sgm_cor_dif_thres, cfg.sgm_redu_coeff)[0]
+    del vol, pscales
+    cs = cfg.choose_small
+    coop = [wta_ops.cooperative_volume(sgm_vol, lor, cs) for lor in (0, 1)]
+    del sgm_vol
+    hw = coop[0][0].numel()
+    rows["wta_bf16_frame_c"] = run_case(
+        "wta", f"{label}: both volumes of the cooperative WTA {list(coop[0].shape)} bf16",
+        (lambda: tuple(ck.wta(v, cs) for v in coop),
+         lambda: tuple(wta_ops.wta_plain(v, cs) for v in coop),
+         2 * (coop[0].numel() * 2 + hw * 4), 2 * coop[0].numel()),
+        card_line, lambda: tuple(torch.argmin(v, 0) for v in coop))
+    del coop
+
+    lrc = refine_ops.lr_consistency_classify(out["disp_left_raw"], out["disp_right_raw"],
+                                             cfg.num_disp, cfg.lr_max_diff, cfg.disp_occ,
+                                             cfg.disp_mis)
+    rows["arm_reduce_frame_c"] = run_case(
+        "arm_reduce", f"{label}: one region-vote iteration (2 min + 2 sum passes) on the "
+        "frame's LR map", region_vote_case(lrc, arms_pair[0], m), card_line)
+    rv = lrc
+    for _ in range(cfg.region_vote_iters):
+        rv = refine_ops.region_vote(rv, arms_pair[0], cfg.num_disp, cfg.rv_s_thres,
+                                    cfg.rv_h_ratio, cfg.rv_int_ratio_quirk, m)
+    print(f"{label}: {int((rv < 0).sum())} px invalid after region vote, of {rv.numel()}")
+    rows["pi_scan_frame_c"] = run_case(
+        "pi_scan", f"{label}: one proper-interpolation iteration on the frame's region-voted "
+        f"map, depth {cfg.pi_search_depth}", pi_case(rv, left, cfg.pi_search_depth,
+                                                     cfg.disp_occ), card_line)
+    return rows
+
+
+def phase_stream(dev, card_line: str):
+    """fullres_occfill's frame C, streamed: launches, maps equal to the
+    dense kernel path's and to the streamed plain path's, peak memory
+    against the dense frame's, times and profiles of both; then its
+    kernels at its shapes. Returns (the kernels line's rows, the streamed
+    frame's launches)."""
+    params, overrides = FRAME_C
+    pair = make_synthetic_pair(**params)
+    left = torch.from_numpy(pair.left).to(dev)
+    right = torch.from_numpy(pair.right).to(dev)
+    cfg = get_model("fullres_occfill", max_disp=params["max_disp"], **overrides)
+    shape = (params["h"], params["w"])
+    label = (f"fullres_occfill C {shape[0]}x{shape[1]} D={cfg.num_disp} {cfg.vol_dtype}, "
+             f"cooperative WTA, d_stream_block={cfg.d_stream_block}")
+    pipes = {"streamed": StereoPipeline(cfg, device=dev),
+             "dense": StereoPipeline(cfg.replace(d_stream_block=0), device=dev)}
+
+    outs, peaks, counts = {}, {}, {}
+    for path, pipe in pipes.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ck.reset_launches()
+        outs[path] = pipe(left, right)
+        torch.cuda.synchronize()
+        peaks[path] = torch.cuda.max_memory_allocated(dev)
+        counts[path] = dict(ck.launches)
+        counts[f"{path}_bf16"] = dict(ck.launches_bf16)
+        print(f"{label}, {path}: launches {json.dumps(counts[path])}, bfloat16 "
+              f"{json.dumps(counts[f'{path}_bf16'])}; peak device memory "
+              f"{peaks[path] / 2**20:.1f} MiB [{card_line}]")
+    stream = counts["streamed"]
+    check_launches(label, stream, cfg)
+    for kernel, n in FRAME_C_LAUNCHES.items():
+        if stream[kernel] != n:
+            raise AssertionError(f"{label}: {kernel} launched {stream[kernel]} times, not {n}")
+    for kernel, n in counts["streamed_bf16"].items():
+        if n != FRAME_C_LAUNCHES[kernel]:
+            raise AssertionError(f"{label}: {n} of {kernel}'s launches were bfloat16 ones")
+    check_maps(label, outs["streamed"], cfg, shape, dev)
+    equal_maps(label, outs["streamed"], outs["dense"], "the dense kernel path")
+    share = peaks["streamed"] / peaks["dense"]
+    print(f"{label}: equal to the dense kernel path on the three maps; peak device memory "
+          f"{peaks['streamed'] / 2**20:.1f} MiB streamed against {peaks['dense'] / 2**20:.1f} "
+          f"MiB dense, {share:.3f} of it (limit {FRAME_C_PEAK_SHARE}) [{card_line}]")
+    if share > FRAME_C_PEAK_SHARE:
+        raise AssertionError(f"{label}: the streamed frame's peak is {share:.3f} of the dense "
+                             f"one's, over {FRAME_C_PEAK_SHARE}")
+    del outs["dense"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with plain_path():
+        plain = pipes["streamed"](left, right)
+    torch.cuda.synchronize()
+    print(f"{label}: streamed plain path, one frame in {time.perf_counter() - t0:.3f} s "
+          f"[{card_line}]")
+    equal_maps(label, outs["streamed"], plain, "the streamed plain path")
+    del plain
+    out = outs["streamed"]
+    lrc = refine_ops.lr_consistency_classify(out["disp_left_raw"], out["disp_right_raw"],
+                                             cfg.num_disp, cfg.lr_max_diff, cfg.disp_occ,
+                                             cfg.disp_mis)
+    bad1 = bad_pixel_rate(out["disparity"], torch.from_numpy(pair.gt).to(dev),
+                          torch.from_numpy(pair.masks["nonocc"]).to(dev))
+    print(f"{label}: equal to the streamed plain path on the three maps; LR check: "
+          f"{int((lrc == cfg.disp_occ).sum())} px DISP_OCC, {int((lrc == cfg.disp_mis).sum())} "
+          f"px DISP_MIS, of {lrc.numel()}; bad-1.0 nonocc {bad1:.6f}")
+    del lrc
+
+    mp_disp = shape[0] * shape[1] * cfg.num_disp / 1e6
+    for path in ("streamed", "dense", "dense", "streamed"):
+        torch.cuda.empty_cache()
+        q1, med, q3 = frame_ms(pipes[path], left, right, OCCFILL_REPS)
+        print(f"timing {label}, {path} kernel path: median {med:.3f} ms/frame (quartiles "
+              f"{q1:.3f}-{q3:.3f}, n={OCCFILL_REPS}), {mp_disp / med * 1e3:.3f} MP*disp/s "
+              f"[{card_line}]")
+    for path, pipe in pipes.items():
+        torch.cuda.empty_cache()
+        profile_frames(pipe, left, right, f"{label}, {path}", card_line, 2, warm_up=1)
+    del pipes
+    torch.cuda.empty_cache()
+    rows = frame_c_kernel_rows(left.float(), right.float(), out, cfg, label, card_line)
+    torch.cuda.empty_cache()
+    return rows, stream
+
+
+def phase_copy_bw(dev, card_line: str) -> dict:
+    """The copy-bandwidth probe (tools/check_bw.py), once: every probe
+    tiling's rate beside Tensor.copy_'s, then the kernels line's row on the
+    4 GiB buffer, with Tensor.copy_ as the library call, and the measured
+    copy rate from that row's device time."""
+    from tools import check_bw
+
+    check_bw.run(dev, card_line, big=False)
+    x = check_bw.big_buffer(dev)
+    out = torch.empty_like(x)
+    rows, cols = check_bw.BIG_TILE
+    n = x.numel()
+    row = run_case("copy_bw", f"x * 1.0001 of a 4 GiB float32 buffer {list(x.shape)} in tiles "
+                   f"{rows}x{cols}", (lambda: ck.copy_bw(x, rows, cols),
+                                      lambda: bandwidth.scaled_copy_plain(x), 8 * n, n),
+                   card_line, lambda: out.copy_(x))
+    rate = check_bw.gbs(x, row["ms"])
+    print(f"copy_bw measured copy rate (4 GiB buffer, device time): {rate:.1f} GB/s, "
+          f"{rate / 3350:.3f} of the nominal 3.35 TB/s; Tensor.copy_ "
+          f"{check_bw.gbs(x, row['library_ms']):.1f} GB/s [{card_line}]")
+    row["copy_rate_gbs"] = rate
+    del x, out
+    torch.cuda.empty_cache()
+    return row
+
+
 def row_band_devices(n: int):
     """(devices, backend) for n ranks: one card a rank over NCCL where there
     are cards enough, else all on card 0 over gloo."""
@@ -1190,7 +1438,8 @@ def band_report(label: str, reports, card_line: str) -> None:
               f"{json.dumps(launches)} (masked sgm_scan_ext "
               f"{r['launches_masked']['sgm_scan_ext']}); halo {comm['halo_exchanges']} "
               f"exchanges {comm['halo_bytes']} B sent, wavefront {comm['wavefront_scans']} "
-              f"scans of {eff} chunk steps, {comm['wavefront_bytes']} B sent, gather "
+              f"scans of {eff} chunk steps, {comm['wavefront_bytes']} B sent, all-gather "
+              f"{comm['all_gathers']}x {comm['all_gather_bytes']} B sent, gather "
               f"{comm['gather_bytes']} B, total {comm['total_bytes']} B [{card_line}]")
         for name, ms, n in r["top_kernels"]:
             print(f"{label} rank {r['rank']}:   {ms:9.3f} ms {n:6d}x  {name}")
@@ -1316,7 +1565,46 @@ def phase_row_bands(dev, card_line: str):
     check_band_launches(label, reports, masked=False)
     if not torch.equal(torch.from_numpy(again[0]), disp):
         raise AssertionError(f"{label}: the measured frames' map differs from run_row_bands'")
+
+    row_bands_disp(dev, card_line)
     return rows, launches
+
+
+def row_bands_disp(dev, card_line: str) -> None:
+    """Frame A over 2 bands x 2 disparity blocks: each rank builds the cost
+    and CBCA of its 96 disparities and an all-gather over its 'disp' group
+    rebuilds the band's volume. The map through run_row_bands, then the
+    measured frames, each equal to the dense map."""
+    params, overrides = OCCFILL["A"]
+    pair = make_synthetic_pair(**params)
+    cfg = get_model("fullres_occfill", max_disp=params["max_disp"], **overrides)
+    dense = StereoPipeline(cfg, device=dev)(pair.left, pair.right)["disparity"].cpu()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    n_row, n_disp = ROW_BANDS_DISP
+    devices, backend = row_band_devices(n_row * n_disp)
+    label = (f"row bands x disp fullres_occfill A {params['h']}x{params['w']} "
+             f"D={cfg.num_disp} n_row={n_row} n_disp={n_disp}")
+    print(f"{label}: {n_row * n_disp} ranks on {devices} over {backend}")
+    t0 = time.perf_counter()
+    disp = run_row_bands(pair.left, pair.right, cfg, n_row=n_row, n_disp=n_disp,
+                         n_chunks=ROW_BANDS_CHUNKS, devices=devices, backend=backend)
+    print(f"{label}: run_row_bands in {time.perf_counter() - t0:.3f} s, processes included")
+    n_diff = int((disp != dense).sum())
+    print(f"{label}: map differs from the dense one at {n_diff} px (budget 0)")
+    if n_diff:
+        raise AssertionError(f"{label}: the map differs at {n_diff} px")
+    job = band_harness.Job(band_pipeline, (pair.left[None], pair.right[None], cfg,
+                                           ROW_BANDS_CHUNKS), row_axis=1, batch_axis=0,
+                           frames=ROW_BANDS_FRAMES, profile=True)
+    [(again, reports)] = band_harness.run_jobs([job], n_row, devices=devices, backend=backend,
+                                               n_disp=n_disp)
+    band_report(label, reports, card_line)
+    check_band_launches(label, reports, masked=False)
+    if any(r["comm"]["all_gathers"] != 2 for r in reports):
+        raise AssertionError(f"{label}: a rank did not all-gather its two volumes")
+    if not torch.equal(torch.from_numpy(again[0]), disp):
+        raise AssertionError(f"{label}: the measured frames' map differs from run_row_bands'")
 
 
 def timed(phase, *args):
@@ -1339,7 +1627,9 @@ def main() -> int:
     for name in sgm_rows:
         rows[name], counts[name] = sgm_rows[name], sgm8_counts[name]
     bf16_rows, bf16_counts = timed(phase_occfill, dev, card_line)
+    stream_rows, stream_counts = timed(phase_stream, dev, card_line)
     ext_rows, ext_counts = timed(phase_row_bands, dev, card_line)
+    copy_row = timed(phase_copy_bw, dev, card_line)
     timed(phase_timing, dev, card_line)
     timed(phase_profile, dev, card_line)
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
@@ -1355,6 +1645,15 @@ def main() -> int:
     kernels += [dict(name=row, route="cuda", source=KERNELS["sgm_scan"][0], replaces=tpu,
                      launches=ext_counts[row], **ext_rows[row])
                 for row, (tpu, _, _) in EXT_ROWS.items()]
+    # frame C's kernels at its shapes, with the streamed frame's launches
+    kernels += [dict(name=row, route="cuda", source=KERNELS[name][0], replaces=tpu,
+                     launches=stream_counts[name], **stream_rows[row])
+                for row, (name, tpu) in FRAME_C_ROWS.items()]
+    # the copy-bandwidth probe, on no frame's path: the main path's count
+    if counts["copy_bw"]:
+        raise AssertionError(f"copy_bw launched {counts['copy_bw']} times on the main path")
+    kernels.append(dict(name="copy_bw", route="cuda", source=COPY_BW[0], replaces=COPY_BW[1],
+                        launches=counts["copy_bw"], **copy_row))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,8 @@
 """Cross-based support arms and arm-bounded 1-D sums.
 
 Counterpart of ``mystereomatching_tpu/ops/arms.py``: ``cross_arms`` /
-``build_arms`` in ``two_level`` mode, ``_border_floor``, ``intersect_arms``,
+``build_arms`` in ``two_level`` mode, ``_border_floor``, ``intersect_arms``
+and its disparity-block form ``intersect_arms_block``,
 the arm-bounded sums CBCA runs and the integer arm-bounded reductions region
 vote runs. Arm growth is CUDA kernel A (``csrc/arms_grow.cu``), the
 arm-bounded sums are kernel B (``csrc/arm_taps.cu``) and the integer
@@ -107,11 +108,21 @@ def intersect_arms(arms_l: torch.Tensor, arms_r: torch.Tensor, num_disp: int,
     entries whose matching pixel is off-image set to 0. Arms are clamped
     to 127 and narrowed to int8. Returns [4, D, H, W] int8.
     """
+    return intersect_arms_block(arms_l, arms_r,
+                                torch.arange(num_disp, device=arms_l.device), lor)
+
+
+def intersect_arms_block(arms_l: torch.Tensor, arms_r: torch.Tensor, ds: torch.Tensor,
+                         lor: int) -> torch.Tensor:
+    """:func:`intersect_arms` for the disparities of the int [Db] index
+    ``ds`` (a block of the disparity-streamed volume): [4, Db, H, W] int8,
+    each disparity's planes those of the dense intersection."""
     ref, oth = (arms_l, arms_r) if lor == 0 else (arms_r, arms_l)
     ref8 = torch.clamp(ref, max=127).to(torch.int8)
     oth8 = torch.clamp(oth, max=127).to(torch.int8)
-    sh = shifted_stack(oth8, num_disp, lor).transpose(0, 1)    # [4, D, H, W]
-    ok = valid_mask(arms_l.shape[-1], num_disp, lor, arms_l.device)
+    n = len(ds)
+    sh = shifted_stack(oth8, n, lor, ds).transpose(0, 1)     # [4, Db, H, W]
+    ok = valid_mask(arms_l.shape[-1], n, lor, arms_l.device, ds)
     out = torch.where(ok[None], torch.minimum(ref8[:, None], sh),
                       torch.zeros((), dtype=torch.int8, device=sh.device))
     return out.contiguous()

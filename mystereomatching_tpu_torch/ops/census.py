@@ -80,15 +80,19 @@ def popcount(words: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
 
 def hamming_volume(code_left: torch.Tensor, code_right: torch.Tensor,
                    num_disp: int, lor: int, code_length: int,
-                   trunc_ratio: float = 1.0, normalize: bool = False) -> torch.Tensor:
+                   trunc_ratio: float = 1.0, normalize: bool = False,
+                   disps=None) -> torch.Tensor:
     """Census cost volume: min(hamming, code_length * trunc_ratio), [D, H, W]
-    float32; off-image entries take that cap (1.0 when normalized)."""
+    float32; off-image entries take that cap (1.0 when normalized).
+    ``disps``: an int [Db] index of disparities, for the [Db, H, W] block
+    of the disparity-streamed volume (each disparity's plane is the dense
+    volume's, bit for bit)."""
     ref, other = (code_left, code_right) if lor == 0 else (code_right, code_left)
-    sh = shifted_stack(other, num_disp, lor)             # [D, n_words, H, W]
+    sh = shifted_stack(other, num_disp, lor, disps)      # [D, n_words, H, W]
     # one disparity at a time: the byte table lookup widens to int64; the
     # table is copied to the device once, as each copy waits for the device
     lut = POPCOUNT8.to(ref.device)
-    ham = torch.stack([popcount(ref ^ sh[d], lut).sum(0) for d in range(num_disp)])
+    ham = torch.stack([popcount(ref ^ sh[d], lut).sum(0) for d in range(sh.shape[0])])
     ham = ham.to(torch.float32)
     default = code_length * trunc_ratio
     cost = torch.clamp(ham, max=default)
@@ -96,6 +100,6 @@ def hamming_volume(code_left: torch.Tensor, code_right: torch.Tensor,
     if normalize:
         cost = cost / default
         fill = 1.0
-    mask = valid_mask(code_left.shape[-1], num_disp, lor, cost.device)
+    mask = valid_mask(code_left.shape[-1], num_disp, lor, cost.device, disps)
     return torch.where(mask, cost, torch.tensor(fill, dtype=cost.dtype,
                                                 device=cost.device))

@@ -17,6 +17,7 @@ Kernels B, C, D and E take float32 or bfloat16 volumes (the JAX package's
 any other dtype. Kernel C's scan along H with a carried-in row or an
 in-image mask, which the row-band pipeline runs, has entry points of its
 own too (``mysm_sgm_scan_ext``) and is counted apart, as ``sgm_scan_ext``.
+``copy_bw`` (``csrc/copy_bw.cu``) is a bandwidth probe on no pipeline path.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # launches of each kernel since the last reset_launches(), of either dtype
 launches = {"arms_grow": 0, "arm_taps": 0, "sgm_scan": 0, "wta": 0,
-            "arm_reduce": 0, "pi_scan": 0, "sgm_diag": 0, "sgm_scan_ext": 0}
+            "arm_reduce": 0, "pi_scan": 0, "sgm_diag": 0, "sgm_scan_ext": 0, "copy_bw": 0}
 # of those, the launches of the bfloat16 instances of kernels B, C, D and E
 launches_bf16 = {"arm_taps": 0, "sgm_scan": 0, "wta": 0, "sgm_diag": 0, "sgm_scan_ext": 0}
 # of those, kernel C's launches with an in-image mask, and of these the bfloat16 ones
@@ -50,6 +51,7 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "mysm_arms_grow": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
     "mysm_arm_taps": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -59,6 +61,7 @@ _SIGNATURES = {
     "mysm_pi_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mysm_sgm_diag": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "mysm_sgm_scan_ext": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    "mysm_copy_bw": [_P, _P, _L, _I, _I, _I, _I, _P],
 }
 # the bfloat16 entry points of kernels B, C, D and E: the float32 ones' arguments
 _BF16 = ("mysm_arm_taps", "mysm_sgm_scan", "mysm_wta", "mysm_sgm_diag", "mysm_sgm_scan_ext")
@@ -357,4 +360,23 @@ def sgm_diag_scan(vol: torch.Tensor, pscale: torch.Tensor, p1: float, p2: float,
         out = torch.empty_like(vol)
         _launch_vol("sgm_diag", lib, "mysm_sgm_diag", vol, pscale.data_ptr(),
                     out.data_ptr(), g, d, h, w, int(rv), int(ru), float(p1), float(p2))
+    return out
+
+
+def copy_bw(x: torch.Tensor, tile_rows: int, tile_cols: int) -> torch.Tensor:
+    """The copy-bandwidth probe: x * 1.0001 of a float32 x [..., W], viewed
+    as [rows, W], in tiles of tile_rows x tile_cols elements, a block of
+    256 threads a tile; float4 moves where W and tile_cols are multiples of
+    4 and the buffers 16-byte aligned."""
+    if x.ndim < 1 or tile_rows < 1 or tile_cols < 1:
+        raise ValueError(f"copy_bw: x {tuple(x.shape)}, tile {tile_rows}x{tile_cols}")
+    _check(x, "copy_bw x", torch.float32)
+    lib = _load()
+    w = x.shape[-1]
+    with torch.cuda.device(x.device):
+        out = torch.empty_like(x)
+        vec = 4 if (w % 4 == 0 and tile_cols % 4 == 0 and x.data_ptr() % 16 == 0
+                    and out.data_ptr() % 16 == 0) else 1
+        _launch("copy_bw", lib.mysm_copy_bw, x.data_ptr(), out.data_ptr(), x.numel() // w, w,
+                int(tile_rows), int(tile_cols), vec)
     return out

@@ -10,27 +10,33 @@ from __future__ import annotations
 import torch
 
 
-def _disparity_index(w: int, num_disp: int, lor: int, device) -> torch.Tensor:
+def _disparity_index(w: int, num_disp: int, lor: int, device, disps=None) -> torch.Tensor:
+    """[D, W] matching columns u - d (lor=0) or u + d (lor=1), over
+    d in 0..num_disp-1, or over ``disps`` where given."""
     u = torch.arange(w, dtype=torch.int64, device=device)[None, :]
-    d = torch.arange(num_disp, dtype=torch.int64, device=device)[:, None]
-    return u - d if lor == 0 else u + d                  # [D, W]
+    d = (torch.arange(num_disp, dtype=torch.int64, device=device) if disps is None
+         else torch.as_tensor(disps, device=device).to(torch.int64))[:, None]
+    return u - d if lor == 0 else u + d
 
 
-def shifted_stack(img: torch.Tensor, num_disp: int, lor: int) -> torch.Tensor:
+def shifted_stack(img: torch.Tensor, num_disp: int, lor: int, disps=None) -> torch.Tensor:
     """Disparity-shifted stack of the *other* image.
 
     img: [..., W]. Returns [D, ..., W] with S[d, ..., u] = img[..., u-d]
     for lor=0 and img[..., u+d] for lor=1; out-of-range columns are
-    clamped (mask them with :func:`valid_mask`).
+    clamped (mask them with :func:`valid_mask`). ``disps``: an int [Db]
+    index of disparities (a block of the disparity-streamed volume) in
+    place of 0..num_disp-1; the stack is then [Db, ..., W].
     """
     w = img.shape[-1]
-    idx = _disparity_index(w, num_disp, lor, img.device).clamp(0, w - 1)
+    idx = _disparity_index(w, num_disp, lor, img.device, disps).clamp(0, w - 1)
     return torch.movedim(img[..., idx], -2, 0)           # [..., D, W] -> [D, ..., W]
 
 
-def valid_mask(w: int, num_disp: int, lor: int, device) -> torch.Tensor:
-    """[D, 1, W] bool: True where the matching pixel is inside the image."""
-    idx = _disparity_index(w, num_disp, lor, device)
+def valid_mask(w: int, num_disp: int, lor: int, device, disps=None) -> torch.Tensor:
+    """[D, 1, W] bool ([Db, 1, W] over ``disps``): True where the matching
+    pixel is inside the image."""
+    idx = _disparity_index(w, num_disp, lor, device, disps)
     ok = idx >= 0 if lor == 0 else idx < w
     return ok[:, None, :]
 

@@ -96,7 +96,7 @@ def _run_job(job: Job, mesh: RowMesh):
     for frame in range(job.frames):
         last = frame == job.frames - 1
         ck.reset_launches()
-        dist.barrier(group=mesh.row_group)
+        dist.barrier()
         _sync(mesh)
         prof = None
         if last and job.profile and on_card:
@@ -131,11 +131,11 @@ def _jobs_rank(mesh: RowMesh, jobs: Sequence[Job]):
 
 
 def run_jobs(jobs: Sequence[Job], n_row: int, n_data: int = 1, devices=None,
-             backend: Optional[str] = None):
-    """Runs ``jobs`` in order on one world of n_data x n_row ranks
+             backend: Optional[str] = None, n_disp: int = 1):
+    """Runs ``jobs`` in order on one world of n_data x n_row x n_disp ranks
     (:func:`launch.run_ranks`'s devices and backend). Returns, for each job,
     (rank 0's gathered result as numpy, or finish's value; the ranks'
     reports, in rank order)."""
-    per_rank = run_ranks(_jobs_rank, (list(jobs),), n_row, n_data, devices, backend)
+    per_rank = run_ranks(_jobs_rank, (list(jobs),), n_row, n_data, devices, backend, n_disp)
     return [(per_rank[0][i][0], [ranks[i][1] for ranks in per_rank])
             for i in range(len(jobs))]

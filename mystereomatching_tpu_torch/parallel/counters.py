@@ -3,7 +3,8 @@
 Counterpart of ``mystereomatching_tpu/parallel/counters.py``. Each rank
 records the exchanges it takes part in, as they happen: every halo
 exchange's bytes sent, every SGM wavefront's chunk steps and boundary rows
-sent, and every gather's bytes contributed. A rank's record is its own;
+sent, every all-gather of the disparity blocks over the 'disp' group, and
+every gather's bytes contributed. A rank's record is its own;
 summing over ranks gives the traffic of a frame.
 
 Usage::
@@ -40,6 +41,7 @@ class CommRecord:
 
     def summary(self) -> dict:
         halo, wave, gather = self._of("halo"), self._of("wavefront"), self._of("gather")
+        all_gather = self._of("all_gather")
         return {
             "halo_exchanges": len(halo),
             "halo_bytes": sum(e["bytes"] for e in halo),
@@ -47,6 +49,8 @@ class CommRecord:
             "wavefront_steps": [e["steps"] for e in wave],
             "wavefront_chunks": [e["chunks"] for e in wave],
             "wavefront_bytes": sum(e["bytes"] for e in wave),
+            "all_gathers": len(all_gather),
+            "all_gather_bytes": sum(e["bytes"] for e in all_gather),
             "gathers": len(gather),
             "gather_bytes": sum(e["bytes"] for e in gather),
             "total_bytes": self.total_bytes(),
@@ -92,6 +96,15 @@ def note_wavefront(chunks: int, bands: int, boundary_shape, dtype: torch.dtype, 
     _active.add(kind="wavefront", stage=stage, chunks=int(chunks),
                 steps=int(chunks + bands - 1),
                 bytes=int(sends) * _nbytes(boundary_shape, dtype))
+
+
+def note_all_gather(x: torch.Tensor, axis_ranks: int, stage: str = "") -> None:
+    """One all-gather over ``axis_ranks`` ranks: this rank sent its block x
+    to each of the other ranks of the group."""
+    if _active is None:
+        return
+    _active.add(kind="all_gather", stage=stage,
+                bytes=(axis_ranks - 1) * _nbytes(x.shape, x.dtype))
 
 
 def note_gather(x: torch.Tensor, stage: str = "") -> None:

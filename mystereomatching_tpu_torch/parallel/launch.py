@@ -1,12 +1,13 @@
 """Launching the row-band pipeline: one process a rank.
 
 Plays the part of ``shard_map``'s in and out specs in the JAX package: it
-starts ``n_data * n_row`` processes (spawned, so that no parent state is
-inherited), joins them into one ``torch.distributed`` world
+starts ``n_data * n_row * n_disp`` processes (spawned, so that no parent
+state is inherited), joins them into one ``torch.distributed`` world
 (:func:`mesh.init_mesh`, rendezvous through a file in a fresh temporary
 directory), hands each rank its rows of the inputs, runs the band
-pipeline and gathers the bands on rank 0, along the 'row' group and then
-the 'data' group. A rank that raises ends the run: the other ranks are
+pipeline and gathers the bands of disparity index 0 (the result is
+replicated over 'disp') on rank 0, along the 'row' group and then the
+'data' group. A rank that raises ends the run: the other ranks are
 terminated and the error is raised here.
 
 :func:`run_row_bands` is the entry point of the pipeline
@@ -54,7 +55,7 @@ def band_pairs(x: torch.Tensor, mesh: RowMesh) -> torch.Tensor:
 def band_pipeline(mesh: RowMesh, left, right, cfg: MatchConfig, n_chunks: int) -> torch.Tensor:
     """The pipeline on this rank's band of its pairs: left/right [B, H, W, 3]
     -> [B / n_data, H / n_row, W] float32 disparities."""
-    check_sharded_support(cfg)
+    check_sharded_support(cfg, mesh.n_disp)
     lb = band_rows(band_pairs(torch.as_tensor(left), mesh), mesh, 1)
     rb = band_rows(band_pairs(torch.as_tensor(right), mesh), mesh, 1)
     lb = lb.to(mesh.device, torch.float32)
@@ -80,7 +81,10 @@ def gather_bands(t: torch.Tensor, mesh: RowMesh, row_axis: int,
                  batch_axis: Optional[int] = None) -> Optional[torch.Tensor]:
     """Every rank's block t on rank 0 (None elsewhere): the bands along
     'row' (on ``row_axis``) on each data group's band 0, then the pairs
-    along 'data' (on ``batch_axis``)."""
+    along 'data' (on ``batch_axis``). Only the ranks of disparity index 0
+    take part: the result is the same at every index."""
+    if mesh.disp_index:
+        return None
     result = _gather(t, row_axis, mesh.row_group, mesh.row_peer(0), mesh)
     if mesh.n_data > 1 and mesh.row_index == 0:
         if batch_axis is None:
@@ -96,12 +100,12 @@ def _pipeline_rank(mesh: RowMesh, left, right, cfg: MatchConfig, n_chunks: int):
     return disp.cpu().numpy() if disp is not None else None
 
 
-def _worker(rank: int, n_row: int, n_data: int, devices, backend: str, init_method: str,
-            fn: Callable, args: tuple, out_queue) -> None:
+def _worker(rank: int, n_row: int, n_data: int, n_disp: int, devices, backend: str,
+            init_method: str, fn: Callable, args: tuple, out_queue) -> None:
     device = torch.device(devices[rank])
     if device.type == "cpu":
         torch.set_num_threads(1)
-    mesh = init_mesh(rank, n_row, n_data, device, backend, init_method)
+    mesh = init_mesh(rank, n_row, n_data, device, backend, init_method, n_disp=n_disp)
     try:
         out_queue.put((rank, fn(mesh, *args)))
     finally:
@@ -125,14 +129,14 @@ def _resolve_devices(devices, world: int) -> List[str]:
 
 
 def run_ranks(fn: Callable, args: tuple, n_row: int, n_data: int = 1, devices=None,
-              backend: Optional[str] = None) -> list:
-    """Runs fn(mesh, *args) on a world of n_data x n_row ranks, one process
-    each, and returns each rank's value in rank order. fn must be a
+              backend: Optional[str] = None, n_disp: int = 1) -> list:
+    """Runs fn(mesh, *args) on a world of n_data x n_row x n_disp ranks, one
+    process each, and returns each rank's value in rank order. fn must be a
     function of an importable module (the ranks are spawned). devices: one
     a rank (default: one card a rank, raising when there are fewer);
     backend: 'nccl' or 'gloo' (default: NCCL when every rank has a card of
     its own, else gloo)."""
-    world = n_row * n_data
+    world = n_row * n_data * n_disp
     devices = _resolve_devices(devices, world)
     backend = backend or default_backend(devices)
     tmp = tempfile.mkdtemp(prefix="mysm_rows_")
@@ -150,7 +154,7 @@ def run_ranks(fn: Callable, args: tuple, n_row: int, n_data: int = 1, devices=No
 
     try:
         procs = mp.start_processes(
-            _worker, args=(n_row, n_data, devices, backend,
+            _worker, args=(n_row, n_data, n_disp, devices, backend,
                            "file://" + os.path.join(tmp, "store"), fn, args, out_queue),
             nprocs=world, join=False, start_method="spawn")
         while not procs.join(timeout=0.1):
@@ -165,18 +169,21 @@ def run_ranks(fn: Callable, args: tuple, n_row: int, n_data: int = 1, devices=No
 
 
 def run_row_bands(left, right, cfg: MatchConfig, n_row: int, n_data: int = 1,
-                  n_chunks: int = 8, devices=None, backend: Optional[str] = None):
+                  n_chunks: int = 8, devices=None, backend: Optional[str] = None,
+                  n_disp: int = 1):
     """The row-band pipeline (the JAX ``sharded_match_pair``): left/right
     [B, H, W, 3] (or [H, W, 3] for one pair), numpy or CPU tensors; pairs
-    split over n_data, rows over n_row (which must divide B and H). Returns
-    the float32 disparities [B, H, W] (or [H, W]) as a CPU tensor."""
+    split over n_data, rows over n_row (which must divide B and H), and the
+    cost and CBCA's disparities over n_disp (which must divide them; the
+    JAX mesh's 'disp' axis). Returns the float32 disparities [B, H, W] (or
+    [H, W]) as a CPU tensor."""
     cfg = as_port_config(cfg).validate()
-    check_sharded_support(cfg)   # here as well as in each rank: refuse before spawning
+    check_sharded_support(cfg, n_disp)   # here as well as in each rank: refuse before spawning
     left, right = np.asarray(left), np.asarray(right)
     single = left.ndim == 3
     if single:
         left, right = left[None], right[None]
     disp = run_ranks(_pipeline_rank, (left, right, cfg, n_chunks), n_row, n_data, devices,
-                     backend)[0]
+                     backend, n_disp)[0]
     disp = torch.from_numpy(disp)
     return disp[0] if single else disp

@@ -1,11 +1,15 @@
 """The ranks of the row-band pipeline and their process groups.
 
 Counterpart of ``mystereomatching_tpu/parallel/mesh.py`` (``make_mesh``,
-``initialize_multihost``). A world of ``n_data * n_row`` ranks, one process
-each: rank = data_index * n_row + row_index. Stereo pairs are split over
-the ``'data'`` axis, image rows over the ``'row'`` axis; each rank has a
-``'row'`` group (the bands of its pairs) and a ``'data'`` group (its band
-of the other pairs), made with ``dist.new_group``.
+``initialize_multihost``). A world of ``n_data * n_row * n_disp`` ranks, one
+process each, in the JAX mesh's order: rank = (data_index * n_row +
+row_index) * n_disp + disp_index. Stereo pairs are split over the
+``'data'`` axis, image rows over the ``'row'`` axis, and the disparities of
+the volume-building stage over the ``'disp'`` axis. Each rank has a
+``'row'`` group (the bands of its pairs with its disparity index), a
+``'data'`` group (its band and disparity index of the other pairs) and,
+with ``n_disp > 1``, a ``'disp'`` group (the disparity blocks of its band),
+made with ``dist.new_group``.
 
 The backend is the caller's choice: NCCL when every rank has a card of its
 own, gloo on the CPU and where several ranks share one card. gloo moves
@@ -28,27 +32,34 @@ BACKENDS = ("nccl", "gloo")
 
 @dataclasses.dataclass
 class RowMesh:
-    """One rank's place in the ('data', 'row') world."""
+    """One rank's place in the ('data', 'row', 'disp') world."""
 
     rank: int
     n_data: int
     n_row: int
     device: torch.device
     backend: str
+    n_disp: int = 1
     row_group: Optional[object] = None
     data_group: Optional[object] = None
+    disp_group: Optional[object] = None
+
+    @property
+    def disp_index(self) -> int:
+        return self.rank % self.n_disp
 
     @property
     def row_index(self) -> int:
-        return self.rank % self.n_row
+        return self.rank // self.n_disp % self.n_row
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.n_row
+        return self.rank // (self.n_disp * self.n_row)
 
     def row_peer(self, row_index: int) -> int:
-        """The global rank of band ``row_index`` of this rank's pairs."""
-        return self.data_index * self.n_row + row_index
+        """The global rank of band ``row_index`` of this rank's pairs, with
+        this rank's disparity index."""
+        return (self.data_index * self.n_row + row_index) * self.n_disp + self.disp_index
 
     @property
     def host_transport(self) -> bool:
@@ -65,11 +76,12 @@ def default_backend(devices: Sequence[str]) -> str:
 
 
 def init_mesh(rank: int, n_row: int, n_data: int, device, backend: str,
-              init_method: str, timeout_s: float = 600.0) -> RowMesh:
-    """Joins the world as ``rank`` and makes every rank's 'row' and 'data'
-    groups (each rank makes all of them, in the same order). init_method is
-    the rendezvous, e.g. ``file:///tmp/dir/store``. Ends with a barrier, so
-    that NCCL's communicator exists before the first point-to-point call."""
+              init_method: str, timeout_s: float = 600.0, n_disp: int = 1) -> RowMesh:
+    """Joins the world as ``rank`` and makes every rank's 'row', 'data' and
+    (n_disp > 1) 'disp' groups (each rank makes all of them, in the same
+    order). init_method is the rendezvous, e.g. ``file:///tmp/dir/store``.
+    Ends with a barrier, so that NCCL's communicator exists before the
+    first point-to-point call."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not one of {BACKENDS}")
     device = torch.device(device)
@@ -78,15 +90,24 @@ def init_mesh(rank: int, n_row: int, n_data: int, device, backend: str,
     if device.type == "cuda":
         torch.cuda.set_device(device)
         torch.empty(0, device=device)           # the card's context, before any stat
-    world = n_row * n_data
+    world = n_row * n_data * n_disp
     dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
                             timeout=timedelta(seconds=timeout_s))
-    rows: List[object] = [dist.new_group([d * n_row + i for i in range(n_row)])
-                          for d in range(n_data)]
-    datas: List[object] = [dist.new_group([d * n_row + i for d in range(n_data)])
-                           for i in range(n_row)]
-    mesh = RowMesh(rank, n_data, n_row, device, backend)
-    mesh.row_group, mesh.data_group = rows[mesh.data_index], datas[mesh.row_index]
+
+    def at(d, i, k):
+        return (d * n_row + i) * n_disp + k
+
+    rows: List[object] = [dist.new_group([at(d, i, k) for i in range(n_row)])
+                          for d in range(n_data) for k in range(n_disp)]
+    datas: List[object] = [dist.new_group([at(d, i, k) for d in range(n_data)])
+                           for i in range(n_row) for k in range(n_disp)]
+    disps: List[object] = [dist.new_group([at(d, i, k) for k in range(n_disp)])
+                           for d in range(n_data) for i in range(n_row)] if n_disp > 1 else []
+    mesh = RowMesh(rank, n_data, n_row, device, backend, n_disp)
+    mesh.row_group = rows[mesh.data_index * n_disp + mesh.disp_index]
+    mesh.data_group = datas[mesh.row_index * n_disp + mesh.disp_index]
+    if disps:
+        mesh.disp_group = disps[mesh.data_index * n_row + mesh.row_index]
     if backend == "nccl":
         dist.barrier(device_ids=[device.index])
     else:
@@ -111,3 +132,14 @@ def sendrecv(mesh: RowMesh, sends, recvs) -> List[torch.Tensor]:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
     return [b.to(mesh.device) for b in bufs]
+
+
+def all_gather_disp(mesh: RowMesh, t: torch.Tensor) -> torch.Tensor:
+    """The blocks t of every rank of this rank's 'disp' group concatenated
+    along axis 0, in disparity order, on the rank's device."""
+    t = t.contiguous()
+    if mesh.host_transport:
+        t = t.cpu()
+    parts = [torch.empty_like(t) for _ in range(mesh.n_disp)]
+    dist.all_gather(parts, t, group=mesh.disp_group)
+    return torch.cat(parts, 0).to(mesh.device)

@@ -8,6 +8,10 @@ branches that the three ported presets reach (``census_grad_cbca_sgm``,
 * windowed stages (census, arms, CBCA, region vote, proper interpolation,
   the medians) compute on halo-extended bands and crop, exact with
   respect to the dense pipeline where the halo covers the stage's support;
+* with a 'disp' axis, each of a band's ranks builds the cost and CBCA of
+  its own block of disparities (the disparity-streaming builders) and an
+  all-gather over the 'disp' group rebuilds the band's volume; everything
+  after it runs replicated over 'disp';
 * horizontal SGM scans are band-local; the vertical and diagonal scans
   cross the bands as a wavefront: the W axis is cut into chunks, and a
   band scans chunk c from the previous band's last path-cost row of chunk
@@ -35,9 +39,9 @@ from mystereomatching_tpu_torch.ops import cost as cost_ops
 from mystereomatching_tpu_torch.ops import refine as refine_ops
 from mystereomatching_tpu_torch.ops import sgm as sgm_ops
 from mystereomatching_tpu_torch.ops import wta as wta_ops
-from mystereomatching_tpu_torch.parallel.counters import note_wavefront
+from mystereomatching_tpu_torch.parallel.counters import note_all_gather, note_wavefront
 from mystereomatching_tpu_torch.parallel.halo import crop_rows, exchange_rows
-from mystereomatching_tpu_torch.parallel.mesh import RowMesh, sendrecv
+from mystereomatching_tpu_torch.parallel.mesh import RowMesh, all_gather_disp, sendrecv
 from mystereomatching_tpu_torch.pipeline import apply_sub_ipol, check_supported, to_gray
 
 _GRAD_COSTS = ("grad", "census_grad", "ad_grad", "ad_census_grad")
@@ -264,13 +268,22 @@ def _match_pair_band(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
     gy_pair = (_band_grad_y(gl, halo, mesh), _band_grad_y(gr, halo, mesh))
 
     n_imgs = 2 if (cfg.compute_both_volumes and cfg.do_lr_consis) else 1
+    # this rank's disparities: all of them, or its block on a 'disp' axis
+    db = cfg.num_disp // mesh.n_disp
+    ds = torch.arange(mesh.disp_index * db, (mesh.disp_index + 1) * db, device=left.device)
     vols = {}
     for lor in range(n_imgs):
-        vol = cost_ops.compute_cost_volume(left_ext, right_ext, gl, gr, cfg, lor,
-                                           arms=arms_pair[lor], grad_y_pair=gy_pair)
-        arms_int = arms_ops.intersect_arms(arms_pair[0], arms_pair[1], cfg.num_disp, lor)
-        vol = agg_ops.cbca(vol, arms_int, cfg.cbca_iterations, max_arm=cfg.arm_l_out)
-        vols[lor] = crop_rows(vol, halo, row_axis=1).contiguous()
+        blk = cost_ops.block_cost_builder(left_ext, right_ext, gl, gr, cfg, lor,
+                                          arms=arms_pair[lor], grad_y_pair=gy_pair)(ds)
+        arms_int = arms_ops.intersect_arms_block(arms_pair[0], arms_pair[1], ds, lor)
+        blk = agg_ops.cbca(blk, arms_int, cfg.cbca_iterations, max_arm=cfg.arm_l_out)
+        del arms_int
+        vols[lor] = crop_rows(blk, halo, row_axis=1).contiguous()
+        if mesh.n_disp > 1:
+            # the band's volume from its blocks (the JAX package gathers the
+            # halo-extended blocks and crops after; cropping first sends less)
+            note_all_gather(vols[lor], mesh.n_disp, stage="d_shard_volume")
+            vols[lor] = all_gather_disp(mesh, vols[lor])
 
     # optimization (pipeline.optimize), one volume at a time
     images = {0: left, 1: right}
@@ -328,14 +341,23 @@ def _match_pair_band(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
     return apply_sub_ipol(d, dl, vols[0], cfg).to(torch.float32)
 
 
-def check_sharded_support(cfg: MatchConfig) -> None:
+def check_sharded_support(cfg: MatchConfig, n_disp: int = 1) -> None:
     """Raise NotImplementedError, naming the flag, for every configuration
     the band path would not run with the dense path's meaning: whatever the
-    dense port refuses (``pipeline.check_supported``), and bfloat16 volumes.
-    The JAX band path never casts to ``vol_dtype`` (its ``_match_pair_band``
-    has no cast), so there a bfloat16 configuration runs in float32 and
-    differs from the dense one; the port refuses it instead."""
+    dense port refuses (``pipeline.check_supported``), ``d_stream_block``
+    (a 'disp' axis splits the disparities instead, as in the JAX package)
+    and bfloat16 volumes. The JAX band path never casts to ``vol_dtype``
+    (its ``_match_pair_band`` has no cast), so there a bfloat16
+    configuration runs in float32 and differs from the dense one; the port
+    refuses it instead. ValueError where n_disp does not divide the
+    disparities."""
     check_supported(cfg)
+    if cfg.d_stream_block:
+        raise NotImplementedError(
+            "sharded pipeline: d_stream_block (use a 'disp' mesh axis instead)")
+    if cfg.num_disp % n_disp:
+        raise ValueError(f"num_disp={cfg.num_disp} must divide over the 'disp' axis "
+                         f"({n_disp} ranks)")
     if cfg.vol_dtype != "float32":
         raise NotImplementedError(
             f"sharded pipeline: vol_dtype {cfg.vol_dtype!r} (the band path runs float32 "

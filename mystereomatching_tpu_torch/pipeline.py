@@ -7,11 +7,12 @@ volume alone, in float32 or bfloat16 volumes, the uniqueness check, then
 the refinement (LR check, plain or classifying, region vote, proper
 interpolation, the background fill, and either the median or subpixel
 enhancement with its median) and the decision-time subpixel
-(``sub_ipol``). That covers the presets ``census_grad_cbca_sgm`` (with or
-without ``do_refine``), ``sgm8_full`` and ``fullres_occfill`` (with its
-bfloat16 cooperative variant, but not its disparity streaming). A
-configuration that needs any other stage raises ``NotImplementedError``
-naming it.
+(``sub_ipol``). Cost and CBCA run on the whole volume, or streamed over
+blocks of ``d_stream_block`` disparities. That covers the presets
+``census_grad_cbca_sgm`` (with or without ``do_refine``), ``sgm8_full`` and
+``fullres_occfill`` (with its bfloat16 cooperative variant and its
+disparity streaming). A configuration that needs any other stage raises
+``NotImplementedError`` naming it.
 
 PyTorch runs eagerly: :class:`StereoPipeline` only validates the
 configuration and moves the inputs to its device. On a CUDA device the
@@ -67,7 +68,8 @@ def check_supported(cfg: MatchConfig) -> None:
         (cfg.optimization != "sgm", f"optimization {cfg.optimization!r}"),
         (cfg.sgm_scan_num not in (4, 8), f"{cfg.sgm_scan_num}-path SGM"),
         (cfg.do_vmtop, "do_vmtop"),
-        (cfg.d_stream_block != 0, "d_stream_block"),
+        (cfg.d_stream_block != 0 and cfg.cbca_double_win,
+         "d_stream_block with cbca_double_win (no disparity-streaming form)"),
         (cfg.pyramid_levels > 1, "pyramid_levels > 1"),
         (cfg.vol_dtype not in VOL_DTYPES, f"vol_dtype {cfg.vol_dtype!r}"),
     ]
@@ -96,20 +98,45 @@ def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
     Returns (vols, arms_pair): vols is {0: volL, 1: volR} (volR only when
     the LR check is on and ``compute_both_volumes``), in ``vol_dtype`` from
     the cast after the cost on; arms_pair is the two images' [4, H, W]
-    cross arms.
+    cross arms. With ``d_stream_block`` each volume is built a block of
+    disparities at a time (:func:`_aggregated_volume`).
     """
     gl, gr = to_gray(left), to_gray(right)
     n_imgs = 2 if (cfg.compute_both_volumes and cfg.do_lr_consis) else 1
     arms_pair = tuple(arms_ops.build_arms(img, cfg) for img in (left, right))
-    vols = {}
-    for lor in range(n_imgs):
-        vol = cost_ops.compute_cost_volume(left, right, gl, gr, cfg, lor,
-                                           arms=arms_pair[lor]).to(VOL_DTYPES[cfg.vol_dtype])
-        arms_int = arms_ops.intersect_arms(arms_pair[0], arms_pair[1],
-                                           cfg.num_disp, lor)
-        vols[lor] = agg_ops.cbca(vol, arms_int, cfg.cbca_iterations,
-                                 max_arm=cfg.arm_l_out)
+    vols = {lor: _aggregated_volume(left, right, gl, gr, cfg, lor, arms_pair)
+            for lor in range(n_imgs)}
     return vols, arms_pair
+
+
+def _aggregated_volume(left, right, gl, gr, cfg: MatchConfig, lor: int,
+                       arms_pair) -> torch.Tensor:
+    """Cost and CBCA of view ``lor``: over all disparities at once, or, with
+    ``d_stream_block``, a block of disparities at a time (the JAX package's
+    ``pipeline._volume_dstream``). Cost and CBCA are independent across disparities:
+    each block's cost is built, cast to ``vol_dtype`` before its CBCA as the
+    dense path casts the whole volume, aggregated with its own [4, Db, H, W]
+    intersected arms and written into the [D, H, W] ``vol_dtype`` volume,
+    each plane equal to the dense path's bit for bit. Only one block's
+    cost, arms and CBCA temporaries are live at a time: the census stack
+    and the intersected arms, the largest tensors of the dense path, shrink
+    by D / Db."""
+    vdt = VOL_DTYPES[cfg.vol_dtype]
+    block_fn = cost_ops.block_cost_builder(left, right, gl, gr, cfg, lor, arms=arms_pair[lor])
+
+    def aggregated(ds: torch.Tensor) -> torch.Tensor:
+        blk = block_fn(ds).to(vdt)
+        arms_int = arms_ops.intersect_arms_block(arms_pair[0], arms_pair[1], ds, lor)
+        return agg_ops.cbca(blk, arms_int, cfg.cbca_iterations, max_arm=cfg.arm_l_out)
+
+    nd = cfg.num_disp
+    db = cfg.d_stream_block or nd
+    if db == nd:
+        return aggregated(torch.arange(nd, device=left.device))
+    out = torch.empty((nd,) + tuple(left.shape[:2]), dtype=vdt, device=left.device)
+    for d0 in range(0, nd, db):
+        out[d0:d0 + db] = aggregated(torch.arange(d0, d0 + db, device=left.device))
+    return out
 
 
 def optimize(vols, left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):

@@ -405,3 +405,127 @@ def test_fullres_occfill_kernel_path_equals_plain_path(cuda, variant):
         plain = pipe(pair.left, pair.right)
     for key in ("disp_left_raw", "disp_right_raw", "disparity"):
         assert torch.equal(gpu[key], plain[key]), key
+
+
+@pytest.mark.parametrize("variant", [dict(d_stream_block=4),
+                                     dict(d_stream_block=4, vol_dtype="bfloat16",
+                                          compute_both_volumes=False)])
+def test_streamed_occfill_on_cuda_equals_dense_and_plain(cuda, variant):
+    """fullres_occfill streamed over blocks of 4 of its 16 disparities:
+    kernel B runs 4 launches a block and volume; the maps equal the dense
+    kernel path's and the streamed plain path's on the card."""
+    pair = make_synthetic_pair(h=48, w=64, max_disp=15, seed=3, noise_sigma=0.5)
+    cfg = get_model("fullres_occfill", max_disp=15, **variant)
+    pipe = port.StereoPipeline(cfg, device=cuda)
+    ck.reset_launches()
+    gpu = pipe(pair.left, pair.right)
+    used = kernels_launched(cfg)
+    assert all((n > 0) == (k in used) for k, n in ck.launches.items()), ck.launches
+    n_vols = 2 if cfg.compute_both_volumes else 1
+    assert ck.launches["arm_taps"] == 4 * (16 // 4) * n_vols
+    dense = port.StereoPipeline(cfg.replace(d_stream_block=0), device=cuda)(pair.left,
+                                                                          pair.right)
+    with mock.patch.object(ck, "on_cuda", lambda t: False):
+        plain = pipe(pair.left, pair.right)
+    for key in ("disp_left_raw", "disp_right_raw", "disparity"):
+        assert torch.equal(gpu[key], dense[key]), key
+        assert torch.equal(gpu[key], plain[key]), key
+
+
+def test_row_bands_disp_axis_on_one_card_equal_cpu(cuda):
+    """fullres_occfill over 2 bands x 2 disparity blocks, four ranks sharing
+    the card (gloo): the map equals the dense pipeline's on the CPU, and
+    every rank all-gathered its block once a volume."""
+    from mystereomatching_tpu_torch.parallel._harness import Job, run_jobs
+    from mystereomatching_tpu_torch.parallel.launch import band_pipeline
+
+    pair = make_synthetic_pair(h=48, w=64, max_disp=15, seed=3, noise_sigma=0.5)
+    cfg = get_model("fullres_occfill", max_disp=15, census_rv=2, census_ru=3, cbca_cross_l=3,
+                    cbca_cross_l_out=5, pi_search_depth=4, rv_s_thres=4)
+    job = Job(band_pipeline, (pair.left[None], pair.right[None], cfg, 3), row_axis=1,
+              batch_axis=0)
+    [(gpu, reports)] = run_jobs([job], 2, devices=[str(cuda)] * 4, n_disp=2)
+    cpu = port.StereoPipeline(cfg, device="cpu")(pair.left, pair.right)["disparity"]
+    assert torch.equal(torch.from_numpy(gpu[0]), cpu)
+    for r in reports:
+        assert r["backend"] == "gloo" and r["comm"]["all_gathers"] == 2
+        assert r["launches"]["arm_taps"] == 8 and r["launches"]["sgm_scan_ext"] > 0
+
+
+# Frame C's shapes, past 32-bit offsets: kernel B on one [32, H, W] block
+# with H * W >= 2**22, kernels C and D on a bfloat16 volume of more than
+# 2**30 elements (its byte offsets pass 2**31). Inputs are made on the card.
+def _big_arms(gen, shape, dev):
+    a = torch.randint(0, 41, shape, generator=gen, device=dev, dtype=torch.int8)
+    return torch.where(torch.rand(shape, generator=gen, device=dev) < 0.05,
+                       torch.full_like(a, 127), a)
+
+
+@pytest.mark.parametrize("axis", [1, 2])
+@pytest.mark.parametrize("area", [False, True])
+def test_arm_taps_kernel_bf16_large_block(cuda, axis, area):
+    shape = (32, 1988, 2880)
+    gen = torch.Generator(device=cuda).manual_seed(axis + 2 * area)
+    vol = torch.rand(shape, generator=gen, device=cuda).to(torch.bfloat16)
+    an, ap = _big_arms(gen, shape, cuda), _big_arms(gen, shape, cuda)
+    if area:
+        an1, ap1 = _big_arms(gen, shape, cuda), _big_arms(gen, shape, cuda)
+        got = ck.arm_taps(vol, an, ap, axis, M, an1=an1, ap1=ap1)
+        want = arms.arm_bounded_sum_area_plain(vol, an1, ap1, an, ap, axis, M)
+    else:
+        got = ck.arm_taps(vol, an, ap, axis, M)
+        want = arms.arm_bounded_sum_plain(vol, an, ap, axis, M)
+    assert torch.equal(got, want)
+
+
+BIG_VOL = (256, 2048, 2100)      # 1.10e9 elements > 2**30
+
+
+@pytest.fixture(scope="module")
+def big_bf16_volume():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    vol = torch.empty(BIG_VOL, dtype=torch.bfloat16, device=dev)
+    for d in range(BIG_VOL[0]):              # a plane at a time: no float32 copy of it all
+        vol[d] = (torch.rand(BIG_VOL[1:], generator=gen, device=dev) * 3).to(torch.bfloat16)
+    ps = torch.where(torch.rand((1,) + BIG_VOL[1:], generator=gen, device=dev) < 0.3,
+                     0.25, 1.0).to(torch.float32)
+    return vol, ps
+
+
+@pytest.mark.parametrize("axis,reverse", [(2, False), (2, True), (3, False), (3, True)])
+def test_sgm_scan_kernel_bf16_past_2_31_bytes(cuda, big_bf16_volume, axis, reverse):
+    vol, ps = big_bf16_volume
+    got = ck.sgm_scan(vol[None], ps, 1.0, 3.0, axis, reverse)
+    assert torch.equal(got, sgm.sgm_scan_plain(vol[None], ps, 1.0, 3.0, axis, reverse))
+
+
+@pytest.mark.parametrize("choose_small", [True, False])
+def test_wta_kernel_bf16_past_2_31_bytes(cuda, big_bf16_volume, choose_small):
+    vol, _ = big_bf16_volume
+    assert torch.equal(ck.wta(vol, choose_small), wta.wta_plain(vol, choose_small))
+
+
+# the copy-bandwidth probe: the TPU probe's shape in its tiles (W = 450,
+# one float a thread), ragged tiles, float4 moves (W and the tile a
+# multiple of 4), and a buffer one float off 16-byte alignment
+COPY_CASES = [((4, 375, 60, 450), (60, 256)), ((4, 375, 60, 450), (60, 450)),
+              ((7, 33), (3, 5)), ((5, 12), (2, 6)), ((64, 4096), (8, 4096)), ((9, 20), (4, 8)),
+              ((1,), (1, 1))]
+
+
+@pytest.mark.parametrize("shape,tile", COPY_CASES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_copy_bw_kernel(cuda, shape, tile, aligned):
+    from mystereomatching_tpu_torch.ops import bandwidth
+
+    n = int(np.prod(shape))
+    buf = torch.rand(n + 1, generator=torch.Generator(device=cuda).manual_seed(n),
+                     device=cuda)
+    x = (buf[:n] if aligned else buf[1:]).view(shape)
+    before = ck.launches["copy_bw"]
+    got = ck.copy_bw(x, *tile)
+    assert ck.launches["copy_bw"] == before + 1
+    assert torch.equal(got, bandwidth.scaled_copy_plain(x))

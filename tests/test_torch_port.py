@@ -41,6 +41,7 @@ MODULES = [
     "mystereomatching_tpu_torch.models",
     "mystereomatching_tpu_torch.ops.aggregation",
     "mystereomatching_tpu_torch.ops.arms",
+    "mystereomatching_tpu_torch.ops.bandwidth",
     "mystereomatching_tpu_torch.ops.census",
     "mystereomatching_tpu_torch.ops.cost",
     "mystereomatching_tpu_torch.ops.cuda_kernels",
@@ -142,16 +143,19 @@ PORTED_FROM_THIS_LIST = [dict(do_refine=True, lrc_classify=True),
     dict(do_refine=True, compute_both_volumes=False),
     dict(aggregation="bf"), dict(cost="census"),
     dict(optimization="so"), dict(optimization="wta"), dict(do_vmtop=True),
-    dict(d_stream_block=4), dict(aggregation="nl"), dict(cbca_double_win=True),
-    dict(pyramid_levels=2),
+    dict(d_stream_block=4, cbca_double_win=True), dict(aggregation="nl"),
+    dict(cbca_double_win=True), dict(pyramid_levels=2),
     dict(cbca_arm_mode="multilevel"), dict(vol_dtype="bfloat16"),
     dict(do_refine=True, do_bg_ipol=True, bg_ipol_kitti=True), dict(vol_dtype="float16"),
+    dict(cost="census", d_stream_block=4),
 ])
 def test_unported_stage_raises(overrides):
     """A stage the port does not run raises NotImplementedError. The
     stages that ``fullres_occfill`` brought in (the classifying LR check,
     the background fill, the cooperative WTA and bfloat16 volumes) were
-    cases of this list and now must be accepted, and a frame must run."""
+    cases of this list and now must be accepted, and a frame must run.
+    Disparity streaming (``d_stream_block``) is ported too: its cases pair
+    it with what it still cannot run with."""
     cfg = port.default_config(max_disp=7, **{"do_refine": False, **overrides})
 
     def run():
