@@ -98,12 +98,35 @@ Phases, each of which raises (exit code 1) on failure:
 9. copy bandwidth: ``tools/check_bw.py``'s probe kernel ``copy_bw`` (out =
    in * 1.0001) against its plain version, its rate in each tiling and on
    a 4 GiB buffer beside ``Tensor.copy_``'s;
-10. timing: ms/frame and MP*disp/s of the kernel path and of the same
+10. NL: ``get_model("nl_tree_filter", max_disp=59)`` on the Teddy-sized
+   pair (375x450, D=60; the trees built on the host, the filter level by
+   level on the card), with the launch counts set to 0 just before its
+   frame: kernels A, D, ``arm_reduce`` and ``pi_scan`` must launch, and its
+   three maps must equal a second kernel frame's, the card's plain path's
+   and the CPU port's, and two tree filter runs the same bits; its frame
+   time, host tree build, tree height, peak device memory, and a profile
+   (device time, idle share, launches a frame); then A, D, ``arm_reduce``
+   and ``pi_scan`` at its shapes on its inputs against their plain
+   versions. ``nl_post`` and ``nl_census_post`` on the golden scenes
+   ``small_scale``, ``adv_small`` and ``teddy_scale``: each frame equal to
+   the plain path and the CPU port, and within the JAX golden test's
+   budgets of the reference binary's maps
+   (tests/golden/*_{adgrad,census}_nl_*.bin; ``nl_post`` 10, 6 and 142 px,
+   ``nl_census_post`` 0 px). ``nl_8nr``
+   once at Teddy size, equal to the plain path and the CPU port;
+11. plane probes: ``tools/micro4.py``'s gathers and cumsums
+   (``csrc/plane_probes.cu``) on micro4.py's [375, 450] plane and on the
+   NL filter's [168750, 61] rows, each against its plain version (the
+   gathers exactly; the kernel's sums equal to the sequential float32 sums
+   bit for bit, ``torch.cumsum``'s within
+   ``plane_probes.cumsum_tolerance`` of the float64 sum), with its bound
+   and the time of ``torch.gather`` or ``torch.cumsum``;
+12. timing: ms/frame and MP*disp/s of the kernel path and of the same
    pipeline with every kernel replaced by its plain torch version, for the
    full default configuration and for ``do_refine=False``, in alternating
    rounds; the refine chain alone, kernel and plain; and the peak device
    memory of a frame;
-11. profile: ``torch.profiler`` over frames of the full default
+13. profile: ``torch.profiler`` over frames of the full default
    configuration: device time, idle share, launches per frame, the largest
    device kernels and each hand kernel's device time a launch.
 
@@ -116,8 +139,13 @@ names what was measured: kernels B, C and E at full width, on the
 ``sgm_scan_ext*`` on a W chunk of the banded sgm8_full frame's inputs, with
 the launches summed over its ranks; the rows ``*_frame_c`` at frame C's
 shapes, with its launches; ``copy_bw`` on the 4 GiB buffer, on no frame's
-path, with the main path's launches, which must be 0; ``ms_from`` says whether ``ms`` came from the profiler or from CUDA
-events); the last line is
+path, with the main path's launches, which must be 0; the rows ``*_nl``
+of A, D, ``arm_reduce`` and ``pi_scan`` at the nl_tree_filter frame's
+shapes, with its launches; the probes ``gather_rows``, ``gather_cols``,
+``cumsum_rows`` and ``cumsum_cols`` on micro4.py's plane and, as ``*_nl``,
+on the NL filter's rows, on no path, with the main path's launches, which
+must be 0, as must the NL frame's; ``ms_from`` says whether ``ms`` came
+from the profiler or from CUDA events); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -143,6 +171,7 @@ from mystereomatching_tpu_torch.ops import arms as arms_ops
 from mystereomatching_tpu_torch.ops import bandwidth
 from mystereomatching_tpu_torch.ops import cost as cost_ops
 from mystereomatching_tpu_torch.ops import cuda_kernels as ck
+from mystereomatching_tpu_torch.ops import nl as nl_ops
 from mystereomatching_tpu_torch.ops import refine as refine_ops
 from mystereomatching_tpu_torch.ops import sgm as sgm_ops
 from mystereomatching_tpu_torch.ops import wta as wta_ops
@@ -150,7 +179,8 @@ from mystereomatching_tpu_torch.parallel import _harness as band_harness
 from mystereomatching_tpu_torch.parallel import run_row_bands
 from mystereomatching_tpu_torch.parallel.launch import band_pipeline
 from mystereomatching_tpu_torch.parallel.sharded import _cost_halo, sgm_band_direction
-from mystereomatching_tpu_torch.pipeline import compute_volumes, kernels_launched, refine, to_gray
+from mystereomatching_tpu_torch.pipeline import (compute_volumes, kernels_launched, nl_trees,
+                                                 refine, to_gray)
 from mystereomatching_tpu_torch.utils.metrics import bad_pixel_rate
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -224,6 +254,23 @@ EXT_ROWS = {
     "sgm_scan_ext_mask_bf16": ("mystereomatching_tpu/ops/pallas_kernels.py:803",
                                torch.bfloat16, True),
 }
+# the NL presets at Teddy size (scripts/bench_suite.py:42: nl_tree_filter
+# at 375x450, D=60), uncut; the qx flows on the golden scenes of
+# tests/test_nl_golden.py (teddy_scale's are its slow tests): scene -> (make_synthetic_pair or
+# make_adversarial_pair arguments, adversarial, {preset: (golden mode,
+# px budget of the JAX golden test)})
+NL_GOLDEN = {
+    "small_scale": (dict(h=144, w=192, max_disp=23, seed=3), False,
+                    {"nl_post": ("adgrad", 10), "nl_census_post": ("census", 0)}),
+    "adv_small": (dict(h=144, w=192, max_disp=23, seed=3), True,
+                  {"nl_post": ("adgrad", 6), "nl_census_post": ("census", 0)}),
+    "teddy_scale": (TEDDY, False, {"nl_post": ("adgrad", 142), "nl_census_post": ("census", 0)}),
+}
+NL_REPS = 3
+NL_PROFILE_FRAMES = 2
+# kernels line rows at the nl_tree_filter frame's shapes -> the kernel
+NL_ROWS = {f"{name}_nl": name for name in ("arms_grow", "wta", "arm_reduce", "pi_scan")}
+PLANE_PROBES = "mystereomatching_tpu_torch/csrc/plane_probes.cu"
 ROW_BANDS_CHUNKS = 8
 ROW_BANDS_SGM8 = 3       # ranks: 250-row bands of the 750-row frame
 ROW_BANDS_OCCFILL = 4    # ranks: 250-row bands of frame A's 1000 rows
@@ -360,11 +407,14 @@ def pi_work(disp: torch.Tensor, offsets: torch.Tensor):
     return walked, hits
 
 
-def load_ref_disp(path: str) -> np.ndarray:
+def load_ref_disp(path: str, dtype=np.int16) -> np.ndarray:
+    """A golden map: int16 (tests/golden/*_{wta,final}.bin) or uint8 (the
+    NL flow's, tests/golden/*_nl_*.bin), as int32."""
     with open(path, "rb") as f:
         h = int(np.frombuffer(f.read(4), np.int32)[0])
         w = int(np.frombuffer(f.read(4), np.int32)[0])
-        return np.frombuffer(f.read(h * w * 2), np.int16).reshape(h, w).astype(np.int32)
+        size = h * w * np.dtype(dtype).itemsize
+        return np.frombuffer(f.read(size), dtype).reshape(h, w).astype(np.int32)
 
 
 def plain_path():
@@ -561,15 +611,21 @@ def pi_case(disp, image, depth, disp_occ):
             nbytes, 5 * walked + 12 * hits)
 
 
-def run_case(name, what, case, card_line, library=None):
+def run_case(name, what, case, card_line, library=None, check=None, kernel_name=None):
+    """One kernels line row: the kernel against its plain version (exactly,
+    or by ``check(got, want)``, which returns the error it measured),
+    its device time, host time, plain time, bound and library time.
+    ``kernel_name``: the kernel's launch counter and ``*_kernel`` name, if
+    not ``name``."""
     kernel, plain, nbytes, nops = case
-    before = ck.launches[name]
+    kernel_name = kernel_name or name
+    before = ck.launches[kernel_name]
     got, want = kernel(), plain()
-    launches = ck.launches[name] - before  # a call's launches of the kernel
+    launches = ck.launches[kernel_name] - before  # a call's launches of the kernel
     if isinstance(got, tuple):
         got, want = torch.cat(got), torch.cat(want)
-    err = compare(name, got, want)
-    ms, ms_from = device_ms(kernel, name, launches=launches)
+    err = check(got, want) if check is not None else compare(name, got, want)
+    ms, ms_from = device_ms(kernel, kernel_name, launches=launches)
     host_ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, reps=3)
     bound_ms, bound_by = bound(nbytes, nops)
     library_ms = device_ms(library)[0] if library is not None else None
@@ -1093,10 +1149,14 @@ def phase_occfill(dev, card_line: str):
 
 
 def equal_maps(label: str, got: dict, want: dict, what: str) -> None:
-    for key in ("disp_left_raw", "disp_right_raw", "disparity"):
-        if not torch.equal(got[key], want[key]):
+    """Every map of ``want`` equal to ``got``'s, on ``want``'s device."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: maps {sorted(got)}, {what} {sorted(want)}")
+    for key, w in want.items():
+        g = got[key].to(w.device)
+        if not torch.equal(g, w):
             raise AssertionError(f"{label}: differs from {what} on {key}, at "
-                                 f"{int((got[key] != want[key]).sum())} px")
+                                 f"{int((g != w).sum())} px")
 
 
 def frame_c_kernel_rows(left, right, out, cfg, label: str, card_line: str) -> dict:
@@ -1283,6 +1343,158 @@ def phase_copy_bw(dev, card_line: str) -> dict:
     del x, out
     torch.cuda.empty_cache()
     return row
+
+
+def nl_frame(cfg, left, right, dev, label: str):
+    """One frame of an NL preset with the launch counts set to 0 just before
+    it: its launches (every kernel of its path must launch), its maps
+    equal to a second kernel frame's, to the card's plain path's and to the
+    CPU port's. Returns (maps, launches, the pipeline, the second frame's
+    host-clock ms, synchronised)."""
+    pipe = StereoPipeline(cfg, device=dev)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    out = pipe(left, right)
+    torch.cuda.synchronize()
+    counts = dict(ck.launches)
+    check_launches(label, counts, cfg)
+    t0 = time.perf_counter()
+    again = pipe(left, right)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    equal_maps(label, again, out, "a second kernel-path frame")
+    with plain_path():
+        equal_maps(label, out, pipe(left, right), "the plain path on the card")
+    equal_maps(label, out, StereoPipeline(cfg, device="cpu")(left.cpu(), right.cpu()),
+               "the CPU port")
+    return out, counts, pipe, ms
+
+
+def nl_kernel_rows(left, right, out, cfg, label: str, card_line: str) -> dict:
+    """A, D, arm_reduce and pi_scan at the nl_tree_filter frame's shapes,
+    on its inputs: the left image's arms, the cooperative WTA's two views
+    of the NL-aggregated volume, one region-vote iteration on its LR map,
+    one proper-interpolation iteration on its region-voted map."""
+    m = cfg.arm_l_out
+    with plain_path():
+        vols, arms_pair = compute_volumes(left, right, cfg, nl_trees(left, right, cfg))
+        arms0 = arms_pair[0]
+        lrc = refine_ops.lr_consistency(out["disp_left_raw"], out["disp_right_raw"],
+                                        cfg.lr_max_diff)
+        rv = lrc
+        for _ in range(cfg.region_vote_iters):
+            rv = refine_ops.region_vote(rv, arms0, cfg.num_disp, cfg.rv_s_thres, cfg.rv_h_ratio,
+                                        cfg.rv_int_ratio_quirk, m)
+    coop = [wta_ops.cooperative_volume(vols[0], lor).contiguous() for lor in (0, 1)]
+    hw = lrc.numel()
+    cases = {
+        "arms_grow_nl": ("arms of the left image", arms_grow_case(left, arms0, cfg), None),
+        "wta_nl": ("the cooperative WTA's two views of the NL-aggregated [60,375,450] volume",
+                   (lambda: tuple(ck.wta(v) for v in coop),
+                    lambda: tuple(wta_ops.wta_plain(v) for v in coop),
+                    2 * (coop[0].numel() * 4 + hw * 4), 2 * coop[0].numel()),
+                   lambda: [torch.argmin(v, 0) for v in coop]),
+        "arm_reduce_nl": ("one region-vote iteration on the frame's LR map",
+                          region_vote_case(lrc, arms0, m), None),
+        "pi_scan_nl": (f"one proper-interpolation iteration on the frame's region-voted map, "
+                       f"depth {cfg.pi_search_depth}",
+                       pi_case(rv, left, cfg.pi_search_depth, cfg.disp_occ), None),
+    }
+    return {row: run_case(row, f"{label}: {what}", case, card_line, library,
+                          kernel_name=NL_ROWS[row])
+            for row, (what, case, library) in cases.items()}
+
+
+def phase_nl(dev, card_line: str):
+    """The NL presets: nl_tree_filter at Teddy size (its frame timed, with its
+    tree build, tree height, device time, idle share, launches and peak
+    memory, then its kernels at its shapes), the qx flows nl_post and
+    nl_census_post on the golden scenes against the reference binary's maps,
+    and nl_8nr once. Returns (the kernels line's rows, nl_tree_filter's
+    launches)."""
+    from mystereomatching_tpu_torch.data import make_adversarial_pair
+
+    pair = make_synthetic_pair(**TEDDY)
+    left = torch.from_numpy(pair.left).to(dev, torch.float32)
+    right = torch.from_numpy(pair.right).to(dev, torch.float32)
+    shape = (TEDDY["h"], TEDDY["w"])
+    cfg = get_model("nl_tree_filter", max_disp=TEDDY["max_disp"])
+    label = f"nl_tree_filter {shape[0]}x{shape[1]} D={cfg.num_disp}"
+    out, counts, pipe, _ = nl_frame(cfg, left, right, dev, label)
+    check_maps(label, out, cfg, shape, dev)
+    tree = nl_trees(left, right, cfg)[0]
+    vol = cost_ops.compute_cost_volume(left, right, to_gray(left), to_gray(right), cfg, 0,
+                                       arms=arms_ops.build_arms(left, cfg))
+    if not torch.equal(nl_ops.nl_aggregate(vol, tree, cfg.nl_sigma),
+                       nl_ops.nl_aggregate(vol, tree, cfg.nl_sigma)):
+        raise AssertionError(f"{label}: two tree filter runs differ")
+    del vol
+    bad1 = bad_pixel_rate(out["disparity"], torch.from_numpy(pair.gt).to(dev),
+                          torch.from_numpy(pair.masks["nonocc"]).to(dev))
+    print(f"{label}: launches {json.dumps(counts)}; maps equal to a second frame, the plain "
+          f"path and the CPU port; two filter runs equal; bad-1.0 nonocc {bad1:.6f}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    q1, med, q3 = frame_ms(pipe, left, right, NL_REPS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    mp_disp = shape[0] * shape[1] * cfg.num_disp / 1e6
+    print(f"timing {label}, kernel path: median {med:.3f} ms/frame (quartiles {q1:.3f}-{q3:.3f}, "
+          f"n={NL_REPS}), {mp_disp / med * 1e3:.3f} MP*disp/s; host tree build "
+          f"{pipe.tree_ms:.3f} ms of the last frame; tree height {tree.height} ({tree.n} nodes, "
+          f"{len(tree.starts) - 1} levels); peak device memory {peak / 2**20:.1f} MiB "
+          f"[{card_line}]")
+    profile_frames(pipe, left, right, label, card_line, NL_PROFILE_FRAMES, warm_up=0)
+    rows = nl_kernel_rows(left, right, out, cfg, label, card_line)
+
+    for scene, (params, adversarial, presets) in NL_GOLDEN.items():
+        gen = make_adversarial_pair if adversarial else make_synthetic_pair
+        p = gen(name=scene, **params)
+        sl = torch.from_numpy(p.left).to(dev, torch.float32)
+        sr = torch.from_numpy(p.right).to(dev, torch.float32)
+        for preset, (mode, budget) in presets.items():
+            pcfg = get_model(preset, max_disp=params["max_disp"])
+            plabel = f"{preset} {scene}"
+            pout, pcounts, ppipe, ms = nl_frame(pcfg, sl, sr, dev, plabel)
+            raw = pout["disp_left_raw"].cpu().numpy()
+            disp = pout["disparity"].cpu().numpy().astype(np.int32)
+            n_raw, n_post = (int((m != load_ref_disp(os.path.join(
+                GOLDEN, f"{scene}_{mode}_nl_{kind}.bin"), np.uint8)).sum())
+                for m, kind in ((raw, "nopost"), (disp, "post")))
+            print(f"{plabel}: differs from the reference binary at {n_raw} px before and {n_post} "
+                  f"px after post-processing (budget {budget}); equal to the plain path and the "
+                  f"CPU port; launches {json.dumps({k: v for k, v in pcounts.items() if v})}; "
+                  f"{ms:.3f} ms a frame (the second), tree build {ppipe.tree_ms:.3f} ms "
+                  f"[{card_line}]")
+            if n_raw > budget or n_post > budget:
+                raise AssertionError(f"{plabel}: differs from the reference binary at {n_raw}/"
+                                     f"{n_post} px, budget {budget}")
+    cfg8 = get_model("nl_8nr", max_disp=TEDDY["max_disp"])
+    label8 = f"nl_8nr {shape[0]}x{shape[1]} D={cfg8.num_disp}"
+    out8, counts8, pipe8, ms8 = nl_frame(cfg8, left, right, dev, label8)
+    check_maps(label8, out8, cfg8, shape, dev)
+    tree8 = nl_trees(left, right, cfg8)[0]
+    print(f"{label8}: equal to the plain path and the CPU port; launches "
+          f"{json.dumps({k: v for k, v in counts8.items() if v})}; {ms8:.3f} ms a frame (the "
+          f"second); tree height {tree8.height}; host tree build {pipe8.tree_ms:.3f} ms "
+          f"[{card_line}]")
+    return rows, counts
+
+
+def phase_micro4(dev, card_line: str) -> dict:
+    """The gather and prefix-sum probes (tools/micro4.py) at micro4.py's
+    [375, 450] plane and at the NL filter's [168750, 61] rows: each kernel
+    against its plain version (gathers exactly; the kernel's cumsums equal
+    to the sequential float32 sums, torch.cumsum's within the stated bound
+    of the float64 sum), with its bound and the library call's
+    time. Returns the kernels line's rows."""
+    from tools import micro4
+
+    rows = {}
+    for name, what, kernel, plain, library, check, nbytes, nops in micro4.cases(dev):
+        rows[name] = run_case(name, what, (kernel, plain, nbytes, nops), card_line, library,
+                              check=check, kernel_name=name.removesuffix("_nl"))
+    torch.cuda.empty_cache()
+    return rows
 
 
 def row_band_devices(n: int):
@@ -1615,6 +1827,8 @@ def timed(phase, *args):
 
 
 def main() -> int:
+    from tools import micro4
+
     card_line = card() if torch.cuda.is_available() else "no card"
     phase_environment(card_line)
     dev = torch.device("cuda", 0)
@@ -1630,6 +1844,8 @@ def main() -> int:
     stream_rows, stream_counts = timed(phase_stream, dev, card_line)
     ext_rows, ext_counts = timed(phase_row_bands, dev, card_line)
     copy_row = timed(phase_copy_bw, dev, card_line)
+    nl_rows, nl_counts = timed(phase_nl, dev, card_line)
+    probe_rows = timed(phase_micro4, dev, card_line)
     timed(phase_timing, dev, card_line)
     timed(phase_profile, dev, card_line)
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
@@ -1654,6 +1870,18 @@ def main() -> int:
         raise AssertionError(f"copy_bw launched {counts['copy_bw']} times on the main path")
     kernels.append(dict(name="copy_bw", route="cuda", source=COPY_BW[0], replaces=COPY_BW[1],
                         launches=counts["copy_bw"], **copy_row))
+    # A, D, arm_reduce and pi_scan at the nl_tree_filter frame's shapes, with its launches
+    kernels += [dict(name=row, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
+                     launches=nl_counts[name], **nl_rows[row])
+                for row, name in NL_ROWS.items()]
+    # the gather and prefix-sum probes, on no path: the main path's counts, and
+    # the NL frame's, must be 0
+    for name, (tpu, _, _) in micro4.PROBES.items():
+        if counts[name] or nl_counts[name]:
+            raise AssertionError(f"{name} launched on the main path or the NL frame")
+        kernels += [dict(name=row, route="cuda", source=PLANE_PROBES, replaces=tpu,
+                         launches=counts[name], **probe_rows[row])
+                    for row in (name, f"{name}_nl")]
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

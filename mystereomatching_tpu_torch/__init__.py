@@ -12,7 +12,10 @@ Ported so far: the default preset ``census_grad_cbca_sgm``
 enhancement); and ``fullres_occfill`` (classifying LR check, background
 fill), in float32 or with bfloat16 volumes and the cooperative WTA. The
 three presets also run split into row bands over several processes and
-cards (``parallel.run_row_bands``, float32 volumes).
+cards (``parallel.run_row_bands``, float32 volumes). The NL presets
+``nl_tree_filter``, ``nl_8nr``, ``nl_post`` and ``nl_census_post`` run
+with the image's MST built on the host (``native/``, a C++ runtime built
+at first use) and the tree filter on the device.
 """
 
 from mystereomatching_tpu_torch.config import MatchConfig, default_config

@@ -1,18 +1,22 @@
-"""Cost aggregation (L2): cross-based cost aggregation (CBCA).
+"""Cost aggregation (L2): cross-based cost aggregation (CBCA) and the NL
+tree filter.
 
-Counterpart of ``aggregation.cbca`` in ``mystereomatching_tpu/ops/
-aggregation.py``, following its CPU branch: iteration i runs an H pass
-then a V pass when i is even, V then H when odd (cbca_core
-cpp:5605-5616). The first pass is an arm-bounded sum; the second sums the
-volume and the first pass's support count together and divides
-(genfinalVm_cbca cpp:3969-3992). Both passes are CUDA kernel B on a CUDA
-tensor (``arms.arm_bounded_sum`` / ``arms.arm_bounded_sum_area``).
+Counterpart of the ``"cbca"`` and ``"nl"`` branches of
+``mystereomatching_tpu/ops/aggregation.py``. :func:`nl` is
+``ops/nl.nl_aggregate`` on the view's tree. :func:`cbca` follows the JAX
+CPU branch: iteration i runs an H pass then a V pass when i is even, V
+then H when odd (cbca_core cpp:5605-5616). The first pass is an
+arm-bounded sum; the second sums the volume and the first pass's support
+count together and divides (genfinalVm_cbca cpp:3969-3992). Both passes
+are CUDA kernel B on a CUDA tensor (``arms.arm_bounded_sum`` /
+``arms.arm_bounded_sum_area``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from mystereomatching_tpu_torch.ops import nl as nl_ops
 from mystereomatching_tpu_torch.ops.arms import arm_bounded_sum, arm_bounded_sum_area
 
 _H, _W = 1, 2  # axes of a [D, H, W] volume
@@ -34,3 +38,12 @@ def cbca(vol: torch.Tensor, arms_int: torch.Tensor, iterations: int = 2,
         vol = arm_bounded_sum(vol, an1, ap1, ax1, max_arm)
         vol = arm_bounded_sum_area(vol, an1, ap1, an2, ap2, ax2, max_arm)
     return vol
+
+
+def nl(vol: torch.Tensor, tree, cfg) -> torch.Tensor:
+    """NL aggregation (the JAX ``aggregate``'s ``"nl"`` branch) of a float32
+    [D, H, W] volume on ``tree``, its image's MST (``ops/mst.RootedTree``).
+    Only the float32 filter is ported (``nl_filter_dtype``)."""
+    if cfg.nl_filter_dtype != "float32":
+        raise NotImplementedError(f"nl_filter_dtype {cfg.nl_filter_dtype!r} is not ported yet")
+    return nl_ops.nl_aggregate(vol, tree, cfg.nl_sigma)

@@ -1,7 +1,9 @@
-"""Census transform (default censusFunc=3) and its Hamming cost volume.
+"""Census transforms (default censusFunc=3, and the NL path's 80-bit
+code) and their Hamming cost volume.
 
 Counterpart of ``mystereomatching_tpu/ops/census.py`` (``_census_bits_ncsur``,
-``census_code_ncsur``, ``hamming_volume``). Bit semantics are the same:
+``census_code_ncsur``, ``census_code_qx80``, ``hamming_volume``). Bit
+semantics are the same. The default code:
 window bits ``center < neighbor`` over the (2rv+1)x(2ru+1) window in row
 order, then 8 surround-ring pair bits ``I[p+s_i] < I[p+s_{i+1}]``, with
 reflect-101 borders.
@@ -65,6 +67,21 @@ def pack_bits(bits: List[torch.Tensor]) -> torch.Tensor:
 def census_code_ncsur(gray: torch.Tensor, rv: int = 3, ru: int = 4) -> torch.Tensor:
     """Packed default census code, [n_words, H, W] int64."""
     return pack_bits(census_bits_ncsur(gray, rv, ru))
+
+
+def census_code_qx80(rgb: torch.Tensor) -> torch.Tensor:
+    """The NL path's 80-bit census code (my_matching_cost_from_cencus,
+    qx_nonlocal_cost_aggregation.cpp:110-189): the 9x9 window without its
+    centre, bit = centre > neighbour, with wraparound borders (the
+    reference indexes (y+wy+h)%h, (x+wx+w)%w: ``torch.roll``). Its gray
+    keeps the reference's channel quirk, (9798 B + 19235 G + 3735 R +
+    2^14) >> 15 of an RGB [H, W, 3] image. Returns [2, H, W] int64 (bits
+    0-63 and 64-79, in the JAX package's bit order; its [3, H, W] uint32
+    words hold the same bits)."""
+    r, g, b = (rgb[..., c].to(torch.int32) for c in range(3))
+    gray = (9798 * b + 19235 * g + 3735 * r + (1 << 14)) >> 15
+    return pack_bits([gray > torch.roll(gray, (-wy, -wx), (0, 1))
+                      for wy in range(-4, 5) for wx in range(-4, 5) if wy or wx])
 
 
 def ncsur_code_length(rv: int, ru: int) -> int:

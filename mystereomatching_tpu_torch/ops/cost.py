@@ -1,10 +1,16 @@
-"""Matching cost (L1): the censusGrad [D, H, W] cost volume.
+"""Matching cost (L1): the [D, H, W] cost volumes of the ported costs.
 
-Counterpart of the ``census_grad`` branch of
-``mystereomatching_tpu/ops/cost.py`` (``central_gradient``, ``grad_volume``,
-``exp_fuse2``, ``compute_cost_volume``, ``block_cost_builder``). Images
-are float32 in [0, 255]; off-image entries take each cost's default. The
-JAX package has no Pallas kernel here, so neither does this.
+Counterpart of the ``census_grad``, ``ad_grad``, ``qx_ad_grad`` and
+``qx_census`` branches of ``mystereomatching_tpu/ops/cost.py``
+(``central_gradient``, ``grad_volume``, ``ad_volume``, ``exp_fuse2``,
+``fix_weight_fuse``, ``_qx_gray``, ``_qx_gradient``,
+``qx_ad_grad_volume``, ``compute_cost_volume``, ``block_cost_builder``).
+Images are float32 in [0, 255]; off-image entries take each cost's
+default. A division by a constant divides by a 0-dim tensor on the data's
+device (:func:`_div`): a CUDA tensor divided by a Python number is
+multiplied by its reciprocal instead, which rounds otherwise than the
+CPU's division. The JAX package has no Pallas kernel here, so neither
+does this.
 """
 
 from __future__ import annotations
@@ -16,6 +22,29 @@ import torch
 
 from mystereomatching_tpu_torch.ops import census as census_ops
 from mystereomatching_tpu_torch.ops.volume import shifted_stack, valid_mask
+
+
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c rounded once, on every device (see the module's note)."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def ad_volume(left: torch.Tensor, right: torch.Tensor, num_disp: int, lor: int,
+              trunc: float = 1e9, disps=None) -> torch.Tensor:
+    """Mean over the channels of |dI|, truncated at ``trunc`` (gen_ad_sd_vm
+    cpp:2468-2509). left/right: [H, W, C]. Off-image entries take ``trunc``."""
+    lc = left.to(torch.float32).permute(2, 0, 1)
+    rc = right.to(torch.float32).permute(2, 0, 1)
+    ref, oth = (lc, rc) if lor == 0 else (rc, lc)
+    diff = torch.abs(ref[None] - shifted_stack(oth, num_disp, lor, disps))  # [D, C, H, W]
+    total = diff[:, 0]
+    for c in range(1, diff.shape[1]):
+        total = total + diff[:, c]
+    # the mean as jnp.mean computes it: XLA turns its division by the
+    # constant count into a product with the count's float32 reciprocal
+    vol = torch.clamp(total * (1.0 / diff.shape[1]), max=trunc)
+    valid = valid_mask(left.shape[1], num_disp, lor, vol.device, disps)
+    return torch.where(valid, vol, trunc)
 
 
 def central_gradient(img: torch.Tensor, axis: int) -> torch.Tensor:
@@ -60,6 +89,52 @@ def grad_volume(gray_l: torch.Tensor, gray_r: torch.Tensor, num_disp: int,
     return torch.where(valid, vol, math.sqrt(2.0 * trunc * trunc))
 
 
+def fix_weight_fuse(vm0: torch.Tensor, w0: float, vm1: torch.Tensor,
+                    w1: float) -> torch.Tensor:
+    """w0*vm0 + w1*vm1 (gen_vm_from2vm_fixWgt cpp:3622-3645)."""
+    return w0 * vm0 + w1 * vm1
+
+
+def qx_gray(img: torch.Tensor) -> torch.Tensor:
+    """The NL path's gray (qx rgb_2_gray, qx_basic.h:72) with its channel
+    quirk: the reference feeds imread's BGR bytes, so the 0.299 weight
+    lands on blue. uchar(0.299 b + 0.587 g + 0.114 r + 0.5) as the exact
+    integer (299 b + 587 g + 114 r + 500) // 1000, float32 [H, W]; img: [H,
+    W, 3] RGB. (The JAX package documents where this differs from the C
+    double sum: on 0.1% of colour triples, which its golden budgets absorb.)"""
+    r, g, b = (img[..., c].to(torch.int32) for c in range(3))
+    return ((299 * b + 587 * g + 114 * r + 500) // 1000).to(torch.float32)
+
+
+def qx_gradient(gray: torch.Tensor) -> torch.Tensor:
+    """compute_gradient (qx_nonlocal_cost_aggregation.cpp:219-240): 0.5 (g[x+1]
+    - g[x-1]) + 127.5 inside, the full one-sided difference + 127.5 at both
+    borders."""
+    interior = 0.5 * (gray[:, 2:] - gray[:, :-2]) + 127.5
+    first = (gray[:, 1:2] - gray[:, 0:1]) + 127.5
+    last = (gray[:, -1:] - gray[:, -2:-1]) + 127.5
+    return torch.cat([first, interior, last], 1)
+
+
+def qx_ad_grad_volume(left: torch.Tensor, right: torch.Tensor, num_disp: int,
+                      lor: int = 0, disps=None) -> torch.Tensor:
+    """The standalone NL cost (matching_cost_from_color_and_gradient,
+    qx_nonlocal_cost_aggregation.cpp:190-218): 0.11 min(mean |dRGB|, 7) +
+    0.89 min(|d grad|, 2). Past the border the shifted image repeats its
+    edge column (cpp:202-206), which is :func:`shifted_stack`'s clamp.
+    lor=1 builds the right volume directly."""
+    gl, gr = qx_gray(left), qx_gray(right)
+    grad_l, grad_r = qx_gradient(gl), qx_gradient(gr)
+    ref_img, oth_img = (left, right) if lor == 0 else (right, left)
+    ref_grad, oth_grad = (grad_l, grad_r) if lor == 0 else (grad_r, grad_l)
+    diff = torch.abs(ref_img.permute(2, 0, 1)[None]
+                     - shifted_stack(oth_img.permute(2, 0, 1), num_disp, lor, disps))
+    color = torch.clamp(_div(diff[:, 0] + diff[:, 1] + diff[:, 2], 3.0), max=7.0)
+    grad = torch.clamp(torch.abs(ref_grad[None] - shifted_stack(oth_grad, num_disp, lor, disps)),
+                       max=2.0)
+    return 0.11 * color + 0.89 * grad
+
+
 def exp_fuse2(vm0: torch.Tensor, vm1: torch.Tensor, lam0: float,
               lam1: float) -> torch.Tensor:
     """2 - exp(-vm0/lam0) - exp(-vm1/lam1) (gen_vm_from2vm_exp cpp:3566-3590)."""
@@ -70,10 +145,23 @@ def compute_cost_volume(left: torch.Tensor, right: torch.Tensor,
                         gray_l: torch.Tensor, gray_r: torch.Tensor, cfg,
                         lor: int, arms: Optional[torch.Tensor] = None,
                         grad_y_pair=None) -> torch.Tensor:
-    """The censusGrad cost (cpp:25-48): exp fusion of the census Hamming
-    volume (lam_cen) and the gradient volume (lam_g). ``left``/``right``
-    are unused by this cost and kept for the JAX signature;
-    ``grad_y_pair`` goes to :func:`grad_volume`."""
+    """The cost volume of ``cfg.cost`` (costCalculate, cpp:945-1021):
+    ``census_grad`` (cpp:25-48, exp fusion of the census Hamming volume and
+    the gradient volume), ``ad_grad`` (cpp:50-70, AD truncated at
+    ``ad_trunc`` and the gradient truncated at 2, weighted 0.11 / 0.89), or
+    the NL flow's ``qx_ad_grad`` (left volume only, as in the JAX package)
+    and ``qx_census`` (the 80-bit 9x9 census). ``grad_y_pair`` goes to
+    :func:`grad_volume`."""
+    if cfg.cost == "qx_ad_grad":
+        if lor != 0:
+            raise NotImplementedError(
+                "qx_ad_grad is left-volume only; the NL flow flips the left volume "
+                "(ops/nl.flip_corr_vol) as the reference does")
+        return qx_ad_grad_volume(left, right, cfg.num_disp)
+    if cfg.cost == "qx_census":
+        return census_ops.hamming_volume(census_ops.census_code_qx80(left),
+                                         census_ops.census_code_qx80(right),
+                                         cfg.num_disp, lor, 80)
     return block_cost_builder(left, right, gray_l, gray_r, cfg, lor, arms,
                               grad_y_pair)(None)
 
@@ -85,18 +173,24 @@ def block_cost_builder(left: torch.Tensor, right: torch.Tensor,
     """The disparity-streaming form of :func:`compute_cost_volume`: returns
     ``block(ds) -> [Db, H, W]`` float32, the cost of the disparities in the
     int [Db] index ``ds`` (None: all of them), each plane the dense
-    volume's bit for bit. The two census codes, which do not depend on the
-    disparity, are computed once, here. Every cost but ``census_grad``
-    raises NotImplementedError naming it."""
-    del left, right
-    if cfg.cost != "census_grad":
-        raise NotImplementedError(f"cost {cfg.cost!r} is not ported yet")
-    if cfg.census_func != 3:
-        raise NotImplementedError(
-            f"census_func={cfg.census_func} is not ported yet")
+    volume's bit for bit, for ``census_grad`` and ``ad_grad``. The two
+    census codes, which do not depend on the disparity, are computed once,
+    here. Every other cost raises NotImplementedError naming it."""
+    if cfg.cost not in ("census_grad", "ad_grad"):
+        raise NotImplementedError(f"cost {cfg.cost!r} has no block form in this package")
     if not (cfg.grad_use_2dir and cfg.grad_fuse_adaptive):
         raise NotImplementedError(
             "only the two-direction arm-adaptive gradient cost is ported")
+    if cfg.cost == "ad_grad":
+        def ad_grad_block(ds) -> torch.Tensor:
+            advm = ad_volume(left, right, cfg.num_disp, lor, trunc=cfg.ad_trunc, disps=ds)
+            gvm = grad_volume(gray_l, gray_r, cfg.num_disp, lor, 2.0, arms, grad_y_pair, ds)
+            return fix_weight_fuse(advm, 0.11, gvm, 0.89)
+
+        return ad_grad_block
+    if cfg.census_func != 3:
+        raise NotImplementedError(
+            f"census_func={cfg.census_func} is not ported yet")
     rv, ru = cfg.census_rv, cfg.census_ru
     code_l = census_ops.census_code_ncsur(gray_l, rv, ru)
     code_r = census_ops.census_code_ncsur(gray_r, rv, ru)

@@ -17,7 +17,9 @@ Kernels B, C, D and E take float32 or bfloat16 volumes (the JAX package's
 any other dtype. Kernel C's scan along H with a carried-in row or an
 in-image mask, which the row-band pipeline runs, has entry points of its
 own too (``mysm_sgm_scan_ext``) and is counted apart, as ``sgm_scan_ext``.
-``copy_bw`` (``csrc/copy_bw.cu``) is a bandwidth probe on no pipeline path.
+``copy_bw`` (``csrc/copy_bw.cu``) and the gather and prefix-sum probes
+``gather_rows``, ``gather_cols``, ``cumsum_rows`` and ``cumsum_cols``
+(``csrc/plane_probes.cu``) are on no pipeline path.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # launches of each kernel since the last reset_launches(), of either dtype
 launches = {"arms_grow": 0, "arm_taps": 0, "sgm_scan": 0, "wta": 0,
-            "arm_reduce": 0, "pi_scan": 0, "sgm_diag": 0, "sgm_scan_ext": 0, "copy_bw": 0}
+            "arm_reduce": 0, "pi_scan": 0, "sgm_diag": 0, "sgm_scan_ext": 0, "copy_bw": 0,
+            "gather_rows": 0, "gather_cols": 0, "cumsum_rows": 0, "cumsum_cols": 0}
 # of those, the launches of the bfloat16 instances of kernels B, C, D and E
 launches_bf16 = {"arm_taps": 0, "sgm_scan": 0, "wta": 0, "sgm_diag": 0, "sgm_scan_ext": 0}
 # of those, kernel C's launches with an in-image mask, and of these the bfloat16 ones
@@ -62,6 +65,9 @@ _SIGNATURES = {
     "mysm_sgm_diag": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "mysm_sgm_scan_ext": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     "mysm_copy_bw": [_P, _P, _L, _I, _I, _I, _I, _P],
+    "mysm_gather_rows": [_P, _P, _P, _I, _L, _I, _P],
+    "mysm_gather_cols": [_P, _P, _P, _I, _L, _I, _P],
+    "mysm_cumsum": [_P, _P, _L, _I, _I, _P],
 }
 # the bfloat16 entry points of kernels B, C, D and E: the float32 ones' arguments
 _BF16 = ("mysm_arm_taps", "mysm_sgm_scan", "mysm_wta", "mysm_sgm_diag", "mysm_sgm_scan_ext")
@@ -379,4 +385,47 @@ def copy_bw(x: torch.Tensor, tile_rows: int, tile_cols: int) -> torch.Tensor:
                     and out.data_ptr() % 16 == 0) else 1
         _launch("copy_bw", lib.mysm_copy_bw, x.data_ptr(), out.data_ptr(), x.numel() // w, w,
                 int(tile_rows), int(tile_cols), vec)
+    return out
+
+
+def _gather(name: str, fn, x: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
+    if x.ndim != 2 or idx.ndim != 2 or idx.shape[1 - axis] != x.shape[1 - axis]:
+        raise ValueError(f"{name}: expected 2-D x and idx agreeing off axis {axis}, got "
+                         f"{tuple(x.shape)} and {tuple(idx.shape)}")
+    _check(x, f"{name} x", torch.float32)
+    _check(idx, f"{name} idx", torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        out = torch.empty(idx.shape, dtype=torch.float32, device=x.device)
+        _launch(name, fn, x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[axis],
+                idx.numel(), idx.shape[1])
+    return out
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The gather probe along axis 0: out[a, b] = x[idx[a, b], b] of a
+    float32 x [R, C] with int32 idx [A, C]; an index outside [0, R) gives
+    NaN."""
+    return _gather("gather_rows", _load().mysm_gather_rows, x, idx, 0)
+
+
+def gather_cols(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The gather probe along axis 1: out[a, b] = x[a, idx[a, b]] of a
+    float32 x [A, C] with int32 idx [A, B]; an index outside [0, C) gives
+    NaN."""
+    return _gather("gather_cols", _load().mysm_gather_cols, x, idx, 1)
+
+
+def cumsum(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """The prefix-sum probe: running float32 sums of x [R, C] along axis 0
+    (``cumsum_rows``, a thread a column) or 1 (``cumsum_cols``, a thread a
+    row), each added in sequential order."""
+    if x.ndim != 2 or axis not in (0, 1):
+        raise ValueError(f"cumsum: expected a 2-D x and axis 0 or 1, got {tuple(x.shape)}, "
+                         f"axis {axis}")
+    _check(x, "cumsum x", torch.float32)
+    lib = _load()
+    with torch.cuda.device(x.device):
+        out = torch.empty_like(x)
+        _launch("cumsum_rows" if axis == 0 else "cumsum_cols", lib.mysm_cumsum, x.data_ptr(),
+                out.data_ptr(), x.shape[0], x.shape[1], int(axis == 0))
     return out

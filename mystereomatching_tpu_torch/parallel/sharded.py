@@ -344,7 +344,8 @@ def _match_pair_band(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
 def check_sharded_support(cfg: MatchConfig, n_disp: int = 1) -> None:
     """Raise NotImplementedError, naming the flag, for every configuration
     the band path would not run with the dense path's meaning: whatever the
-    dense port refuses (``pipeline.check_supported``), ``d_stream_block``
+    dense port refuses (``pipeline.check_supported``), NL aggregation, any
+    cost but census_grad and any optimization but SGM, ``d_stream_block``
     (a 'disp' axis splits the disparities instead, as in the JAX package)
     and bfloat16 volumes. The JAX band path never casts to ``vol_dtype``
     (its ``_match_pair_band`` has no cast), so there a bfloat16
@@ -352,6 +353,14 @@ def check_sharded_support(cfg: MatchConfig, n_disp: int = 1) -> None:
     refuses it instead. ValueError where n_disp does not divide the
     disparities."""
     check_supported(cfg)
+    if cfg.aggregation != "cbca":
+        raise NotImplementedError(
+            f"sharded pipeline: aggregation {cfg.aggregation!r} (NL on row bands, the JAX "
+            "nl_sharded.py, is not ported)")
+    if cfg.cost != "census_grad" or cfg.optimization != "sgm":
+        raise NotImplementedError(
+            f"sharded pipeline: cost {cfg.cost!r}, optimization {cfg.optimization!r} (the band "
+            "path runs census_grad and SGM)")
     if cfg.d_stream_block:
         raise NotImplementedError(
             "sharded pipeline: d_stream_block (use a 'disp' mesh axis instead)")

@@ -1,27 +1,34 @@
-"""End-to-end stereo pipeline: cost -> CBCA -> SGM -> WTA -> refine.
+"""End-to-end stereo pipeline: cost -> aggregation -> optimization -> refine.
 
 Counterpart of ``mystereomatching_tpu/pipeline.py`` for the stages ported
-so far: the default censusGrad cost, cross arms, CBCA, 4- or 8-path SGM and
-WTA on the left and right volumes, or the cooperative WTA of the left
-volume alone, in float32 or bfloat16 volumes, the uniqueness check, then
-the refinement (LR check, plain or classifying, region vote, proper
-interpolation, the background fill, and either the median or subpixel
-enhancement with its median) and the decision-time subpixel
-(``sub_ipol``). Cost and CBCA run on the whole volume, or streamed over
-blocks of ``d_stream_block`` disparities. That covers the presets
-``census_grad_cbca_sgm`` (with or without ``do_refine``), ``sgm8_full`` and
-``fullres_occfill`` (with its bfloat16 cooperative variant and its
-disparity streaming). A configuration that needs any other stage raises
-``NotImplementedError`` naming it.
+so far. Costs: the default censusGrad, ``ad_grad`` and the NL flow's
+``qx_ad_grad`` and ``qx_census``. Aggregation: cross arms and CBCA, in
+float32 or bfloat16 volumes, whole or streamed over blocks of
+``d_stream_block`` disparities; or the NL tree filter on the image's MST,
+built on the host. Optimization: 4- or 8-path SGM, or none, then WTA on the
+left and right volumes, or the cooperative WTA of the left volume alone,
+and the uniqueness check. Refinement: LR check (plain or classifying),
+region vote, proper interpolation, the background fill, and either the
+median or subpixel enhancement with its median, and the decision-time
+subpixel (``sub_ipol``). And the standalone qx NL flow
+(``nl_post_process``, ``ops/nl.nl_disparity``), which owns its decision and
+refinement. That covers the presets ``census_grad_cbca_sgm`` (with or
+without ``do_refine``), ``sgm8_full``, ``fullres_occfill`` (with its
+bfloat16 cooperative variant and its disparity streaming),
+``nl_tree_filter``, ``nl_8nr``, ``nl_post`` and ``nl_census_post``. A
+configuration that needs any other stage raises ``NotImplementedError``
+naming it.
 
-PyTorch runs eagerly: :class:`StereoPipeline` only validates the
-configuration and moves the inputs to its device. On a CUDA device the
-kernel-backed ops launch their CUDA kernels (:func:`kernels_launched` names
-those of a configuration); on the CPU they run their plain torch versions.
+PyTorch runs eagerly: :class:`StereoPipeline` validates the configuration,
+moves the inputs to its device and, for NL, builds the trees on the host
+first (timed apart). On a CUDA device the kernel-backed ops launch their
+CUDA kernels (:func:`kernels_launched` names those of a configuration); on
+the CPU they run their plain torch versions.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List
 
 import numpy as np
@@ -32,6 +39,8 @@ from mystereomatching_tpu_torch.ops import aggregation as agg_ops
 from mystereomatching_tpu_torch.ops import arms as arms_ops
 from mystereomatching_tpu_torch.ops import cost as cost_ops
 from mystereomatching_tpu_torch.ops import cuda_kernels as ck
+from mystereomatching_tpu_torch.ops import mst
+from mystereomatching_tpu_torch.ops import nl as nl_ops
 from mystereomatching_tpu_torch.ops import refine as refine_ops
 from mystereomatching_tpu_torch.ops import sgm as sgm_ops
 from mystereomatching_tpu_torch.ops import wta as wta_ops
@@ -46,6 +55,23 @@ def to_gray(img: torch.Tensor) -> torch.Tensor:
 
 
 VOL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+COSTS = ("census_grad", "ad_grad", "qx_ad_grad", "qx_census")
+BLOCK_COSTS = ("census_grad", "ad_grad")  # the costs of cost_ops.block_cost_builder
+
+
+def _needs_arms_for_cost(cfg: MatchConfig) -> bool:
+    return (cfg.cost in ("census_grad", "ad_grad") and cfg.grad_use_2dir
+            and cfg.grad_fuse_adaptive)
+
+
+def _nl_flow(cfg: MatchConfig) -> bool:
+    """The standalone qx NL flow, which owns its decision and refinement."""
+    return cfg.aggregation == "nl" and cfg.nl_post_process
+
+
+def _n_views(cfg: MatchConfig) -> int:
+    """The volumes built: left, and right when the LR check reads one."""
+    return 2 if (cfg.compute_both_volumes and cfg.do_lr_consis) else 1
 
 
 def check_supported(cfg: MatchConfig) -> None:
@@ -62,11 +88,22 @@ def check_supported(cfg: MatchConfig) -> None:
         (refining and cfg.do_wm, "do_wm"),
         (refining and cfg.do_da, "do_da"),
         (refining and cfg.do_rv_whole_image, "do_rv_whole_image"),
-        (cfg.cost != "census_grad", f"cost {cfg.cost!r}"),
-        (cfg.aggregation != "cbca", f"aggregation {cfg.aggregation!r}"),
+        (cfg.cost not in COSTS, f"cost {cfg.cost!r}"),
+        (cfg.aggregation == "cbca" and cfg.cost not in BLOCK_COSTS,
+         f"cost {cfg.cost!r} with CBCA"),
+        (cfg.cost == "qx_ad_grad" and not _nl_flow(cfg) and _n_views(cfg) == 2,
+         "qx_ad_grad right volume (left volume only)"),
+        (cfg.aggregation not in ("cbca", "nl"), f"aggregation {cfg.aggregation!r}"),
+        (cfg.aggregation == "nl" and cfg.nl_filter_dtype != "float32",
+         f"nl_filter_dtype {cfg.nl_filter_dtype!r}"),
+        (cfg.aggregation == "nl" and cfg.vol_dtype != "float32",
+         f"vol_dtype {cfg.vol_dtype!r} with NL aggregation"),
+        (cfg.aggregation == "nl" and cfg.d_stream_block != 0,
+         "d_stream_block with NL aggregation (no disparity-streaming form)"),
         (cfg.cbca_double_win, "cbca_double_win"),
-        (cfg.optimization != "sgm", f"optimization {cfg.optimization!r}"),
-        (cfg.sgm_scan_num not in (4, 8), f"{cfg.sgm_scan_num}-path SGM"),
+        (cfg.optimization not in ("sgm", "wta"), f"optimization {cfg.optimization!r}"),
+        (cfg.optimization == "sgm" and cfg.sgm_scan_num not in (4, 8),
+         f"{cfg.sgm_scan_num}-path SGM"),
         (cfg.do_vmtop, "do_vmtop"),
         (cfg.d_stream_block != 0 and cfg.cbca_double_win,
          "d_stream_block with cbca_double_win (no disparity-streaming form)"),
@@ -82,31 +119,68 @@ def kernels_launched(cfg: MatchConfig) -> List[str]:
     """The CUDA kernels a frame of ``cfg`` launches on the card, in the
     order of ``cuda_kernels.launches``."""
     cfg = as_port_config(cfg)
-    used = {"arms_grow", "arm_taps", "sgm_scan", "wta"}
-    if cfg.sgm_scan_num > 4:
-        used.add("sgm_diag")
-    if cfg.do_refine and cfg.do_region_vote:
+    refining = cfg.do_refine and not _nl_flow(cfg)
+    used = {"wta"}
+    if cfg.aggregation == "cbca":
+        used.add("arm_taps")
+    if cfg.aggregation == "cbca" or _needs_arms_for_cost(cfg) or (
+            refining and cfg.do_region_vote):
+        used.add("arms_grow")
+    if cfg.optimization == "sgm" and not _nl_flow(cfg):
+        used.add("sgm_scan")
+        if cfg.sgm_scan_num > 4:
+            used.add("sgm_diag")
+    if refining and cfg.do_region_vote:
         used.add("arm_reduce")
-    if cfg.do_refine and cfg.do_proper_ipol:
+    if refining and cfg.do_proper_ipol:
         used.add("pi_scan")
     return [name for name in ck.launches if name in used]
 
 
-def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
-    """L1 + L2: the CBCA-aggregated cost volumes of the needed views.
+def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
+                    trees=None):
+    """L1 + L2: the aggregated cost volumes of the needed views.
 
     Returns (vols, arms_pair): vols is {0: volL, 1: volR} (volR only when
     the LR check is on and ``compute_both_volumes``), in ``vol_dtype`` from
     the cast after the cost on; arms_pair is the two images' [4, H, W]
-    cross arms. With ``d_stream_block`` each volume is built a block of
-    disparities at a time (:func:`_aggregated_volume`).
+    cross arms. CBCA: with ``d_stream_block`` each volume is built a block
+    of disparities at a time (:func:`_aggregated_volume`). NL: each view's
+    cost volume filtered on its image's tree, ``trees[lor]``
+    (:func:`nl_trees`, required), with cross arms only for the images whose
+    cost or region vote reads them (None for the others).
     """
     gl, gr = to_gray(left), to_gray(right)
-    n_imgs = 2 if (cfg.compute_both_volumes and cfg.do_lr_consis) else 1
-    arms_pair = tuple(arms_ops.build_arms(img, cfg) for img in (left, right))
-    vols = {lor: _aggregated_volume(left, right, gl, gr, cfg, lor, arms_pair)
+    n_imgs = _n_views(cfg)
+    if cfg.aggregation == "cbca":
+        arms_pair = tuple(arms_ops.build_arms(img, cfg) for img in (left, right))
+        vols = {lor: _aggregated_volume(left, right, gl, gr, cfg, lor, arms_pair)
+                for lor in range(n_imgs)}
+        return vols, arms_pair
+    images = (left, right)
+    region_vote = cfg.do_refine and cfg.do_region_vote
+    arms_pair = tuple(
+        arms_ops.build_arms(images[lor], cfg)
+        if (_needs_arms_for_cost(cfg) and lor < n_imgs) or (lor == 0 and region_vote) else None
+        for lor in (0, 1))
+    if trees is None:
+        raise ValueError("compute_volumes: NL aggregation needs the frame's trees (nl_trees)")
+    vols = {lor: agg_ops.nl(cost_ops.compute_cost_volume(left, right, gl, gr, cfg, lor,
+                                                         arms=arms_pair[lor]),
+                            trees[lor], cfg)
             for lor in range(n_imgs)}
     return vols, arms_pair
+
+
+def nl_trees(left, right, cfg: MatchConfig) -> Dict[int, mst.RootedTree]:
+    """The NL trees a frame of ``cfg`` filters on, built on the host from
+    the median-prefiltered images: {0: left, 1: right} for the views it
+    filters (both in the qx NL flow), on the images' device. The only tree
+    builder: :func:`match_pair` calls it when given no trees, and
+    :class:`StereoPipeline` to time the build apart."""
+    views = 2 if _nl_flow(cfg) else _n_views(cfg)
+    return {lor: mst.build_tree(img, cfg.nl_neighbors)
+            for lor, img in enumerate((left, right)[:views])}
 
 
 def _aggregated_volume(left, right, gl, gr, cfg: MatchConfig, lor: int,
@@ -140,19 +214,21 @@ def _aggregated_volume(left, right, gl, gr, cfg: MatchConfig, lor: int,
 
 
 def optimize(vols, left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
-    """L3: SGM over all volumes together, then WTA on each (the cooperative
-    WTA of the left volume alone when it is the only one and the LR check
-    needs a right map) and, with ``uniq_check``, DISP_INV where the left
-    map fails the uniqueness test.
+    """L3: SGM over all volumes together (``optimization="sgm"``; none for
+    ``"wta"``), then WTA on each (the cooperative WTA of the left volume
+    alone when it is the only one and the LR check needs a right map) and,
+    with ``uniq_check``, DISP_INV where the left map fails the uniqueness
+    test.
 
     Returns (d_left, d_right or None, vol_left after optimization)."""
-    images = {0: left, 1: right}
-    lors = sorted(vols)
-    out = sgm_ops.sgm_multi(
-        [vols[i] for i in lors], [images[i] for i in lors],
-        num_directions=cfg.sgm_scan_num, p1=cfg.sgm_p1_eff, p2=cfg.sgm_p2_eff,
-        cor_dif_thres=cfg.sgm_cor_dif_thres, redu_coeff=cfg.sgm_redu_coeff)
-    vols = dict(zip(lors, out))
+    if cfg.optimization == "sgm":
+        images = {0: left, 1: right}
+        lors = sorted(vols)
+        out = sgm_ops.sgm_multi(
+            [vols[i] for i in lors], [images[i] for i in lors],
+            num_directions=cfg.sgm_scan_num, p1=cfg.sgm_p1_eff, p2=cfg.sgm_p2_eff,
+            cor_dif_thres=cfg.sgm_cor_dif_thres, redu_coeff=cfg.sgm_redu_coeff)
+        vols = dict(zip(lors, out))
     if 1 in vols:
         dl = wta_ops.wta(vols[0], cfg.choose_small)
         dr = wta_ops.wta(vols[1], cfg.choose_small)
@@ -204,21 +280,28 @@ def refine(d_left: torch.Tensor, d_right, vol_left, left: torch.Tensor,
     return d
 
 
-def match_pair(left: torch.Tensor, right: torch.Tensor,
-               cfg: MatchConfig) -> Dict[str, torch.Tensor]:
+def match_pair(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
+               trees=None) -> Dict[str, torch.Tensor]:
     """The pipeline on [H, W, 3] RGB tensors (uint8 or float) on one device.
 
     Returns 'disparity' (float32 [H, W], negatives are sentinel codes) and
     'disp_left_raw' / 'disp_right_raw' (int32 WTA maps before refinement,
     the left one with DISP_INV where the uniqueness check failed; the right
     one when the LR check is on). Without refinement 'disparity' is the
-    left WTA map, with ``sub_ipol``'s subpixel offsets.
+    left WTA map, with ``sub_ipol``'s subpixel offsets. The qx NL flow
+    (``nl_post_process``) returns 'disparity' and its stage-1 map as
+    'disp_left_raw'. ``trees``: NL aggregation's trees (:func:`nl_trees`),
+    None to build them here.
     """
     cfg = as_port_config(cfg).validate()
     check_supported(cfg)
     left = left.to(torch.float32)
     right = right.to(torch.float32)
-    vols, arms_pair = compute_volumes(left, right, cfg)
+    if cfg.aggregation == "nl" and trees is None:
+        trees = nl_trees(left, right, cfg)
+    if _nl_flow(cfg):
+        return _match_pair_nl_flow(left, right, cfg, trees)
+    vols, arms_pair = compute_volumes(left, right, cfg, trees)
     dl, dr, vol0 = optimize(vols, left, right, cfg)
     out = {"disp_left_raw": dl}
     if dr is not None:
@@ -226,6 +309,16 @@ def match_pair(left: torch.Tensor, right: torch.Tensor,
     d = refine(dl, dr, vol0, left, arms_pair[0], cfg) if cfg.do_refine else dl
     out["disparity"] = apply_sub_ipol(d, dl, vol0, cfg).to(torch.float32)
     return out
+
+
+def _match_pair_nl_flow(left, right, cfg: MatchConfig, trees) -> Dict[str, torch.Tensor]:
+    """The standalone qx NL flow (the JAX ``match_pair``'s ``nl_post_process``
+    branch): the left cost volume, then ``nl_disparity`` on both trees."""
+    arms = arms_ops.build_arms(left, cfg) if _needs_arms_for_cost(cfg) else None
+    vol = cost_ops.compute_cost_volume(left, right, to_gray(left), to_gray(right), cfg, 0,
+                                       arms=arms)
+    d, d_raw = nl_ops.nl_disparity(vol, (trees[0], trees[1]), cfg.nl_sigma)
+    return {"disparity": d.to(torch.float32), "disp_left_raw": d_raw}
 
 
 def apply_sub_ipol(d: torch.Tensor, dl_raw: torch.Tensor, vol0: torch.Tensor,
@@ -249,7 +342,9 @@ class StereoPipeline:
 
     It runs on the card (``device="cuda"``) unless the caller asks for
     ``device="cpu"``, and raises when CUDA is not available; inputs (numpy
-    arrays or tensors) are moved to the device.
+    arrays or tensors) are moved to the device. With NL aggregation each
+    call first builds the frame's trees on the host (:func:`nl_trees`) and
+    keeps that build's host-clock ms in ``tree_ms``.
     """
 
     def __init__(self, cfg: MatchConfig, device="cuda"):
@@ -261,6 +356,7 @@ class StereoPipeline:
                                "is not available")
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"StereoPipeline: unsupported device {self.device}")
+        self.tree_ms = None
 
     def _tensor(self, img) -> torch.Tensor:
         if isinstance(img, np.ndarray):
@@ -268,4 +364,10 @@ class StereoPipeline:
         return img.to(self.device)
 
     def __call__(self, left, right) -> Dict[str, torch.Tensor]:
-        return match_pair(self._tensor(left), self._tensor(right), self.cfg)
+        left, right = self._tensor(left), self._tensor(right)
+        trees = None
+        if self.cfg.aggregation == "nl":
+            t0 = time.perf_counter()
+            trees = nl_trees(left, right, self.cfg)
+            self.tree_ms = (time.perf_counter() - t0) * 1e3
+        return match_pair(left, right, self.cfg, trees)

@@ -6,7 +6,9 @@ nvcc with ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (the repository's conftest imports jax, which that machine need not have);
 the kernels are built on first use. Every comparison is exact (``torch.equal``): the
 kernels keep their plain versions' operation order and are built with
--fmad=false.
+-fmad=false. The prefix-sum probe's kernel equals the sequential float32
+sums; its plain version, ``torch.cumsum``, sums in a parallel scan's order
+and is held within a stated bound of the float64 sum.
 """
 
 from unittest import mock
@@ -529,3 +531,83 @@ def test_copy_bw_kernel(cuda, shape, tile, aligned):
     got = ck.copy_bw(x, *tile)
     assert ck.launches["copy_bw"] == before + 1
     assert torch.equal(got, bandwidth.scaled_copy_plain(x))
+
+
+# the gather and prefix-sum probes (csrc/plane_probes.cu): micro4.py's plane,
+# sides that are not multiples of 32, one row or one column, and the NL
+# filter's rows at Teddy size (375 x 450 nodes by D + 1 = 61 columns)
+PROBE_SHAPES = [(375, 450), (33, 65), (1, 97), (97, 1), (31, 32), (168750, 61)]
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+@pytest.mark.parametrize("axis", [0, 1])
+def test_gather_probe_kernels(cuda, shape, axis):
+    from mystereomatching_tpu_torch.ops import plane_probes as pp
+
+    gen = torch.Generator(device=cuda).manual_seed(shape[0] * 7 + axis)
+    x = torch.rand(shape, generator=gen, device=cuda)
+    out_shape = (shape[0] + 3, shape[1]) if axis == 0 else (shape[0], shape[1] + 5)
+    idx = torch.randint(0, shape[axis], out_shape, generator=gen, device=cuda,
+                        dtype=torch.int32)
+    name = "gather_rows" if axis == 0 else "gather_cols"
+    before = ck.launches[name]
+    got = ck.gather_rows(x, idx) if axis == 0 else ck.gather_cols(x, idx)
+    assert ck.launches[name] == before + 1
+    want = pp.gather_rows_plain(x, idx) if axis == 0 else pp.gather_cols_plain(x, idx)
+    assert torch.equal(got, want)
+
+
+def test_gather_probe_kernels_out_of_range_give_nan(cuda):
+    x = torch.ones((4, 6), device=cuda)
+    idx = torch.tensor([[0, 4, -1, 3, 2, 1]], dtype=torch.int32, device=cuda)
+    assert torch.isnan(ck.gather_rows(x, idx)).tolist() == [[False, True, True] + [False] * 3]
+    idx = torch.tensor([[0, 6, -1, 5]], dtype=torch.int32, device=cuda).expand(4, 4).contiguous()
+    assert torch.isnan(ck.gather_cols(x, idx))[:, 1:3].all()
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+@pytest.mark.parametrize("axis", [0, 1])
+def test_cumsum_probe_kernels(cuda, shape, axis):
+    """The kernel's sums equal the sequential float32 sums bit for bit and
+    torch.cumsum's parallel scan lies within the stated bound of the
+    float64 cumsum; values of both signs."""
+    from mystereomatching_tpu_torch.ops import plane_probes as pp
+
+    gen = torch.Generator(device=cuda).manual_seed(shape[1] * 5 + axis)
+    x = torch.rand(shape, generator=gen, device=cuda) * 2 - 0.5
+    name = "cumsum_rows" if axis == 0 else "cumsum_cols"
+    before = ck.launches[name]
+    got = ck.cumsum(x, axis)
+    assert ck.launches[name] == before + 1
+    assert torch.equal(got, pp.cumsum_sequential(x, axis))
+    assert pp.cumsum_error(pp.cumsum_plain(x, axis), x, axis) <= 1.0
+
+
+@pytest.mark.parametrize("neighbors", [4, 8])
+def test_tree_filter_on_cuda_repeats_and_equals_cpu(cuda, neighbors):
+    """No atomics: two runs on the card give the same bits, and the CPU's."""
+    from mystereomatching_tpu_torch.ops import mst, nl
+
+    pair = make_synthetic_pair(h=96, w=128, max_disp=15, seed=4)
+    tree_cpu = mst.build_tree(pair.left, neighbors=neighbors)
+    tree = mst.build_tree(pair.left, neighbors=neighbors, device=cuda)
+    vol = torch.rand((16, 96, 128), generator=torch.Generator().manual_seed(1)) * 30
+    for normalize in (False, True):
+        a = nl.filter_volume(tree, vol.to(cuda), 0.1, normalize)
+        b = nl.filter_volume(tree, vol.to(cuda), 0.1, normalize)
+        assert torch.equal(a, b)
+        assert torch.equal(a.cpu(), nl.filter_volume(tree_cpu, vol, 0.1, normalize))
+
+
+@pytest.mark.parametrize("preset", ["nl_tree_filter", "nl_8nr", "nl_post", "nl_census_post"])
+def test_nl_preset_on_cuda_equals_cpu(cuda, preset):
+    pair = make_synthetic_pair(h=64, w=96, max_disp=15, seed=3, noise_sigma=0.5)
+    cfg = get_model(preset, max_disp=pair.max_disp)
+    ck.reset_launches()
+    gpu = port.StereoPipeline(cfg, device=cuda)(pair.left, pair.right)
+    used = kernels_launched(cfg)
+    assert all((n > 0) == (k in used) for k, n in ck.launches.items()), ck.launches
+    cpu = port.StereoPipeline(cfg, device="cpu")(pair.left, pair.right)
+    assert set(gpu) == set(cpu)
+    for key in cpu:
+        assert torch.equal(gpu[key].cpu(), cpu[key]), key

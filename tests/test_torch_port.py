@@ -130,7 +130,8 @@ def test_preset_equals_jax(name):
 PORTED_FROM_THIS_LIST = [dict(do_refine=True, lrc_classify=True),
                          dict(do_refine=True, do_bg_ipol=True),
                          dict(do_refine=True, compute_both_volumes=False),
-                         dict(vol_dtype="bfloat16")]
+                         dict(vol_dtype="bfloat16"),
+                         dict(optimization="wta"), dict(aggregation="nl")]
 
 
 @pytest.mark.parametrize("overrides", [
@@ -152,8 +153,9 @@ PORTED_FROM_THIS_LIST = [dict(do_refine=True, lrc_classify=True),
 def test_unported_stage_raises(overrides):
     """A stage the port does not run raises NotImplementedError. The
     stages that ``fullres_occfill`` brought in (the classifying LR check,
-    the background fill, the cooperative WTA and bfloat16 volumes) were
-    cases of this list and now must be accepted, and a frame must run.
+    the background fill, the cooperative WTA and bfloat16 volumes) and
+    the NL presets (NL aggregation, WTA without SGM) were cases of this
+    list and now must be accepted, and a frame must run.
     Disparity streaming (``d_stream_block``) is ported too: its cases pair
     it with what it still cannot run with."""
     cfg = port.default_config(max_disp=7, **{"do_refine": False, **overrides})
