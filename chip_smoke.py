@@ -21,11 +21,13 @@ Phases, each of which raises (exit code 1) on failure:
    version exactly (``torch.equal``);
 4. slice: ``StereoPipeline(default_config(do_refine=False), "cuda")`` and
    then ``StereoPipeline(default_config(), "cuda")`` (refine on) on the
-   three golden scenes, each with the launch counts set to 0 just before
-   it. The left WTA map must match the reference binary's
-   (tests/golden/*_wta.bin) within the JAX package's budgets (0, 0, 2 px),
-   the refined map (tests/golden/*_final.bin) at 0 px on every scene, and
-   every kernel of each path must have launched;
+   three golden scenes and the adversarial one (``adv_small``:
+   ``make_adversarial_pair(h=144, w=192, max_disp=23, seed=3)``), each with
+   the launch counts set to 0 just before it. The left WTA map must match
+   the reference binary's (tests/golden/*_wta.bin) within the JAX package's
+   budgets (0, 0, 2 and 0 px), the refined map (tests/golden/*_final.bin)
+   at 0 px on every scene, and every kernel of each path must have
+   launched;
 5. sgm8_full: the preset ``get_model("sgm8_full", max_disp=127)`` on a
    750x1000 pair (Middlebury half resolution, D=128, left and right
    volumes). Kernel B's four launch kinds (sum along W, area along H, sum
@@ -121,12 +123,32 @@ Phases, each of which raises (exit code 1) on failure:
    bit for bit, ``torch.cumsum``'s within
    ``plane_probes.cumsum_tolerance`` of the float64 sum), with its bound
    and the time of ``torch.gather`` or ``torch.cumsum``;
-12. timing: ms/frame and MP*disp/s of the kernel path and of the same
+12. census: ``ad_census_wta`` and ``census_wta`` at 288x384, D=16, and
+   ``census_cbca_lrc`` at 375x450, D=64 (BASELINE configs 1 and 2 at
+   scripts/bench_suite.py:39-40's sizes, uncut), each on
+   ``make_synthetic_pair(seed=0)`` with the launch counts set to 0 just
+   before its frame: exactly the kernels of ``kernels_launched`` must
+   launch (D alone in the first two; A, B and D in census_cbca_lrc), its
+   maps must equal the card's plain path's, and census_wta's and
+   census_cbca_lrc's the CPU port's (ad_census_wta prints its count of
+   differing pixels); each frame's time, peak device memory and profile
+   (device time, idle share, launches a frame); then A, B (its four
+   launch kinds) and D at census_cbca_lrc's shapes against their plain
+   versions;
+13. SGM layouts: ``tools/sgm_layouts.py``'s probes (``csrc/sgm_probes.cu``:
+   ``sgm_probe_hdw``, ``sgm_probe_g``, ``sgm_probe_rolled`` in its kinds
+   copy, prev and full, ``sgm_probe_unrolled`` in copy and full) on
+   [G, H, D, W] = [4, 375, 60, 450] and [2, 750, 128, 1000], each equal to
+   its plain version and, in full, to kernel C's downward scan of the
+   transposed volume, bit for bit, with its bound, kernel C's time on the
+   same values, ``torch.mul``'s for copy, and each instance's registers
+   and spills;
+14. timing: ms/frame and MP*disp/s of the kernel path and of the same
    pipeline with every kernel replaced by its plain torch version, for the
    full default configuration and for ``do_refine=False``, in alternating
    rounds; the refine chain alone, kernel and plain; and the peak device
    memory of a frame;
-13. profile: ``torch.profiler`` over frames of the full default
+15. profile: ``torch.profiler`` over frames of the full default
    configuration: device time, idle share, launches per frame, the largest
    device kernels and each hand kernel's device time a launch.
 
@@ -144,7 +166,12 @@ of A, D, ``arm_reduce`` and ``pi_scan`` at the nl_tree_filter frame's
 shapes, with its launches; the probes ``gather_rows``, ``gather_cols``,
 ``cumsum_rows`` and ``cumsum_cols`` on micro4.py's plane and, as ``*_nl``,
 on the NL filter's rows, on no path, with the main path's launches, which
-must be 0, as must the NL frame's; ``ms_from`` says whether ``ms`` came
+must be 0, as must the NL frame's; the rows ``*_census`` of A, B and D at
+census_cbca_lrc's shapes, with its launches; the SGM-layout probes
+``sgm_probe_{hdw,g,rolled,unrolled}_{kind}`` on the scripts' shape and, as
+``*_sgm8``, on sgm8_full's, on no path, with the main path's launches,
+which must be 0, as must the census frame's, and kernel C's time on the
+same values as ``kernel_c_ms``; ``ms_from`` says whether ``ms`` came
 from the profiler or from CUDA events); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -164,7 +191,7 @@ import numpy as np
 import torch
 
 from mystereomatching_tpu_torch import StereoPipeline, default_config
-from mystereomatching_tpu_torch.data import make_synthetic_pair
+from mystereomatching_tpu_torch.data import make_adversarial_pair, make_synthetic_pair
 from mystereomatching_tpu_torch.models import get_model
 from mystereomatching_tpu_torch.ops import aggregation as agg_ops
 from mystereomatching_tpu_torch.ops import arms as arms_ops
@@ -188,11 +215,13 @@ GOLDEN = os.path.join(ROOT, "tests", "golden")
 TEDDY = dict(h=375, w=450, max_disp=59, seed=0)
 SGM8 = dict(h=750, w=1000, max_disp=127, seed=0)  # Middlebury half resolution, D=128
 FULLRES = (1988, 2880)  # the fullres_occfill shape (H, W)
-# scene -> (make_synthetic_pair arguments, WTA px budget of the JAX golden test)
+# scene -> (make_synthetic_pair, or with adversarial make_adversarial_pair,
+# arguments, WTA px budget of the JAX golden test, adversarial)
 SCENES = {
-    "small_scale": (dict(h=144, w=192, max_disp=23, seed=3), 0),
-    "tsukuba_scale": (dict(h=288, w=384, max_disp=15, seed=1), 0),
-    "teddy_scale": (TEDDY, 2),
+    "small_scale": (dict(h=144, w=192, max_disp=23, seed=3), 0, False),
+    "tsukuba_scale": (dict(h=288, w=384, max_disp=15, seed=1), 0, False),
+    "teddy_scale": (TEDDY, 2, False),
+    "adv_small": (dict(h=144, w=192, max_disp=23, seed=3), 0, True),
 }
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "arms_grow": ("mystereomatching_tpu_torch/csrc/arms_grow.cu",
@@ -271,6 +300,23 @@ NL_PROFILE_FRAMES = 2
 # kernels line rows at the nl_tree_filter frame's shapes -> the kernel
 NL_ROWS = {f"{name}_nl": name for name in ("arms_grow", "wta", "arm_reduce", "pi_scan")}
 PLANE_PROBES = "mystereomatching_tpu_torch/csrc/plane_probes.cu"
+SGM_PROBES = "mystereomatching_tpu_torch/csrc/sgm_probes.cu"
+# BASELINE configs 1 and 2 at the JAX bench suite's sizes
+# (scripts/bench_suite.py:39-40), uncut, and census_wta (config.fast_config)
+# at config 1's: preset -> make_synthetic_pair arguments
+CENSUS = {
+    "ad_census_wta": dict(h=288, w=384, max_disp=15, seed=0),
+    "census_wta": dict(h=288, w=384, max_disp=15, seed=0),
+    "census_cbca_lrc": dict(h=375, w=450, max_disp=63, seed=0),
+}
+# the census presets whose card maps must equal the CPU port's (integer
+# costs); ad_census_wta's exp fusion divides by constants, so its count of
+# differing pixels is printed
+CENSUS_EXACT = ("census_wta", "census_cbca_lrc")
+CENSUS_REPS = 10
+CENSUS_PROFILE_FRAMES = 3
+# kernels line rows at census_cbca_lrc's shapes -> the kernel
+CENSUS_ROWS = {f"{name}_census": name for name in ("arms_grow", "arm_taps", "wta")}
 ROW_BANDS_CHUNKS = 8
 ROW_BANDS_SGM8 = 3       # ranks: 250-row bands of the 750-row frame
 ROW_BANDS_OCCFILL = 4    # ranks: 250-row bands of frame A's 1000 rows
@@ -430,7 +476,8 @@ def phase_environment(card_line: str) -> None:
     print(f"devices: {torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}")
 
 
-def phase_build() -> None:
+def phase_build() -> str:
+    """Builds the kernels and prints nvcc's report; returns it."""
     t0 = time.perf_counter()
     log = ck.build()
     ck._load()
@@ -438,6 +485,7 @@ def phase_build() -> None:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  nvcc: {line.strip()}")
+    return log
 
 
 def pair_scales(left, right, cfg, dirs) -> dict:
@@ -753,10 +801,10 @@ def check_maps(name: str, out: dict, cfg, shape, dev) -> None:
 def run_scenes(dev, do_refine: bool):
     """The golden scenes through StereoPipeline, with the launch counts set
     to 0 just before and read just after."""
-    pairs = {name: make_synthetic_pair(name=name, **params)
-             for name, (params, _) in SCENES.items()}
+    pairs = {name: (make_adversarial_pair if adversarial else make_synthetic_pair)(
+        name=name, **params) for name, (params, _, adversarial) in SCENES.items()}
     cfgs = {name: default_config(max_disp=params["max_disp"], do_refine=do_refine)
-            for name, (params, _) in SCENES.items()}
+            for name, (params, _, _) in SCENES.items()}
     pipes = {name: StereoPipeline(cfg, device=dev) for name, cfg in cfgs.items()}
     torch.cuda.synchronize()
     ck.reset_launches()
@@ -770,7 +818,7 @@ def run_scenes(dev, do_refine: bool):
             raise AssertionError(f"{label}: {name} launched {counts[name]} times in "
                                  f"{len(pairs)} frames, not {want} a frame")
     for name, pair in pairs.items():
-        params, budget = SCENES[name]
+        params, budget, _ = SCENES[name]
         out = outs[name]
         check_maps(name, out, cfgs[name], (params["h"], params["w"]), dev)
         disp = out["disparity"]
@@ -1412,8 +1460,6 @@ def phase_nl(dev, card_line: str):
     nl_census_post on the golden scenes against the reference binary's maps,
     and nl_8nr once. Returns (the kernels line's rows, nl_tree_filter's
     launches)."""
-    from mystereomatching_tpu_torch.data import make_adversarial_pair
-
     pair = make_synthetic_pair(**TEDDY)
     left = torch.from_numpy(pair.left).to(dev, torch.float32)
     right = torch.from_numpy(pair.right).to(dev, torch.float32)
@@ -1494,6 +1540,132 @@ def phase_micro4(dev, card_line: str) -> dict:
         rows[name] = run_case(name, what, (kernel, plain, nbytes, nops), card_line, library,
                               check=check, kernel_name=name.removesuffix("_nl"))
     torch.cuda.empty_cache()
+    return rows
+
+
+def near_ties(label: str, out: dict, cpu: dict, left, right, cfg, most: int = 8) -> None:
+    """Where the left WTA map on the card differs from the CPU port's: each
+    pixel's two disparities and the CPU's costs there (an unaggregated
+    volume, built on the CPU)."""
+    got, want = out["disp_left_raw"].cpu(), cpu["disp_left_raw"]
+    where = torch.nonzero(got != want).tolist()
+    if not where:
+        return
+    vol = compute_volumes(left.cpu(), right.cpu(), cfg)[0][0]
+    for y, x in where[:most]:
+        a, b = int(want[y, x]), int(got[y, x])
+        print(f"{label}: pixel ({y}, {x}): the CPU port's disparity {a} costs "
+              f"{float(vol[a, y, x])!r}, the card's {b} costs {float(vol[b, y, x])!r} on the CPU")
+
+
+def census_frame(name: str, dev, card_line: str):
+    """One frame of a census preset at its bench-suite size, with the launch
+    counts set to 0 just before it: exactly the kernels of
+    ``kernels_launched`` must launch, and its maps must equal the card's
+    plain path's and (for ``CENSUS_EXACT``) the CPU port's. Then its bad-1.0
+    rate, peak device memory, frame time and a profile (device time, idle
+    share, launches a frame). Returns (maps, launches, left, right, cfg,
+    label)."""
+    params = CENSUS[name]
+    pair = make_synthetic_pair(**params)
+    left = torch.from_numpy(pair.left).to(dev, torch.float32)
+    right = torch.from_numpy(pair.right).to(dev, torch.float32)
+    cfg = get_model(name, max_disp=params["max_disp"])
+    shape = (params["h"], params["w"])
+    label = f"{name} {shape[0]}x{shape[1]} D={cfg.num_disp}"
+    pipe = StereoPipeline(cfg, device=dev)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    out = pipe(left, right)
+    torch.cuda.synchronize()
+    counts = dict(ck.launches)
+    launched = [k for k, n in counts.items() if n]
+    if launched != kernels_launched(cfg):
+        raise AssertionError(f"{label}: launched {launched}, not {kernels_launched(cfg)}")
+    for key, d in out.items():
+        want_dtype = torch.float32 if key == "disparity" else torch.int32
+        if d.shape != shape or d.dtype != want_dtype or not bool(torch.isfinite(d).all()):
+            raise AssertionError(f"{label} {key}: {d.dtype}{tuple(d.shape)}, or not finite")
+    with plain_path():
+        equal_maps(label, out, pipe(left, right), "the plain path on the card")
+    cpu = StereoPipeline(cfg, device="cpu")(left.cpu(), right.cpu())
+    differing = {key: int((out[key].cpu() != cpu[key]).sum()) for key in cpu}
+    if name in CENSUS_EXACT:
+        equal_maps(label, out, cpu, "the CPU port")
+    else:
+        near_ties(label, out, cpu, left, right, cfg)
+    bad1 = bad_pixel_rate(out["disparity"], torch.from_numpy(pair.gt).to(dev),
+                          torch.from_numpy(pair.masks["nonocc"]).to(dev))
+    print(f"{label}: launches {json.dumps({k: n for k, n in counts.items() if n})}, exactly "
+          f"kernels_launched; maps equal to the plain path on the card; pixels differing from "
+          f"the CPU port {json.dumps(differing)}; bad-1.0 nonocc {bad1:.6f}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    q1, med, q3 = frame_ms(pipe, left, right, CENSUS_REPS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    mp_disp = shape[0] * shape[1] * cfg.num_disp / 1e6
+    print(f"timing {label}, kernel path: median {med:.3f} ms/frame (quartiles {q1:.3f}-"
+          f"{q3:.3f}, n={CENSUS_REPS}), {mp_disp / med * 1e3:.3f} MP*disp/s; peak device "
+          f"memory {peak / 2**20:.1f} MiB [{card_line}]")
+    profile_frames(pipe, left, right, label, card_line, CENSUS_PROFILE_FRAMES, warm_up=1)
+    return out, counts, left, right, cfg, label
+
+
+def phase_census(dev, card_line: str):
+    """The census cost family's presets: ad_census_wta and census_wta at
+    288x384, D=16, and census_cbca_lrc at 375x450, D=64 (each a
+    :func:`census_frame`), then A, B and D at census_cbca_lrc's shapes on
+    its inputs. Returns (the kernels line's rows, census_cbca_lrc's
+    launches)."""
+    for name in ("ad_census_wta", "census_wta"):
+        census_frame(name, dev, card_line)
+    _, counts, left, right, cfg, label = census_frame("census_cbca_lrc", dev, card_line)
+    with plain_path():
+        vols, arms_pair = compute_volumes(left, right, cfg)
+    vols = [vols[lor].contiguous() for lor in (0, 1)]
+    hw = left.shape[0] * left.shape[1]
+    rows = {
+        "arms_grow_census": run_case(
+            "arms_grow_census", f"{label}: arms of the left image",
+            arms_grow_case(left, arms_pair[0], cfg), card_line, kernel_name="arms_grow"),
+        "arm_taps_census": arm_taps_frame(left, right, cfg, label, card_line),
+        "wta_census": run_case(
+            "wta_census", f"{label}: the frame's two CBCA volumes {list(vols[0].shape)}",
+            (lambda: tuple(ck.wta(v) for v in vols),
+             lambda: tuple(wta_ops.wta_plain(v) for v in vols),
+             2 * (vols[0].numel() * 4 + hw * 4), 2 * vols[0].numel()),
+            card_line, lambda: [torch.argmin(v, 0) for v in vols], kernel_name="wta"),
+    }
+    del vols
+    torch.cuda.empty_cache()
+    return rows, counts
+
+
+def phase_sgm_layouts(dev, card_line: str, build_log: str) -> dict:
+    """The SGM-layout probes (tools/sgm_layouts.py) at the scripts' [4, 375,
+    60, 450] and sgm8_full's scan [2, 750, 128, 1000]: each kernel against
+    its plain version and, in full, kernel C's downward scan on the same
+    values (bit for bit), with its bound, kernel C's device time on the
+    [G, D, H, W] transpose, the HDW kernel's time with its two transposes,
+    and for copy ``torch.mul``'s; then each instance's registers and
+    spills. Returns the kernels line's rows."""
+    from tools import sgm_layouts
+
+    rows = {}
+    for suffix in sgm_layouts.SHAPES:
+        vol, ps, vol_t, _, cases = sgm_layouts.shape_cases(suffix, dev)
+        c_ms, c_from = device_ms(lambda: sgm_layouts.kernel_c(vol_t, ps), "sgm_scan")
+        print(f"kernel sgm_scan, the probes' values as [G, D, H, W] {list(vol_t.shape)}, "
+              f"downward: {c_ms:.4f} ms device ({c_from}) [{card_line}]")
+        print(f"sgm_probe_hdw with the two transposes around it, {list(vol_t.shape)}: "
+              f"{sgm_layouts.transposed_hdw_ms(vol_t, ps):.4f} ms between events [{card_line}]")
+        for name, entry, _, what, kernel, plain, library, check, nbytes, nops in cases:
+            rows[name] = run_case(name, what, (kernel, plain, nbytes, nops), card_line, library,
+                                  check=check, kernel_name=entry)
+            rows[name]["kernel_c_ms"] = c_ms
+        del vol, ps, vol_t, cases
+        torch.cuda.empty_cache()
+    sgm_layouts.print_registers(build_log, card_line)
     return rows
 
 
@@ -1827,12 +1999,12 @@ def timed(phase, *args):
 
 
 def main() -> int:
-    from tools import micro4
+    from tools import micro4, sgm_layouts
 
     card_line = card() if torch.cuda.is_available() else "no card"
     phase_environment(card_line)
     dev = torch.device("cuda", 0)
-    timed(phase_build)
+    build_log = timed(phase_build)
     rows = timed(phase_kernels, dev, card_line)
     counts = timed(phase_slice, dev)
     # the rows and launches of kernels B, C and E are those of the sgm8_full
@@ -1846,6 +2018,8 @@ def main() -> int:
     copy_row = timed(phase_copy_bw, dev, card_line)
     nl_rows, nl_counts = timed(phase_nl, dev, card_line)
     probe_rows = timed(phase_micro4, dev, card_line)
+    census_rows, census_counts = timed(phase_census, dev, card_line)
+    layout_rows = timed(phase_sgm_layouts, dev, card_line, build_log)
     timed(phase_timing, dev, card_line)
     timed(phase_profile, dev, card_line)
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
@@ -1882,6 +2056,19 @@ def main() -> int:
         kernels += [dict(name=row, route="cuda", source=PLANE_PROBES, replaces=tpu,
                          launches=counts[name], **probe_rows[row])
                     for row in (name, f"{name}_nl")]
+    # A, B and D at census_cbca_lrc's shapes, with its launches
+    kernels += [dict(name=row, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
+                     launches=census_counts[name], **census_rows[row])
+                for row, name in CENSUS_ROWS.items()]
+    # the SGM-layout probes, on no path: the main path's counts, and the
+    # census frame's, must be 0
+    for (entry, kind), tpu in sgm_layouts.PROBES.items():
+        if counts[entry] or census_counts[entry]:
+            raise AssertionError(f"{entry} launched on the main path or the census frame")
+        kernels += [dict(name=f"{entry}_{kind}{suffix}", route="cuda", source=SGM_PROBES,
+                         replaces=tpu, launches=counts[entry],
+                         **layout_rows[f"{entry}_{kind}{suffix}"])
+                    for suffix in sgm_layouts.SHAPES]
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,7 +15,9 @@ three presets also run split into row bands over several processes and
 cards (``parallel.run_row_bands``, float32 volumes). The NL presets
 ``nl_tree_filter``, ``nl_8nr``, ``nl_post`` and ``nl_census_post`` run
 with the image's MST built on the host (``native/``, a C++ runtime built
-at first use) and the tree filter on the device.
+at first use) and the tree filter on the device. BASELINE configs 1-2,
+``ad_census_wta`` and ``census_cbca_lrc``, and ``census_wta`` run the
+census cost family (any ``census_func``) with no aggregation or CBCA.
 """
 
 from mystereomatching_tpu_torch.config import MatchConfig, default_config

@@ -1,9 +1,13 @@
-"""Census transforms (default censusFunc=3, and the NL path's 80-bit
-code) and their Hamming cost volume.
+"""Census transforms (the six ``censusFunc`` codes and the NL path's
+80-bit code) and their Hamming cost volume.
 
-Counterpart of ``mystereomatching_tpu/ops/census.py`` (``_census_bits_ncsur``,
-``census_code_ncsur``, ``census_code_qx80``, ``hamming_volume``). Bit
-semantics are the same. The default code:
+Counterpart of ``mystereomatching_tpu/ops/census.py`` (``_window_bits``
+and ``_census_bits_ncsur``, both :func:`census_bits_ncsur`;
+``census_code_ncsur``, ``census_code_classic``, ``census_code_symmetric``,
+``_neigh_c1_pairs``, ``_neigh_c2_pairs``, ``_pair_code``,
+``census_code_neighbor``, ``neigh_code_length``, ``census_code_mean``,
+``census_code_qx80``, ``hamming_volume``). Bit
+semantics are the same. The default code (censusFunc=3):
 window bits ``center < neighbor`` over the (2rv+1)x(2ru+1) window in row
 order, then 8 surround-ring pair bits ``I[p+s_i] < I[p+s_{i+1}]``, with
 reflect-101 borders.
@@ -36,19 +40,30 @@ def _reflect_pad(gray: torch.Tensor, rv: int, ru: int) -> torch.Tensor:
                  mode="reflect")[0, 0]
 
 
-def census_bits_ncsur(gray: torch.Tensor, rv: int = 3, ru: int = 4) -> List[torch.Tensor]:
-    """The (2rv+1)(2ru+1) + 8 census bit planes, [H, W] bool each."""
+def _offsets_classic(rv: int, ru: int):
+    return [(dv, du) for dv in range(-rv, rv + 1) for du in range(-ru, ru + 1)]
+
+
+def _shifted(gray: torch.Tensor, rv: int, ru: int):
+    """``at(dv, du)``: the int32 [H, W] plane of I(p + (dv, du)), |dv| <= rv,
+    |du| <= ru, reflect-101 extended. The pad is taken on exact integers
+    (float32 holds every gray level) and cast back before any compare."""
     h, w = gray.shape
-    g = gray.to(torch.int32)
     pad = _reflect_pad(gray, rv, ru).to(torch.int32)
+    return lambda dv, du: pad[rv + dv: rv + dv + h, ru + du: ru + du + w]
 
-    def at(dv, du):
-        return pad[rv + dv: rv + dv + h, ru + du: ru + du + w]
 
-    bits = [g < at(dv, du)
-            for dv in range(-rv, rv + 1) for du in range(-ru, ru + 1)]
-    for i in range(8):
-        bits.append(at(_SUR_DV[i], _SUR_DU[i]) < at(_SUR_DV[i + 1], _SUR_DU[i + 1]))
+def census_bits_ncsur(gray: torch.Tensor, rv: int = 3, ru: int = 4,
+                      surround: bool = True) -> List[torch.Tensor]:
+    """The (2rv+1)(2ru+1) classic window bits ``center < neighbor`` in row
+    order, then (``surround``) the 8 surround-ring pair bits, [H, W] bool
+    each."""
+    g = gray.to(torch.int32)
+    at = _shifted(gray, rv, ru)
+    bits = [g < at(dv, du) for dv, du in _offsets_classic(rv, ru)]
+    if surround:
+        bits += [at(_SUR_DV[i], _SUR_DU[i]) < at(_SUR_DV[i + 1], _SUR_DU[i + 1])
+                 for i in range(8)]
     return bits
 
 
@@ -67,6 +82,114 @@ def pack_bits(bits: List[torch.Tensor]) -> torch.Tensor:
 def census_code_ncsur(gray: torch.Tensor, rv: int = 3, ru: int = 4) -> torch.Tensor:
     """Packed default census code, [n_words, H, W] int64."""
     return pack_bits(census_bits_ncsur(gray, rv, ru))
+
+
+def census_code_classic(gray: torch.Tensor, rv: int, ru: int) -> torch.Tensor:
+    """Classic window-compare census (censusFunc=0, genCensusCode h:634-688)."""
+    return pack_bits(census_bits_ncsur(gray, rv, ru, surround=False))
+
+
+def census_code_symmetric(gray: torch.Tensor, rv: int, ru: int) -> torch.Tensor:
+    """Symmetric census (censusFunc=4, genSymCensus h:1174-1208): over the
+    full window, bit = I(p+o) <= I(p-o) (non-strict; the centre bit is
+    always 1). Pixels within the rv/ru border band keep an all-zero code, as
+    the reference skips them."""
+    h, w = gray.shape
+    at = _shifted(gray, rv, ru)
+    code = pack_bits([at(dv, du) <= at(-dv, -du) for dv, du in _offsets_classic(rv, ru)])
+    v = torch.arange(h, device=gray.device)[:, None]
+    u = torch.arange(w, device=gray.device)[None, :]
+    inner = (v >= rv) & (v < h - rv) & (u >= ru) & (u < w - ru)
+    return torch.where(inner[None], code, torch.zeros_like(code))
+
+
+def _neigh_c1_pairs(rv: int, ru: int):
+    """Pair offsets of genCensusCode_neighC1 (h:691-791): clockwise ring
+    walks comparing consecutive ring pixels, min(rv, ru) rings deep, then a
+    horizontal remainder row. The remainder keeps the reference's quirk: it
+    indexes the padded image without re-adding the (rv, ru) offset
+    (h:769-784), so it compares pixels of row -rv at columns du - ru; its
+    read one column left of the buffer at the left edge is taken from the
+    reflect-101 extension."""
+    pairs = []
+    loop_num = min(rv, ru)
+    for i in range(loop_num):
+        vpos, upos = -(rv - i), -(ru - i)
+        for loop_ in range(4):
+            if loop_ % 2 == 0:
+                cof = -1 if upos > 0 else 1
+                du = upos
+                while du != -upos:
+                    pairs.append(((vpos, du), (vpos, du + cof)))
+                    du += cof
+                upos = -upos
+            else:
+                cof = -1 if vpos > 0 else 1
+                dv = vpos
+                while dv != -vpos:
+                    pairs.append(((dv, upos), (dv + cof, upos)))
+                    dv += cof
+                vpos = -vpos
+    urem = ru - loop_num
+    for du in range(-urem, urem):
+        pairs.append(((-rv, du - ru), (-rv, du + 1 - ru)))
+    return pairs
+
+
+def _neigh_c2_pairs(rv: int, ru: int):
+    """Pair offsets of genCensusCode_neighC2 (h:793-864): a serpentine scan
+    of the window comparing consecutive samples along the path, the
+    vertical hop between rows included."""
+    pairs = []
+    u_start, u_end = -ru, ru
+    cof = 1
+    for dv in range(-rv, rv + 1):
+        u_ = u_start
+        while u_ != u_end:
+            pairs.append(((dv, u_), (dv, u_ + cof)))
+            u_ += cof
+        if dv < rv:
+            pairs.append(((dv, u_end), (dv + 1, u_end)))
+        u_start, u_end, cof = u_end, u_start, -cof
+    return pairs
+
+
+def _pair_code(gray: torch.Tensor, pairs) -> torch.Tensor:
+    """bit = I(p+a) < I(p+b) for each (a, b) offset pair, reflect-101
+    extended as far as the pairs reach."""
+    pv = max(max(abs(a[0]), abs(b[0])) for a, b in pairs)
+    pu = max(max(abs(a[1]), abs(b[1])) for a, b in pairs)
+    at = _shifted(gray, pv, pu)
+    return pack_bits([at(*a) < at(*b) for a, b in pairs])
+
+
+def census_code_neighbor(gray: torch.Tensor, rv: int, ru: int,
+                         variant: int = 1) -> torch.Tensor:
+    """Neighbour-compare census (censusFunc=1: the ring walk, neighC1; 2:
+    the serpentine, neighC2): each bit compares consecutive pixels of the
+    walk instead of a pixel with the centre."""
+    return _pair_code(gray, _neigh_c1_pairs(rv, ru) if variant == 1 else _neigh_c2_pairs(rv, ru))
+
+
+def neigh_code_length(rv: int, ru: int, variant: int) -> int:
+    return len(_neigh_c1_pairs(rv, ru) if variant == 1 else _neigh_c2_pairs(rv, ru))
+
+
+def census_code_mean(gray: torch.Tensor, rv: int, ru: int) -> torch.Tensor:
+    """Mean census (censusFunc=5, genCensus cpp:5309-5351): each window
+    pixel against the window's integer mean, bit = mean < neighbour. As the
+    reference, the mean is taken over the window centred at (v+rv, u+ru),
+    shifted down and right, reads past the image taken from the reflect-101
+    extension, and floored: ``ssum // area`` on the exact int32 sum of the
+    non-negative gray levels."""
+    h, w = gray.shape
+    at2 = _shifted(gray, 2 * rv, 2 * ru)
+    ssum = torch.zeros((h, w), dtype=torch.int32, device=gray.device)
+    for dv, du in _offsets_classic(rv, ru):
+        ssum = ssum + at2(rv + dv, ru + du)
+    mean = ssum // ((2 * rv + 1) * (2 * ru + 1))
+    at = _shifted(gray, rv, ru)
+    return pack_bits([mean < at(dv, du) for dv, du in _offsets_classic(rv, ru)])
 
 
 def census_code_qx80(rgb: torch.Tensor) -> torch.Tensor:
@@ -115,7 +238,9 @@ def hamming_volume(code_left: torch.Tensor, code_right: torch.Tensor,
     cost = torch.clamp(ham, max=default)
     fill = default
     if normalize:
-        cost = cost / default
+        # a 0-dim divisor: a CUDA tensor divided by a Python number is
+        # multiplied by its reciprocal, which rounds otherwise than the CPU
+        cost = cost / torch.full((), default, dtype=cost.dtype, device=cost.device)
         fill = 1.0
     mask = valid_mask(code_left.shape[-1], num_disp, lor, cost.device, disps)
     return torch.where(mask, cost, torch.tensor(fill, dtype=cost.dtype,

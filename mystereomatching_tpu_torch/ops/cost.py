@@ -1,10 +1,11 @@
 """Matching cost (L1): the [D, H, W] cost volumes of the ported costs.
 
-Counterpart of the ``census_grad``, ``ad_grad``, ``qx_ad_grad`` and
-``qx_census`` branches of ``mystereomatching_tpu/ops/cost.py``
-(``central_gradient``, ``grad_volume``, ``ad_volume``, ``exp_fuse2``,
-``fix_weight_fuse``, ``_qx_gray``, ``_qx_gradient``,
-``qx_ad_grad_volume``, ``compute_cost_volume``, ``block_cost_builder``).
+Counterpart of the ``census``, ``census_grad``, ``ad_grad``,
+``ad_census``, ``qx_ad_grad`` and ``qx_census`` branches of
+``mystereomatching_tpu/ops/cost.py`` (``central_gradient``,
+``grad_volume``, ``ad_volume``, ``exp_fuse2``, ``fix_weight_fuse``,
+``_qx_gray``, ``_qx_gradient``, ``qx_ad_grad_volume``,
+``_census_code_fn``, ``compute_cost_volume``, ``block_cost_builder``).
 Images are float32 in [0, 255]; off-image entries take each cost's
 default. A division by a constant divides by a 0-dim tensor on the data's
 device (:func:`_div`): a CUDA tensor divided by a Python number is
@@ -141,14 +142,34 @@ def exp_fuse2(vm0: torch.Tensor, vm1: torch.Tensor, lam0: float,
     return 2.0 - torch.exp(-vm0 / lam0) - torch.exp(-vm1 / lam1)
 
 
+def _census_code_fn(func: int, rv: int, ru: int):
+    """censusFunc (h:244) -> (code builder, code length in bits): 0
+    classic, 1 and 2 the neighbour walks, 3 classic + 8 surround pairs
+    (the default), 4 symmetric, 5 mean census."""
+    win = (2 * rv + 1) * (2 * ru + 1)
+    return {
+        0: (lambda g: census_ops.census_code_classic(g, rv, ru), win),
+        1: (lambda g: census_ops.census_code_neighbor(g, rv, ru, 1),
+            census_ops.neigh_code_length(rv, ru, 1)),
+        2: (lambda g: census_ops.census_code_neighbor(g, rv, ru, 2),
+            census_ops.neigh_code_length(rv, ru, 2)),
+        3: (lambda g: census_ops.census_code_ncsur(g, rv, ru), win + 8),
+        4: (lambda g: census_ops.census_code_symmetric(g, rv, ru), win),
+        5: (lambda g: census_ops.census_code_mean(g, rv, ru), win),
+    }[func]
+
+
 def compute_cost_volume(left: torch.Tensor, right: torch.Tensor,
                         gray_l: torch.Tensor, gray_r: torch.Tensor, cfg,
                         lor: int, arms: Optional[torch.Tensor] = None,
                         grad_y_pair=None) -> torch.Tensor:
     """The cost volume of ``cfg.cost`` (costCalculate, cpp:945-1021):
+    ``census`` (the Hamming volume of the ``census_func`` code),
     ``census_grad`` (cpp:25-48, exp fusion of the census Hamming volume and
     the gradient volume), ``ad_grad`` (cpp:50-70, AD truncated at
-    ``ad_trunc`` and the gradient truncated at 2, weighted 0.11 / 0.89), or
+    ``ad_trunc`` and the gradient truncated at 2, weighted 0.11 / 0.89),
+    ``ad_census`` (cpp:5250-5277, exp fusion of census, lambda 30, and
+    untruncated AD, lambda 10), or
     the NL flow's ``qx_ad_grad`` (left volume only, as in the JAX package)
     and ``qx_census`` (the 80-bit 9x9 census). ``grad_y_pair`` goes to
     :func:`grad_volume`."""
@@ -173,34 +194,42 @@ def block_cost_builder(left: torch.Tensor, right: torch.Tensor,
     """The disparity-streaming form of :func:`compute_cost_volume`: returns
     ``block(ds) -> [Db, H, W]`` float32, the cost of the disparities in the
     int [Db] index ``ds`` (None: all of them), each plane the dense
-    volume's bit for bit, for ``census_grad`` and ``ad_grad``. The two
-    census codes, which do not depend on the disparity, are computed once,
-    here. Every other cost raises NotImplementedError naming it."""
-    if cfg.cost not in ("census_grad", "ad_grad"):
+    volume's bit for bit, for ``census``, ``census_grad``, ``ad_grad`` and
+    ``ad_census``. The two census codes, which do not depend on the
+    disparity, are computed once, here. Every other cost raises
+    NotImplementedError naming it."""
+    if cfg.cost not in ("census", "census_grad", "ad_grad", "ad_census"):
         raise NotImplementedError(f"cost {cfg.cost!r} has no block form in this package")
-    if not (cfg.grad_use_2dir and cfg.grad_fuse_adaptive):
+    if cfg.cost in ("census_grad", "ad_grad") and not (
+            cfg.grad_use_2dir and cfg.grad_fuse_adaptive):
         raise NotImplementedError(
             "only the two-direction arm-adaptive gradient cost is ported")
+    nd = cfg.num_disp
     if cfg.cost == "ad_grad":
         def ad_grad_block(ds) -> torch.Tensor:
-            advm = ad_volume(left, right, cfg.num_disp, lor, trunc=cfg.ad_trunc, disps=ds)
-            gvm = grad_volume(gray_l, gray_r, cfg.num_disp, lor, 2.0, arms, grad_y_pair, ds)
+            advm = ad_volume(left, right, nd, lor, trunc=cfg.ad_trunc, disps=ds)
+            gvm = grad_volume(gray_l, gray_r, nd, lor, 2.0, arms, grad_y_pair, ds)
             return fix_weight_fuse(advm, 0.11, gvm, 0.89)
 
         return ad_grad_block
-    if cfg.census_func != 3:
-        raise NotImplementedError(
-            f"census_func={cfg.census_func} is not ported yet")
-    rv, ru = cfg.census_rv, cfg.census_ru
-    code_l = census_ops.census_code_ncsur(gray_l, rv, ru)
-    code_r = census_ops.census_code_ncsur(gray_r, rv, ru)
-    n_bits = census_ops.ncsur_code_length(rv, ru)
+    code_fn, n_bits = _census_code_fn(cfg.census_func, cfg.census_rv, cfg.census_ru)
+    code_l, code_r = code_fn(gray_l), code_fn(gray_r)
 
-    def block(ds) -> torch.Tensor:
-        census = census_ops.hamming_volume(code_l, code_r, cfg.num_disp, lor, n_bits,
-                                           cfg.census_trunc_ratio, cfg.is_census_norm, ds)
-        grad = grad_volume(gray_l, gray_r, cfg.num_disp, lor, cfg.grad_trunc, arms,
-                           grad_y_pair, ds)
-        return exp_fuse2(census, grad, cfg.lam_cen, cfg.lam_g)
+    def census(ds) -> torch.Tensor:
+        return census_ops.hamming_volume(code_l, code_r, nd, lor, n_bits,
+                                         cfg.census_trunc_ratio, cfg.is_census_norm, ds)
 
-    return block
+    if cfg.cost == "census":
+        return census
+    if cfg.cost == "ad_census":
+        def ad_census_block(ds) -> torch.Tensor:
+            return exp_fuse2(census(ds), ad_volume(left, right, nd, lor, trunc=1e9, disps=ds),
+                             30.0, 10.0)
+
+        return ad_census_block
+
+    def census_grad_block(ds) -> torch.Tensor:
+        grad = grad_volume(gray_l, gray_r, nd, lor, cfg.grad_trunc, arms, grad_y_pair, ds)
+        return exp_fuse2(census(ds), grad, cfg.lam_cen, cfg.lam_g)
+
+    return census_grad_block

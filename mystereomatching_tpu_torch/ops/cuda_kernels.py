@@ -17,9 +17,11 @@ Kernels B, C, D and E take float32 or bfloat16 volumes (the JAX package's
 any other dtype. Kernel C's scan along H with a carried-in row or an
 in-image mask, which the row-band pipeline runs, has entry points of its
 own too (``mysm_sgm_scan_ext``) and is counted apart, as ``sgm_scan_ext``.
-``copy_bw`` (``csrc/copy_bw.cu``) and the gather and prefix-sum probes
+``copy_bw`` (``csrc/copy_bw.cu``), the gather and prefix-sum probes
 ``gather_rows``, ``gather_cols``, ``cumsum_rows`` and ``cumsum_cols``
-(``csrc/plane_probes.cu``) are on no pipeline path.
+(``csrc/plane_probes.cu``) and the SGM-layout probes ``sgm_probe_hdw``,
+``sgm_probe_g``, ``sgm_probe_rolled`` and ``sgm_probe_unrolled``
+(``csrc/sgm_probes.cu``) are on no pipeline path.
 """
 
 from __future__ import annotations
@@ -43,12 +45,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # launches of each kernel since the last reset_launches(), of either dtype
 launches = {"arms_grow": 0, "arm_taps": 0, "sgm_scan": 0, "wta": 0,
             "arm_reduce": 0, "pi_scan": 0, "sgm_diag": 0, "sgm_scan_ext": 0, "copy_bw": 0,
-            "gather_rows": 0, "gather_cols": 0, "cumsum_rows": 0, "cumsum_cols": 0}
+            "gather_rows": 0, "gather_cols": 0, "cumsum_rows": 0, "cumsum_cols": 0,
+            "sgm_probe_hdw": 0, "sgm_probe_g": 0, "sgm_probe_rolled": 0, "sgm_probe_unrolled": 0}
 # of those, the launches of the bfloat16 instances of kernels B, C, D and E
 launches_bf16 = {"arm_taps": 0, "sgm_scan": 0, "wta": 0, "sgm_diag": 0, "sgm_scan_ext": 0}
 # of those, kernel C's launches with an in-image mask, and of these the bfloat16 ones
 launches_masked = {"sgm_scan_ext": 0, "sgm_scan_ext_bf16": 0}
 REDUCE_OPS = {"sum": 0, "min": 1, "max": 2}
+# the SGM-layout probes: entry point -> (its index, the kinds it takes)
+SGM_PROBES = {"sgm_probe_hdw": (0, ("full",)), "sgm_probe_g": (1, ("full",)),
+              "sgm_probe_rolled": (2, ("copy", "prev", "full")),
+              "sgm_probe_unrolled": (3, ("copy", "full"))}
+SGM_PROBE_KINDS = {"copy": 0, "prev": 1, "full": 2}
+SGM_PROBE_MAX_G = 4  # volumes in one block of the g, rolled and unrolled probes
+SGM_PROBE_P1, SGM_PROBE_P2 = 1.0, 3.0  # the TPU probes' penalties
+FLT_MAX = float(torch.finfo(torch.float32).max)
 
 _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
@@ -68,6 +79,7 @@ _SIGNATURES = {
     "mysm_gather_rows": [_P, _P, _P, _I, _L, _I, _P],
     "mysm_gather_cols": [_P, _P, _P, _I, _L, _I, _P],
     "mysm_cumsum": [_P, _P, _L, _I, _I, _P],
+    "mysm_sgm_probe": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
 }
 # the bfloat16 entry points of kernels B, C, D and E: the float32 ones' arguments
 _BF16 = ("mysm_arm_taps", "mysm_sgm_scan", "mysm_wta", "mysm_sgm_diag", "mysm_sgm_scan_ext")
@@ -429,3 +441,54 @@ def cumsum(x: torch.Tensor, axis: int) -> torch.Tensor:
         _launch("cumsum_rows" if axis == 0 else "cumsum_cols", lib.mysm_cumsum, x.data_ptr(),
                 out.data_ptr(), x.shape[0], x.shape[1], int(axis == 0))
     return out
+
+
+def _sgm_probe(name: str, vol: torch.Tensor, ps: torch.Tensor, kind: str,
+               edge: float) -> torch.Tensor:
+    entry, kinds = SGM_PROBES[name]
+    if kind not in kinds:
+        raise ValueError(f"{name}: kind {kind!r} not one of {kinds}")
+    if vol.ndim != 4:
+        raise ValueError(f"{name}: expected vol [G, H, D, W], got {tuple(vol.shape)}")
+    g, h, d, w = vol.shape
+    gb = 1 if name == "sgm_probe_hdw" else g  # volumes a block
+    if d > 256 or gb > SGM_PROBE_MAX_G or (kind == "full" and 256 * (d + 8) * gb > 227 * 1024):
+        raise ValueError(f"{name}: D={d} must be at most 256, G={g} at most "
+                         f"{SGM_PROBE_MAX_G} outside hdw, and 256 (D + 8) G bytes of shared "
+                         "memory at most 227 KB in full")
+    _check(vol, f"{name} vol", torch.float32)
+    _check(ps, f"{name} ps", torch.float32, (g, h, w), vol.device)
+    lib = _load()
+    with torch.cuda.device(vol.device):
+        out = torch.empty_like(vol)
+        _launch(name, lib.mysm_sgm_probe, vol.data_ptr(), ps.data_ptr(), out.data_ptr(), g, d,
+                h, w, entry, SGM_PROBE_KINDS[kind], SGM_PROBE_P1, SGM_PROBE_P2, float(edge))
+    return out
+
+
+def sgm_probe_hdw(vol: torch.Tensor, ps: torch.Tensor) -> torch.Tensor:
+    """The SGM scan down H of float32 vol [G, H, D, W] (D <= 256) with
+    penalty scales ps [G, H, W], p1 = 1 and p2 = 3, a block a volume's tile
+    of 32 columns (``check_sgm3.py``'s ``kern_hdw``; the edge beyond D is
+    FLT_MAX)."""
+    return _sgm_probe("sgm_probe_hdw", vol, ps, "full", FLT_MAX)
+
+
+def sgm_probe_g(vol: torch.Tensor, ps: torch.Tensor) -> torch.Tensor:
+    """The same scan with all G <= 4 volumes' tile of 32 columns in one
+    block (``check_sgm4.py``'s ``kern_g``)."""
+    return _sgm_probe("sgm_probe_g", vol, ps, "full", FLT_MAX)
+
+
+def sgm_probe_rolled(vol: torch.Tensor, ps: torch.Tensor, kind: str) -> torch.Tensor:
+    """``check_sgm5.py``'s ``make(kind)``, G <= 4 in a block, the row loop
+    rolled: ``copy`` vol * 1.01, ``prev`` the running c + 0.5 prev, or
+    ``full`` the scan with p1 = 1, p2 = 3 and the edge 3.4e38."""
+    return _sgm_probe("sgm_probe_rolled", vol, ps, kind, 3.4e38)
+
+
+def sgm_probe_unrolled(vol: torch.Tensor, ps: torch.Tensor, kind: str) -> torch.Tensor:
+    """``check_sgm5.py``'s ``make_unrolled(kind)``: as
+    :func:`sgm_probe_rolled` (``copy`` or ``full``), the row loop unrolled
+    8 rows a step at compile time."""
+    return _sgm_probe("sgm_probe_unrolled", vol, ps, kind, 3.4e38)

@@ -1,11 +1,12 @@
 """End-to-end stereo pipeline: cost -> aggregation -> optimization -> refine.
 
 Counterpart of ``mystereomatching_tpu/pipeline.py`` for the stages ported
-so far. Costs: the default censusGrad, ``ad_grad`` and the NL flow's
-``qx_ad_grad`` and ``qx_census``. Aggregation: cross arms and CBCA, in
-float32 or bfloat16 volumes, whole or streamed over blocks of
-``d_stream_block`` disparities; or the NL tree filter on the image's MST,
-built on the host. Optimization: 4- or 8-path SGM, or none, then WTA on the
+so far. Costs: the default censusGrad, ``census`` (any ``census_func``),
+``ad_census``, ``ad_grad`` and the NL flow's ``qx_ad_grad`` and
+``qx_census``. Aggregation: cross arms and CBCA, or none, in float32 or
+bfloat16 volumes, whole or streamed over blocks of ``d_stream_block``
+disparities; or the NL tree filter on the image's MST, built on the host.
+Optimization: 4- or 8-path SGM, or none, then WTA on the
 left and right volumes, or the cooperative WTA of the left volume alone,
 and the uniqueness check. Refinement: LR check (plain or classifying),
 region vote, proper interpolation, the background fill, and either the
@@ -13,7 +14,8 @@ median or subpixel enhancement with its median, and the decision-time
 subpixel (``sub_ipol``). And the standalone qx NL flow
 (``nl_post_process``, ``ops/nl.nl_disparity``), which owns its decision and
 refinement. That covers the presets ``census_grad_cbca_sgm`` (with or
-without ``do_refine``), ``sgm8_full``, ``fullres_occfill`` (with its
+without ``do_refine``), ``ad_census_wta``, ``census_wta``,
+``census_cbca_lrc``, ``sgm8_full``, ``fullres_occfill`` (with its
 bfloat16 cooperative variant and its disparity streaming),
 ``nl_tree_filter``, ``nl_8nr``, ``nl_post`` and ``nl_census_post``. A
 configuration that needs any other stage raises ``NotImplementedError``
@@ -55,8 +57,9 @@ def to_gray(img: torch.Tensor) -> torch.Tensor:
 
 
 VOL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-COSTS = ("census_grad", "ad_grad", "qx_ad_grad", "qx_census")
-BLOCK_COSTS = ("census_grad", "ad_grad")  # the costs of cost_ops.block_cost_builder
+COSTS = ("census_grad", "ad_grad", "census", "ad_census", "qx_ad_grad", "qx_census")
+# the costs of cost_ops.block_cost_builder, which CBCA and no aggregation build on
+BLOCK_COSTS = ("census_grad", "ad_grad", "census", "ad_census")
 
 
 def _needs_arms_for_cost(cfg: MatchConfig) -> bool:
@@ -89,11 +92,13 @@ def check_supported(cfg: MatchConfig) -> None:
         (refining and cfg.do_da, "do_da"),
         (refining and cfg.do_rv_whole_image, "do_rv_whole_image"),
         (cfg.cost not in COSTS, f"cost {cfg.cost!r}"),
-        (cfg.aggregation == "cbca" and cfg.cost not in BLOCK_COSTS,
-         f"cost {cfg.cost!r} with CBCA"),
+        (cfg.aggregation in ("cbca", "none") and cfg.cost not in BLOCK_COSTS,
+         f"cost {cfg.cost!r} with aggregation {cfg.aggregation!r}"),
+        (cfg.aggregation == "nl" and cfg.cost in ("census", "ad_census"),
+         f"cost {cfg.cost!r} with NL aggregation"),
         (cfg.cost == "qx_ad_grad" and not _nl_flow(cfg) and _n_views(cfg) == 2,
          "qx_ad_grad right volume (left volume only)"),
-        (cfg.aggregation not in ("cbca", "nl"), f"aggregation {cfg.aggregation!r}"),
+        (cfg.aggregation not in ("cbca", "none", "nl"), f"aggregation {cfg.aggregation!r}"),
         (cfg.aggregation == "nl" and cfg.nl_filter_dtype != "float32",
          f"nl_filter_dtype {cfg.nl_filter_dtype!r}"),
         (cfg.aggregation == "nl" and cfg.vol_dtype != "float32",
@@ -144,25 +149,26 @@ def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
     Returns (vols, arms_pair): vols is {0: volL, 1: volR} (volR only when
     the LR check is on and ``compute_both_volumes``), in ``vol_dtype`` from
     the cast after the cost on; arms_pair is the two images' [4, H, W]
-    cross arms. CBCA: with ``d_stream_block`` each volume is built a block
-    of disparities at a time (:func:`_aggregated_volume`). NL: each view's
-    cost volume filtered on its image's tree, ``trees[lor]``
-    (:func:`nl_trees`, required), with cross arms only for the images whose
-    cost or region vote reads them (None for the others).
+    cross arms. CBCA and no aggregation (``"none"``): with
+    ``d_stream_block`` each volume is built a block of disparities at a
+    time (:func:`_aggregated_volume`). NL: each view's cost volume filtered
+    on its image's tree, ``trees[lor]`` (:func:`nl_trees`, required). Both
+    of the images' arms are built for CBCA; otherwise only those that the
+    cost or the region vote reads (None for the others).
     """
     gl, gr = to_gray(left), to_gray(right)
     n_imgs = _n_views(cfg)
-    if cfg.aggregation == "cbca":
-        arms_pair = tuple(arms_ops.build_arms(img, cfg) for img in (left, right))
-        vols = {lor: _aggregated_volume(left, right, gl, gr, cfg, lor, arms_pair)
-                for lor in range(n_imgs)}
-        return vols, arms_pair
     images = (left, right)
     region_vote = cfg.do_refine and cfg.do_region_vote
     arms_pair = tuple(
         arms_ops.build_arms(images[lor], cfg)
-        if (_needs_arms_for_cost(cfg) and lor < n_imgs) or (lor == 0 and region_vote) else None
+        if cfg.aggregation == "cbca" or (_needs_arms_for_cost(cfg) and lor < n_imgs)
+        or (lor == 0 and region_vote) else None
         for lor in (0, 1))
+    if cfg.aggregation != "nl":
+        vols = {lor: _aggregated_volume(left, right, gl, gr, cfg, lor, arms_pair)
+                for lor in range(n_imgs)}
+        return vols, arms_pair
     if trees is None:
         raise ValueError("compute_volumes: NL aggregation needs the frame's trees (nl_trees)")
     vols = {lor: agg_ops.nl(cost_ops.compute_cost_volume(left, right, gl, gr, cfg, lor,
@@ -185,9 +191,10 @@ def nl_trees(left, right, cfg: MatchConfig) -> Dict[int, mst.RootedTree]:
 
 def _aggregated_volume(left, right, gl, gr, cfg: MatchConfig, lor: int,
                        arms_pair) -> torch.Tensor:
-    """Cost and CBCA of view ``lor``: over all disparities at once, or, with
-    ``d_stream_block``, a block of disparities at a time (the JAX package's
-    ``pipeline._volume_dstream``). Cost and CBCA are independent across disparities:
+    """Cost and CBCA (none with ``aggregation="none"``) of view ``lor``:
+    over all disparities at once, or, with ``d_stream_block``, a block of
+    disparities at a time (the JAX package's ``pipeline._volume_dstream``).
+    Cost and CBCA are independent across disparities:
     each block's cost is built, cast to ``vol_dtype`` before its CBCA as the
     dense path casts the whole volume, aggregated with its own [4, Db, H, W]
     intersected arms and written into the [D, H, W] ``vol_dtype`` volume,
@@ -200,6 +207,8 @@ def _aggregated_volume(left, right, gl, gr, cfg: MatchConfig, lor: int,
 
     def aggregated(ds: torch.Tensor) -> torch.Tensor:
         blk = block_fn(ds).to(vdt)
+        if cfg.aggregation == "none":
+            return blk
         arms_int = arms_ops.intersect_arms_block(arms_pair[0], arms_pair[1], ds, lor)
         return agg_ops.cbca(blk, arms_int, cfg.cbca_iterations, max_arm=cfg.arm_l_out)
 

@@ -611,3 +611,61 @@ def test_nl_preset_on_cuda_equals_cpu(cuda, preset):
     assert set(gpu) == set(cpu)
     for key in cpu:
         assert torch.equal(gpu[key].cpu(), cpu[key]), key
+
+
+# the SGM-layout probes (csrc/sgm_probes.cu) on [G, H, D, W]: the scripts'
+# D = 60 on a few rows, widths that are not multiples of 32, D of 1, below
+# a warp group (8), above 128 and 256 with one volume, and G = 4 at D = 200
+# (208 KB of shared memory in full); each against its plain version and, in
+# full, against kernel C's downward scan of the transpose
+SGM_PROBE_SHAPES = [(4, 24, 60, 40), (2, 9, 128, 33), (1, 5, 1, 7), (3, 17, 7, 70),
+                    (1, 6, 256, 45), (4, 4, 200, 31)]
+SGM_PROBE_CASES = [(entry, kind) for entry, (_, kinds) in ck.SGM_PROBES.items() for kind in kinds]
+
+
+@pytest.mark.parametrize("shape", SGM_PROBE_SHAPES)
+@pytest.mark.parametrize("entry,kind", SGM_PROBE_CASES)
+def test_sgm_probe_kernels(cuda, shape, entry, kind):
+    from mystereomatching_tpu_torch.ops import sgm_probes
+
+    gen = torch.Generator(device=cuda).manual_seed(shape[1] * shape[2])
+    vol = torch.rand(shape, generator=gen, device=cuda)
+    ps = torch.rand((shape[0], shape[1], shape[3]), generator=gen, device=cuda)
+    before = ck.launches[entry]
+    fn = getattr(ck, entry)
+    got = fn(vol, ps) if entry in ("sgm_probe_hdw", "sgm_probe_g") else fn(vol, ps, kind)
+    assert ck.launches[entry] == before + 1
+    assert torch.equal(got, sgm_probes.plain(vol, ps, kind))
+    if kind == "full":
+        want_c = ck.sgm_scan(vol.transpose(1, 2).contiguous(), ps, 1.0, 3.0, 2, False)
+        assert torch.equal(got, want_c.transpose(1, 2))
+
+
+def test_sgm_probe_refuses_more_shared_memory_than_a_block_has(cuda):
+    vol = torch.zeros((4, 2, 256, 8), device=cuda)
+    ps = torch.zeros((4, 2, 8), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.sgm_probe_g(vol, ps)
+    assert ck.sgm_probe_rolled(vol, ps, "copy").shape == vol.shape  # copy keeps no carry
+
+
+@pytest.mark.parametrize("preset", ["ad_census_wta", "census_wta", "census_cbca_lrc"])
+def test_census_preset_on_cuda_equals_plain_path(cuda, preset):
+    """Exactly the kernels of ``kernels_launched``; the maps equal the plain
+    path's on the card and, where the costs are integers (census_wta,
+    census_cbca_lrc), the CPU port's."""
+    pair = make_synthetic_pair(h=48, w=64, max_disp=15, seed=5, noise_sigma=0.5)
+    cfg = get_model(preset, max_disp=pair.max_disp)
+    pipe = port.StereoPipeline(cfg, device=cuda)
+    ck.reset_launches()
+    gpu = pipe(pair.left, pair.right)
+    assert [k for k, n in ck.launches.items() if n] == kernels_launched(cfg)
+    with mock.patch.object(ck, "on_cuda", lambda t: False):
+        plain = pipe(pair.left, pair.right)
+    assert set(gpu) == set(plain)
+    for key in gpu:
+        assert torch.equal(gpu[key], plain[key]), key
+    if preset != "ad_census_wta":
+        cpu = port.StereoPipeline(cfg, device="cpu")(pair.left, pair.right)
+        for key in cpu:
+            assert torch.equal(gpu[key].cpu(), cpu[key]), key

@@ -146,7 +146,7 @@ def test_block_cost_builder_matches_jax_and_dense(scene, lor, block):
 
 def test_block_cost_builder_refuses_other_costs(scene):
     (left, right), (gl, gr), arms_pair = scene
-    for bad in ("census", "ad_census"):
+    for bad in ("bt", "zncc"):
         cfg = get_model("fullres_occfill", max_disp=D - 1, d_stream_block=DB, cost=bad)
         with pytest.raises(NotImplementedError, match=bad):
             cost.block_cost_builder(left, right, gl, gr, cfg, 0, arms=arms_pair[0])
@@ -205,7 +205,7 @@ def test_streaming_is_supported_with_the_dense_kernels():
         cfg = get_model("fullres_occfill", max_disp=255, d_stream_block=32, **kw)
         check_supported(cfg)
         assert kernels_launched(cfg) == kernels_launched(cfg.replace(d_stream_block=0))
-    for bad in (dict(cbca_double_win=True), dict(cost="census")):
+    for bad in (dict(cbca_double_win=True), dict(cost="census_from2")):
         with pytest.raises(NotImplementedError):
             check_supported(get_model("fullres_occfill", max_disp=255, d_stream_block=32,
                                       **bad))

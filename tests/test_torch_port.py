@@ -139,16 +139,16 @@ PORTED_FROM_THIS_LIST = [dict(do_refine=True, lrc_classify=True),
     dict(do_refine=True, do_pkr=True), dict(do_refine=True, rv_use_combine_bg=True),
     dict(do_refine=True, rv_int_ratio_quirk=False), dict(do_refine=True, do_cbbi=True),
     dict(do_refine=True, do_bg_ipol=True), dict(do_refine=True, do_wm=True),
-    dict(do_refine=True, do_da=True), dict(cost="ad_census"),
+    dict(do_refine=True, do_da=True), dict(cost="bt"),
     dict(do_refine=True, do_rv_whole_image=True),
     dict(do_refine=True, compute_both_volumes=False),
-    dict(aggregation="bf"), dict(cost="census"),
+    dict(aggregation="bf"), dict(cost="zncc"),
     dict(optimization="so"), dict(optimization="wta"), dict(do_vmtop=True),
     dict(d_stream_block=4, cbca_double_win=True), dict(aggregation="nl"),
     dict(cbca_double_win=True), dict(pyramid_levels=2),
     dict(cbca_arm_mode="multilevel"), dict(vol_dtype="bfloat16"),
     dict(do_refine=True, do_bg_ipol=True, bg_ipol_kitti=True), dict(vol_dtype="float16"),
-    dict(cost="census", d_stream_block=4),
+    dict(cost="census_from2", d_stream_block=4),
 ])
 def test_unported_stage_raises(overrides):
     """A stage the port does not run raises NotImplementedError. The
@@ -157,7 +157,9 @@ def test_unported_stage_raises(overrides):
     the NL presets (NL aggregation, WTA without SGM) were cases of this
     list and now must be accepted, and a frame must run.
     Disparity streaming (``d_stream_block``) is ported too: its cases pair
-    it with what it still cannot run with."""
+    it with what it still cannot run with. The census costs ``census`` and
+    ``ad_census`` run too: their three cases name costs still refused
+    instead (``bt``, ``zncc``, ``census_from2``)."""
     cfg = port.default_config(max_disp=7, **{"do_refine": False, **overrides})
 
     def run():
