@@ -143,12 +143,22 @@ Phases, each of which raises (exit code 1) on failure:
    transposed volume, bit for bit, with its bound, kernel C's time on the
    same values, ``torch.mul``'s for copy, and each instance's registers
    and spills;
-14. timing: ms/frame and MP*disp/s of the kernel path and of the same
+14. taps probes: ``tools/taps_probes.py``'s probes (``csrc/taps_probes.cu``:
+   ``taps_probe_roll`` along H and W, ``taps_probe_slice`` in its kinds
+   dyn (H and W), fixed and seg (64, 32), ``taps_probe_clones`` in clones,
+   oct and clseg (64, 32, 96), ``taps_probe_static`` at octaves 8, 16 and
+   34 on one frame and on 16) on the scripts' [60, 375, 450] volumes with
+   max_arm 34, each equal to its plain version bit for bit, with its
+   bound, kernel B's sum pass on the same values along the same axis (its
+   device time, and the largest difference to it, within (2 max_arm + 1)
+   2^-24 sum |terms| at each pixel but for fixed, which is wrong by
+   design), and each instance's registers and spills;
+15. timing: ms/frame and MP*disp/s of the kernel path and of the same
    pipeline with every kernel replaced by its plain torch version, for the
    full default configuration and for ``do_refine=False``, in alternating
    rounds; the refine chain alone, kernel and plain; and the peak device
    memory of a frame;
-15. profile: ``torch.profiler`` over frames of the full default
+16. profile: ``torch.profiler`` over frames of the full default
    configuration: device time, idle share, launches per frame, the largest
    device kernels and each hand kernel's device time a launch.
 
@@ -171,9 +181,13 @@ census_cbca_lrc's shapes, with its launches; the SGM-layout probes
 ``sgm_probe_{hdw,g,rolled,unrolled}_{kind}`` on the scripts' shape and, as
 ``*_sgm8``, on sgm8_full's, on no path, with the main path's launches,
 which must be 0, as must the census frame's, and kernel C's time on the
-same values as ``kernel_c_ms``; ``ms_from`` says whether ``ms`` came
-from the profiler or from CUDA events); the last line is
-``{"ok": true, "device": {...}}``.
+same values as ``kernel_c_ms``; the taps probes ``taps_probe_*`` at the
+scripts' first listed parameters (the others are printed only), on no
+path, with the main path's launches, which must be 0, as must the census
+frame's, kernel B's time on the same values as ``kernel_b_ms`` and the
+largest difference to it as ``kernel_b_max_diff``; ``ms_from`` says
+whether ``ms`` came from the profiler or from CUDA events); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -301,6 +315,7 @@ NL_PROFILE_FRAMES = 2
 NL_ROWS = {f"{name}_nl": name for name in ("arms_grow", "wta", "arm_reduce", "pi_scan")}
 PLANE_PROBES = "mystereomatching_tpu_torch/csrc/plane_probes.cu"
 SGM_PROBES = "mystereomatching_tpu_torch/csrc/sgm_probes.cu"
+TAPS_PROBES = "mystereomatching_tpu_torch/csrc/taps_probes.cu"
 # BASELINE configs 1 and 2 at the JAX bench suite's sizes
 # (scripts/bench_suite.py:39-40), uncut, and census_wta (config.fast_config)
 # at config 1's: preset -> make_synthetic_pair arguments
@@ -1669,6 +1684,39 @@ def phase_sgm_layouts(dev, card_line: str, build_log: str) -> dict:
     return rows
 
 
+def phase_taps_probes(dev, card_line: str, build_log: str) -> dict:
+    """The taps probes (tools/taps_probes.py) on the scripts' [60, 375, 450]
+    volumes with max_arm 34 (and micro_cbca5.py's 16 frames): each kernel
+    against its plain version bit for bit, with its bound, kernel B's device
+    time on the same values along the same axis and the largest difference
+    to B (within the reordering bound, but for fixed); then each instance's
+    registers and spills. Returns the kernels line's rows."""
+    from tools import taps_probes
+
+    rows, b_ms, b_diff = {}, {}, {}
+    for name, entry, what, kernel, plain, b, nbytes, nops in taps_probes.cases(dev):
+        def check(got, want, name=name, b=b):
+            b_diff[name] = b.diff(name, got)
+            return compare(name, got, want)
+
+        row = run_case(name, what, (kernel, plain, nbytes, nops), card_line, check=check,
+                       kernel_name=entry)
+        if id(b) not in b_ms:
+            b_ms[id(b)] = device_ms(b.call, "arm_taps")[0]
+            bound_ms, bound_by = bound(b.nbytes, nops)
+            print(f"kernel arm_taps (B), its sum pass on the same values, int8 arms: "
+                  f"{b_ms[id(b)]:.4f} ms device; bound {bound_ms:.4f} ms by {bound_by} "
+                  f"({b.nbytes / 1e6:.3f} MB), {bound_ms / b_ms[id(b)]:.3f} of it [{card_line}]")
+        print(f"  {name}: max |probe - B| {b_diff[name]!r}"
+              f"{' (wrong by design: no bound)' if 'fixed' in name else ''}")
+        row.update(kernel_b_ms=b_ms[id(b)], kernel_b_max_diff=b_diff[name])
+        if name in taps_probes.ROWS:
+            rows[name] = row
+    torch.cuda.empty_cache()
+    taps_probes.print_registers(build_log, card_line)
+    return rows
+
+
 def row_band_devices(n: int):
     """(devices, backend) for n ranks: one card a rank over NCCL where there
     are cards enough, else all on card 0 over gloo."""
@@ -1999,7 +2047,7 @@ def timed(phase, *args):
 
 
 def main() -> int:
-    from tools import micro4, sgm_layouts
+    from tools import micro4, sgm_layouts, taps_probes
 
     card_line = card() if torch.cuda.is_available() else "no card"
     phase_environment(card_line)
@@ -2020,6 +2068,7 @@ def main() -> int:
     probe_rows = timed(phase_micro4, dev, card_line)
     census_rows, census_counts = timed(phase_census, dev, card_line)
     layout_rows = timed(phase_sgm_layouts, dev, card_line, build_log)
+    taps_rows = timed(phase_taps_probes, dev, card_line, build_log)
     timed(phase_timing, dev, card_line)
     timed(phase_profile, dev, card_line)
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
@@ -2069,6 +2118,14 @@ def main() -> int:
                          replaces=tpu, launches=counts[entry],
                          **layout_rows[f"{entry}_{kind}{suffix}"])
                     for suffix in sgm_layouts.SHAPES]
+    # the taps probes, on no path: the main path's counts, and the census
+    # frame's, must be 0
+    for name in taps_probes.ROWS:
+        entry, tpu = taps_probes.CASES[name][0], taps_probes.CASES[name][-1]
+        if counts[entry] or census_counts[entry]:
+            raise AssertionError(f"{entry} launched on the main path or the census frame")
+        kernels.append(dict(name=name, route="cuda", source=TAPS_PROBES, replaces=tpu,
+                            launches=counts[entry], **taps_rows[name]))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -21,7 +21,9 @@ own too (``mysm_sgm_scan_ext``) and is counted apart, as ``sgm_scan_ext``.
 ``gather_rows``, ``gather_cols``, ``cumsum_rows`` and ``cumsum_cols``
 (``csrc/plane_probes.cu``) and the SGM-layout probes ``sgm_probe_hdw``,
 ``sgm_probe_g``, ``sgm_probe_rolled`` and ``sgm_probe_unrolled``
-(``csrc/sgm_probes.cu``) are on no pipeline path.
+(``csrc/sgm_probes.cu``) and the taps probes ``taps_probe_roll``,
+``taps_probe_slice``, ``taps_probe_clones`` and ``taps_probe_static``
+(``csrc/taps_probes.cu``) are on no pipeline path.
 """
 
 from __future__ import annotations
@@ -46,7 +48,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launches = {"arms_grow": 0, "arm_taps": 0, "sgm_scan": 0, "wta": 0,
             "arm_reduce": 0, "pi_scan": 0, "sgm_diag": 0, "sgm_scan_ext": 0, "copy_bw": 0,
             "gather_rows": 0, "gather_cols": 0, "cumsum_rows": 0, "cumsum_cols": 0,
-            "sgm_probe_hdw": 0, "sgm_probe_g": 0, "sgm_probe_rolled": 0, "sgm_probe_unrolled": 0}
+            "sgm_probe_hdw": 0, "sgm_probe_g": 0, "sgm_probe_rolled": 0, "sgm_probe_unrolled": 0,
+            "taps_probe_roll": 0, "taps_probe_slice": 0, "taps_probe_clones": 0,
+            "taps_probe_static": 0}
 # of those, the launches of the bfloat16 instances of kernels B, C, D and E
 launches_bf16 = {"arm_taps": 0, "sgm_scan": 0, "wta": 0, "sgm_diag": 0, "sgm_scan_ext": 0}
 # of those, kernel C's launches with an in-image mask, and of these the bfloat16 ones
@@ -60,6 +64,18 @@ SGM_PROBE_KINDS = {"copy": 0, "prev": 1, "full": 2}
 SGM_PROBE_MAX_G = 4  # volumes in one block of the g, rolled and unrolled probes
 SGM_PROBE_P1, SGM_PROBE_P2 = 1.0, 3.0  # the TPU probes' penalties
 FLT_MAX = float(torch.finfo(torch.float32).max)
+# the taps probes: entry point -> (its index, {kind: (its code, the axes it
+# takes, the segment lengths or octaves it takes, () for none)})
+TAPS_PROBES = {
+    "taps_probe_roll": (0, {"roll": (0, (1, 2), ())}),
+    "taps_probe_slice": (1, {"dyn": (0, (1, 2), ()), "fixed": (1, (1,), ()),
+                             "seg": (2, (1,), (32, 64))}),
+    "taps_probe_clones": (2, {"clones": (0, (1,), ()), "oct": (1, (1,), ()),
+                              "clseg": (2, (1,), (32, 64, 96))}),
+    "taps_probe_static": (3, {"static": (0, (1,), (8, 16, 34))}),
+}
+TAPS_PROBE_MAX_LINE = 512  # roll: the longest line it holds in registers
+TAPS_PROBE_STATIC_ARM = 34  # static: its compiled max_arm, the TPU probe's
 
 _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
@@ -80,6 +96,7 @@ _SIGNATURES = {
     "mysm_gather_cols": [_P, _P, _P, _I, _L, _I, _P],
     "mysm_cumsum": [_P, _P, _L, _I, _I, _P],
     "mysm_sgm_probe": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
+    "mysm_taps_probe": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 # the bfloat16 entry points of kernels B, C, D and E: the float32 ones' arguments
 _BF16 = ("mysm_arm_taps", "mysm_sgm_scan", "mysm_wta", "mysm_sgm_diag", "mysm_sgm_scan_ext")
@@ -492,3 +509,71 @@ def sgm_probe_unrolled(vol: torch.Tensor, ps: torch.Tensor, kind: str) -> torch.
     :func:`sgm_probe_rolled` (``copy`` or ``full``), the row loop unrolled
     8 rows a step at compile time."""
     return _sgm_probe("sgm_probe_unrolled", vol, ps, kind, 3.4e38)
+
+
+def _taps_probe(name: str, vol: torch.Tensor, an: torch.Tensor, ap: torch.Tensor, kind: str,
+                axis: int, max_arm: int, param: Optional[int] = None) -> torch.Tensor:
+    entry, kinds = TAPS_PROBES[name]
+    if kind not in kinds:
+        raise ValueError(f"{name}: kind {kind!r} not one of {tuple(kinds)}")
+    code, axes, params = kinds[kind]
+    if axis not in axes:
+        raise ValueError(f"{name} {kind}: axis {axis} not one of {axes}")
+    if (param not in params) if params else param is not None:
+        raise ValueError(f"{name} {kind}: parameter {param} not one of {params}")
+    if vol.ndim != 3:
+        raise ValueError(f"{name}: expected vol [N, H, W], got {tuple(vol.shape)}")
+    if not 0 <= max_arm <= 127:
+        raise ValueError(f"{name}: max_arm {max_arm} outside [0, 127]")
+    if name == "taps_probe_roll" and vol.shape[axis] > TAPS_PROBE_MAX_LINE:
+        raise ValueError(f"{name}: a line of {vol.shape[axis]} exceeds {TAPS_PROBE_MAX_LINE}")
+    if name == "taps_probe_static" and max_arm != TAPS_PROBE_STATIC_ARM:
+        raise ValueError(f"{name}: max_arm {max_arm} is not its compiled "
+                         f"{TAPS_PROBE_STATIC_ARM}")
+    _check(vol, f"{name} vol", torch.float32)
+    for a in (an, ap):
+        _check(a, f"{name} arms", torch.int32, vol.shape, vol.device)
+    lib = _load()
+    n, h, w = vol.shape
+    with torch.cuda.device(vol.device):
+        out = torch.empty_like(vol)
+        _launch(name, lib.mysm_taps_probe, vol.data_ptr(), an.data_ptr(), ap.data_ptr(),
+                out.data_ptr(), n, h, w, entry, code, int(axis), int(max_arm), int(param or 0))
+    return out
+
+
+def taps_probe_roll(vol: torch.Tensor, an: torch.Tensor, ap: torch.Tensor, axis: int,
+                    max_arm: int) -> torch.Tensor:
+    """``micro3.py``'s ``_kb``: the arm-bounded sum of float32 vol [N, H, W]
+    with int32 arms [N, H, W] along H (axis 1) or W (axis 2), the line (at
+    most 512 long) in registers, shifted one a step, wrapping at its end
+    (``taps_probes.circular_plain``)."""
+    return _taps_probe("taps_probe_roll", vol, an, ap, "roll", axis, max_arm)
+
+
+def taps_probe_slice(vol: torch.Tensor, an: torch.Tensor, ap: torch.Tensor, kind: str,
+                     max_arm: int, axis: int = 1, seg: Optional[int] = None) -> torch.Tensor:
+    """The zero-padded strip in shared memory read at runtime offsets:
+    ``dyn`` (``micro3.py``'s ``_kc``, axis 1 or 2), ``fixed``
+    (``_taps_kernel_fixed``, every tap at the aligned base,
+    ``taps_probes.fixed_plain``) or ``seg`` (``_taps_kernel_seg``, a trip
+    count for each ``seg`` = 32 or 64 rows), the last two along H."""
+    return _taps_probe("taps_probe_slice", vol, an, ap, kind, axis, max_arm, seg)
+
+
+def taps_probe_clones(vol: torch.Tensor, an: torch.Tensor, ap: torch.Tensor, kind: str,
+                      max_arm: int, seg: Optional[int] = None) -> torch.Tensor:
+    """Four shifted copies of the zero-padded column in shared memory, every
+    tap an aligned float4 read of 4 rows, along H: ``clones``
+    (``_taps_kernel_clones``), ``oct`` (``_taps_kernel_oct``) or ``clseg``
+    (``_taps_kernel_clseg``, a trip count for each ``seg`` = 32, 64 or 96
+    rows)."""
+    return _taps_probe("taps_probe_clones", vol, an, ap, kind, 1, max_arm, seg)
+
+
+def taps_probe_static(vol: torch.Tensor, an: torch.Tensor, ap: torch.Tensor,
+                      oct_size: int, max_arm: int = TAPS_PROBE_STATIC_ARM) -> torch.Tensor:
+    """``micro_cbca5.py``'s ``_taps_kernel_static`` along H: max_arm 34 and
+    every tap offset compiled in, each octave of ``oct_size`` (8, 16 or 34)
+    taps gated by the block's largest arm."""
+    return _taps_probe("taps_probe_static", vol, an, ap, "static", 1, max_arm, oct_size)

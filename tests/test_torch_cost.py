@@ -134,9 +134,12 @@ def test_exp_fuse2():
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("census_func", [3, 0])
 @pytest.mark.parametrize("lor", [0, 1])
-def test_census_grad_volume(pair, grays, jax_arms_pair, lor):
-    jcfg = jax_default_config(max_disp=D - 1, do_refine=False)
+def test_census_grad_volume(pair, grays, jax_arms_pair, lor, census_func):
+    """The default census code (3, classic + 8 surround pairs) and the
+    classic one (0), which ``census_grad`` takes from ``census_func`` too."""
+    jcfg = jax_default_config(max_disp=D - 1, do_refine=False, census_func=census_func)
     gl, gr = grays
     left, right = (img.astype(np.float32) for img in (pair.left, pair.right))
     a = jax_arms_pair[lor]

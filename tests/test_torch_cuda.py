@@ -669,3 +669,60 @@ def test_census_preset_on_cuda_equals_plain_path(cuda, preset):
         cpu = port.StereoPipeline(cfg, device="cpu")(pair.left, pair.right)
         for key in cpu:
             assert torch.equal(gpu[key].cpu(), cpu[key]), key
+
+
+# the taps probes (csrc/taps_probes.cu) on float32 [N, H, W] with int32
+# arms: an odd size, lines above 256 along H and along W (roll's 16-slot
+# instance along W), one pixel; max_arm 34 (the scripts', static's only)
+# and 5, arms up to 2 past it (capped), so that they reach past the edges
+TAPS_PROBE_SHAPES = [(3, 41, 130), (2, 300, 33), (1, 7, 301), (2, 1, 1)]
+TAPS_PROBE_CASES = [(entry, kind, axis, param, m)
+                    for entry, (_, kinds) in ck.TAPS_PROBES.items()
+                    for kind, (_, axes, params) in kinds.items()
+                    for axis in axes for param in params or (None,)
+                    for m in (34, 5) if entry != "taps_probe_static" or m == 34]
+
+
+def _taps_probe(entry, kind, axis, param, m, vol, an, ap):
+    if entry == "taps_probe_roll":
+        return ck.taps_probe_roll(vol, an, ap, axis, m)
+    if entry == "taps_probe_slice":
+        return ck.taps_probe_slice(vol, an, ap, kind, m, axis, param)
+    if entry == "taps_probe_clones":
+        return ck.taps_probe_clones(vol, an, ap, kind, m, param)
+    return ck.taps_probe_static(vol, an, ap, param, m)
+
+
+@pytest.mark.parametrize("shape", TAPS_PROBE_SHAPES)
+@pytest.mark.parametrize("entry,kind,axis,param,m", TAPS_PROBE_CASES)
+def test_taps_probe_kernels(cuda, shape, entry, kind, axis, param, m):
+    from mystereomatching_tpu_torch.ops import taps_probes
+
+    gen = torch.Generator(device=cuda).manual_seed(shape[1] * shape[2] + m)
+    vol = torch.rand(shape, generator=gen, device=cuda)
+    an, ap = (torch.randint(0, m + 3, shape, generator=gen, device=cuda, dtype=torch.int32)
+              for _ in range(2))
+    before = ck.launches[entry]
+    got = _taps_probe(entry, kind, axis, param, m, vol, an, ap)
+    assert ck.launches[entry] == before + 1
+    if kind == "roll":
+        want = taps_probes.circular_plain(vol, an, ap, axis, m)
+    elif kind == "fixed":
+        want = taps_probes.fixed_plain(vol, an, ap, m)
+    else:
+        want = taps_probes.bounded_plain(vol, an, ap, axis, m)
+    assert torch.equal(got, want)
+    zero = torch.zeros_like(an)
+    assert torch.equal(_taps_probe(entry, kind, axis, param, m, vol, zero, zero), vol)
+
+
+def test_taps_probe_refusals(cuda):
+    vol = torch.zeros((1, 4, 513), device=cuda)
+    arms = torch.zeros((1, 4, 513), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="exceeds 512"):
+        ck.taps_probe_roll(vol, arms, arms, 2, 5)
+    with pytest.raises(TypeError, match="int32"):
+        ck.taps_probe_slice(vol, arms.to(torch.int8), arms, "dyn", 5)
+    with pytest.raises(ValueError, match="compiled"):
+        ck.taps_probe_static(vol, arms, arms, 8, 10)
+    assert torch.equal(ck.taps_probe_slice(vol, arms, arms, "dyn", 5, axis=2), vol)

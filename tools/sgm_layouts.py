@@ -175,16 +175,17 @@ def ptxas_lines(log: str):
     return found
 
 
-def ptxas_report(log: str = "") -> str:
-    """The probes' nvcc report: ``log`` (a build's) when it names them,
-    else a compile of ``csrc/sgm_probes.cu`` alone."""
-    if "sgm_probe" not in log:
+def ptxas_report(log: str = "", stem: str = "sgm_probes") -> str:
+    """The nvcc report of ``csrc/{stem}.cu``'s probes: ``log`` (a build's)
+    when it names them (``stem`` without its last letter), else a compile
+    of that source alone."""
+    if stem[:-1] not in log:
         from torch.utils.cpp_extension import CUDA_HOME
 
-        out = Path(ck.BUILD_DIR) / "sgm_probes_report.o"
+        out = Path(ck.BUILD_DIR) / f"{stem}_report.o"
         out.parent.mkdir(parents=True, exist_ok=True)
         log = subprocess.run([str(Path(CUDA_HOME) / "bin" / "nvcc"), *ck.NVCC_FLAGS, "-c", "-o",
-                              str(out), str(ck.CSRC / "sgm_probes.cu")],
+                              str(out), str(ck.CSRC / f"{stem}.cu")],
                              capture_output=True, text=True, check=True).stderr
     return log
 
