@@ -17,8 +17,10 @@ Phases, each of which raises (exit code 1) on failure:
    events around the wrapper, its plain version's and its bound (kernel E,
    ``sgm_diag``, on the same CBCA volumes); then kernel B on a
    [32, 1988, 2880] volume and the proper-interpolation kernel on a
-   1988x2880 map (full resolution). Every kernel must equal its plain
-   version exactly (``torch.equal``);
+   1988x2880 map (full resolution). Region vote is measured twice: as one
+   iteration's four ``arm_reduce`` passes (on no path) and as one pass of
+   ``region_vote`` (one launch). Every kernel must equal its plain version
+   exactly (``torch.equal``);
 4. slice: ``StereoPipeline(default_config(do_refine=False), "cuda")`` and
    then ``StereoPipeline(default_config(), "cuda")`` (refine on) on the
    three golden scenes and the adversarial one (``adv_small``:
@@ -67,8 +69,9 @@ Phases, each of which raises (exit code 1) on failure:
    the shapes this frame launches it, against its plain version: A on the
    two images, B's four launch kinds on one [32, 1988, 2880] block, C's
    four directions on the [1, 256, 1988, 2880] CBCA volume, D on the
-   cooperative WTA's two volumes, the region vote's integer passes on the
-   frame's LR map and proper interpolation on its region-voted map;
+   cooperative WTA's two volumes, the region vote's four integer passes
+   (``arm_reduce``) and its one-launch pass (``region_vote``) on the frame's
+   LR map and proper interpolation on its region-voted map;
 8. row bands: the row-band pipeline (``parallel.run_row_bands``), one
    process a rank, one card a rank over NCCL where there are cards enough,
    else every rank on card 0 over gloo (the phase prints which). First
@@ -103,12 +106,12 @@ Phases, each of which raises (exit code 1) on failure:
 10. NL: ``get_model("nl_tree_filter", max_disp=59)`` on the Teddy-sized
    pair (375x450, D=60; the trees built on the host, the filter level by
    level on the card), with the launch counts set to 0 just before its
-   frame: kernels A, D, ``arm_reduce`` and ``pi_scan`` must launch, and its
+   frame: kernels A, D, ``region_vote`` and ``pi_scan`` must launch, and its
    three maps must equal a second kernel frame's, the card's plain path's
    and the CPU port's, and two tree filter runs the same bits; its frame
    time, host tree build, tree height, peak device memory, and a profile
-   (device time, idle share, launches a frame); then A, D, ``arm_reduce``
-   and ``pi_scan`` at its shapes on its inputs against their plain
+   (device time, idle share, launches a frame); then A, D, ``arm_reduce``,
+   ``region_vote`` and ``pi_scan`` at its shapes on its inputs against their plain
    versions. ``nl_post`` and ``nl_census_post`` on the golden scenes
    ``small_scale``, ``adv_small`` and ``teddy_scale``: each frame equal to
    the plain path and the CPU port, and within the JAX golden test's
@@ -134,7 +137,7 @@ Phases, each of which raises (exit code 1) on failure:
    differing pixels); each frame's time, peak device memory and profile
    (device time, idle share, launches a frame); then A, B (its four
    launch kinds) and D at census_cbca_lrc's shapes against their plain
-   versions;
+   versions, and ``region_vote`` on its LR map (the frame runs none);
 13. SGM layouts: ``tools/sgm_layouts.py``'s probes (``csrc/sgm_probes.cu``:
    ``sgm_probe_hdw``, ``sgm_probe_g``, ``sgm_probe_rolled`` in its kinds
    copy, prev and full, ``sgm_probe_unrolled`` in copy and full) on
@@ -160,7 +163,10 @@ Phases, each of which raises (exit code 1) on failure:
    memory of a frame;
 16. profile: ``torch.profiler`` over frames of the full default
    configuration: device time, idle share, launches per frame, the largest
-   device kernels and each hand kernel's device time a launch.
+   device kernels and each hand kernel's device time a launch; ``region_vote``
+   must launch twice a frame and ``arm_reduce`` never, and the frame must make
+   fewer launches than the same frame profiled with region vote as four
+   ``arm_reduce`` passes (both figures printed, the maps equal).
 
 Each phase prints its seconds.
 
@@ -171,13 +177,15 @@ names what was measured: kernels B, C and E at full width, on the
 ``sgm_scan_ext*`` on a W chunk of the banded sgm8_full frame's inputs, with
 the launches summed over its ranks; the rows ``*_frame_c`` at frame C's
 shapes, with its launches; ``copy_bw`` on the 4 GiB buffer, on no frame's
-path, with the main path's launches, which must be 0; the rows ``*_nl``
-of A, D, ``arm_reduce`` and ``pi_scan`` at the nl_tree_filter frame's
-shapes, with its launches; the probes ``gather_rows``, ``gather_cols``,
+path, with the main path's launches, which must be 0, as must
+``arm_reduce``'s (its rows measure region vote's four integer passes, on
+no path since region vote became one kernel); the rows ``*_nl``
+of A, D, ``arm_reduce``, ``region_vote`` and ``pi_scan`` at the
+nl_tree_filter frame's shapes, with its launches; the probes ``gather_rows``, ``gather_cols``,
 ``cumsum_rows`` and ``cumsum_cols`` on micro4.py's plane and, as ``*_nl``,
 on the NL filter's rows, on no path, with the main path's launches, which
-must be 0, as must the NL frame's; the rows ``*_census`` of A, B and D at
-census_cbca_lrc's shapes, with its launches; the SGM-layout probes
+must be 0, as must the NL frame's; the rows ``*_census`` of A, B, D and
+``region_vote`` at census_cbca_lrc's shapes, with its launches; the SGM-layout probes
 ``sgm_probe_{hdw,g,rolled,unrolled}_{kind}`` on the scripts' shape and, as
 ``*_sgm8``, on sgm8_full's, on no path, with the main path's launches,
 which must be 0, as must the census frame's, and kernel C's time on the
@@ -248,6 +256,8 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
             "mystereomatching_tpu/ops/pallas_kernels.py:718"),
     "arm_reduce": ("mystereomatching_tpu_torch/csrc/arm_reduce.cu",
                    "mystereomatching_tpu/ops/pallas_kernels.py:67"),
+    "region_vote": ("mystereomatching_tpu_torch/csrc/region_vote.cu",
+                    "mystereomatching_tpu/ops/pallas_kernels.py:67"),
     "pi_scan": ("mystereomatching_tpu_torch/csrc/pi_scan.cu",
                 "mystereomatching_tpu/ops/pallas_kernels.py:483"),
     "sgm_diag": ("mystereomatching_tpu_torch/csrc/sgm_diag.cu",
@@ -266,8 +276,8 @@ OCCFILL = {
           dict(vol_dtype="bfloat16", compute_both_volumes=False)),
 }
 # a fullres_occfill frame's launches, kernel B's aside (8 with two volumes, 4 with one)
-OCCFILL_LAUNCHES = {"arms_grow": 2, "sgm_scan": 4, "wta": 2, "arm_reduce": 8, "pi_scan": 2,
-                    "sgm_diag": 0, "sgm_scan_ext": 0, "copy_bw": 0}
+OCCFILL_LAUNCHES = {"arms_grow": 2, "sgm_scan": 4, "wta": 2, "arm_reduce": 0, "region_vote": 2,
+                    "pi_scan": 2, "sgm_diag": 0, "sgm_scan_ext": 0, "copy_bw": 0}
 # fullres_occfill's third bench-suite configuration (scripts/bench_suite.py:59-63),
 # frame C: one bfloat16 volume, the cooperative WTA, cost and CBCA streamed
 # over 32-disparity blocks; uncut
@@ -283,6 +293,7 @@ FRAME_C_ROWS = {
     "sgm_scan_bf16_frame_c": ("sgm_scan", "mystereomatching_tpu/ops/pallas_kernels.py:762"),
     "wta_bf16_frame_c": ("wta", "mystereomatching_tpu/ops/pallas_kernels.py:718"),
     "arm_reduce_frame_c": ("arm_reduce", "mystereomatching_tpu/ops/pallas_kernels.py:67"),
+    "region_vote_frame_c": ("region_vote", "mystereomatching_tpu/ops/pallas_kernels.py:67"),
     "pi_scan_frame_c": ("pi_scan", "mystereomatching_tpu/ops/pallas_kernels.py:631"),
 }
 COPY_BW = ("mystereomatching_tpu_torch/csrc/copy_bw.cu", "scripts/check_bw.py:28")
@@ -312,7 +323,8 @@ NL_GOLDEN = {
 NL_REPS = 3
 NL_PROFILE_FRAMES = 2
 # kernels line rows at the nl_tree_filter frame's shapes -> the kernel
-NL_ROWS = {f"{name}_nl": name for name in ("arms_grow", "wta", "arm_reduce", "pi_scan")}
+NL_ROWS = {f"{name}_nl": name
+           for name in ("arms_grow", "wta", "arm_reduce", "region_vote", "pi_scan")}
 PLANE_PROBES = "mystereomatching_tpu_torch/csrc/plane_probes.cu"
 SGM_PROBES = "mystereomatching_tpu_torch/csrc/sgm_probes.cu"
 TAPS_PROBES = "mystereomatching_tpu_torch/csrc/taps_probes.cu"
@@ -331,7 +343,8 @@ CENSUS_EXACT = ("census_wta", "census_cbca_lrc")
 CENSUS_REPS = 10
 CENSUS_PROFILE_FRAMES = 3
 # kernels line rows at census_cbca_lrc's shapes -> the kernel
-CENSUS_ROWS = {f"{name}_census": name for name in ("arms_grow", "arm_taps", "wta")}
+CENSUS_ROWS = {f"{name}_census": name
+               for name in ("arms_grow", "arm_taps", "wta", "region_vote")}
 ROW_BANDS_CHUNKS = 8
 ROW_BANDS_SGM8 = 3       # ranks: 250-row bands of the 750-row frame
 ROW_BANDS_OCCFILL = 4    # ranks: 250-row bands of frame A's 1000 rows
@@ -661,6 +674,21 @@ def region_vote_case(lrc, arms0, m):
             nbytes, nops)
 
 
+def region_vote_kernel_case(disp, arms0, m, s_thres):
+    """One region-vote pass in one launch (``csrc/region_vote.cu``) against
+    ``region_vote_plain``, as (kernel, plain, bytes, operations): the map, its
+    four arm planes and the new map, each once (24 bytes a pixel); three
+    operations a tap (min, max, count) of both passes over every pixel, no
+    fewer than the kernel does (it skips the rows no invalid pixel's support
+    reaches) and, at real arm lengths, far under the bytes' time."""
+    arms0 = arms0.contiguous()
+    left, right, up, down = arms0.unbind(0)
+    nops = 3 * (taps(left, right, 1, m) + taps(up, down, 0, m))
+    return (lambda: ck.region_vote(disp, arms0, m, s_thres),
+            lambda: refine_ops.region_vote_plain(disp, arms0, s_thres, m),
+            disp.numel() * 24, nops)
+
+
 def pi_case(disp, image, depth, disp_occ):
     """One proper-interpolation iteration as (kernel, plain, bytes,
     operations): per tap walked a bounds test and a load test (5), per ray
@@ -761,8 +789,10 @@ def phase_kernels(dev, card_line: str) -> dict:
                 (lambda: ck.wta(sgm_vol), lambda: wta_ops.wta_plain(sgm_vol),
                  sgm_vol.numel() * 4 + hw * 4, sgm_vol.numel()),
                 lambda: torch.argmin(sgm_vol, 0)),
-        "arm_reduce": ("one region-vote iteration (2 min + 2 sum passes) on the LRC map",
-                       region_vote_case(t["lrc"], arms, m), None),
+        "arm_reduce": ("one region-vote iteration (2 min + 2 sum passes) on the LRC map, on "
+                       "no path", region_vote_case(t["lrc"], arms, m), None),
+        "region_vote": ("one region-vote pass in one launch on the LRC map",
+                        region_vote_kernel_case(t["lrc"], arms, m, cfg.rv_s_thres), None),
         "pi_scan": ("one proper-interpolation iteration on the region-voted map, depth "
                     f"{cfg.pi_search_depth}",
                     pi_case(t["rv"], left, cfg.pi_search_depth, cfg.disp_occ), None),
@@ -932,10 +962,11 @@ def phase_timing(dev, card_line: str) -> None:
 
 
 def profile_frames(pipe, left, right, label: str, card_line: str, frames: int,
-                   warm_up: int) -> None:
+                   warm_up: int) -> float:
     """torch.profiler over ``frames`` frames of ``pipe`` after ``warm_up``
     frames: wall and device time, idle share, launches, the largest device
-    kernels and each hand kernel's device time a launch."""
+    kernels and each hand kernel's device time a launch. Returns the kernel
+    launches a frame."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm_up):
@@ -957,7 +988,7 @@ def profile_frames(pipe, left, right, label: str, card_line: str, frames: int,
           f"kernel launches/frame, {cpu_ms:.3f} ms/frame of host op time [{card_line}]")
     if not device:
         print("profile: no device events recorded; device time not measured")
-        return
+        return launches / frames
     per_kernel = collections.defaultdict(lambda: [0.0, 0])
     for e in device:
         per_kernel[e.name][0] += e.time_range.elapsed_us()
@@ -976,16 +1007,59 @@ def profile_frames(pipe, left, right, label: str, card_line: str, frames: int,
         if n:
             print(f"profile: kernel {kernel}: {us / 1e3 / frames:.4f} ms/frame of device "
                   f"time in {n / frames:.1f} launches/frame ({us / n:.2f} us a launch)")
+    return launches / frames
+
+
+def four_pass_region_vote():
+    """Region vote as it ran before it was one kernel: ``region_vote_plain``'s
+    composition on the card, its four arm-bounded reductions each one
+    ``arm_reduce`` launch (``arms.arm_bounded_reduce``), with the elementwise
+    ops around them."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(refine_ops, "arm_bounded_reduce_plain",
+                                          arms_ops.arm_bounded_reduce))
+    stack.enter_context(mock.patch.object(
+        ck, "region_vote",
+        lambda disp, arms, max_arm, s_thres: refine_ops.region_vote_plain(disp, arms, s_thres,
+                                                                          max_arm)))
+    return stack
 
 
 def phase_profile(dev, card_line: str) -> None:
-    """torch.profiler over frames of the full default configuration."""
+    """torch.profiler over frames of the full default configuration, twice:
+    as the port runs it, and with region vote as four ``arm_reduce`` passes
+    (:func:`four_pass_region_vote`). Before each profile one frame with the
+    launch counts set to 0 just before it: region vote must launch
+    ``region_vote`` twice (one launch a pass) and ``arm_reduce`` never, or
+    ``arm_reduce`` 8 times and ``region_vote`` never; the two frames' maps
+    must be equal, and the port's frame must make fewer launches a frame."""
     pair = make_synthetic_pair(**TEDDY)
     left = torch.from_numpy(pair.left).to(dev)
     right = torch.from_numpy(pair.right).to(dev)
     pipe = StereoPipeline(default_config(max_disp=TEDDY["max_disp"]), device=dev)
-    profile_frames(pipe, left, right, "default (refine on), Teddy", card_line,
-                   PROFILE_FRAMES, warm_up=3)
+    label = "default (refine on), Teddy"
+    runs, outs = {}, {}
+    for way, want in (("one region_vote launch a pass", (2, 0)),
+                      ("region vote as four arm_reduce passes", (0, 8))):
+        with four_pass_region_vote() if want[1] else contextlib.nullcontext():
+            pipe(left, right)
+            torch.cuda.synchronize()
+            ck.reset_launches()
+            outs[way] = pipe(left, right)
+            torch.cuda.synchronize()
+            got = (ck.launches["region_vote"], ck.launches["arm_reduce"])
+            if got != want:
+                raise AssertionError(f"{label}, {way}: region_vote and arm_reduce launched "
+                                     f"{got} times a frame, not {want}")
+            runs[way] = profile_frames(pipe, left, right, f"{label}, {way}", card_line,
+                                       PROFILE_FRAMES, warm_up=3)
+    (new, n_new), (old, n_old) = runs.items()
+    equal_maps(label, outs[new], outs[old], old)
+    print(f"profile, {label}: {n_new:.1f} kernel launches/frame with {new}, {n_old:.1f} with "
+          f"{old}: {n_old - n_new:.1f} fewer; the maps equal [{card_line}]")
+    if n_new >= n_old:
+        raise AssertionError(f"{label}: {n_new:.1f} launches a frame with {new}, not under "
+                             f"{n_old:.1f} with {old}")
 
 
 def arm_taps_frame(left, right, cfg, label: str, card_line: str) -> dict:
@@ -1283,7 +1357,10 @@ def frame_c_kernel_rows(left, right, out, cfg, label: str, card_line: str) -> di
                                              cfg.disp_mis)
     rows["arm_reduce_frame_c"] = run_case(
         "arm_reduce", f"{label}: one region-vote iteration (2 min + 2 sum passes) on the "
-        "frame's LR map", region_vote_case(lrc, arms_pair[0], m), card_line)
+        "frame's LR map, on no path", region_vote_case(lrc, arms_pair[0], m), card_line)
+    rows["region_vote_frame_c"] = run_case(
+        "region_vote", f"{label}: one region-vote pass in one launch on the frame's LR map",
+        region_vote_kernel_case(lrc, arms_pair[0], m, cfg.rv_s_thres), card_line)
     rv = lrc
     for _ in range(cfg.region_vote_iters):
         rv = refine_ops.region_vote(rv, arms_pair[0], cfg.num_disp, cfg.rv_s_thres,
@@ -1434,10 +1511,12 @@ def nl_frame(cfg, left, right, dev, label: str):
 
 
 def nl_kernel_rows(left, right, out, cfg, label: str, card_line: str) -> dict:
-    """A, D, arm_reduce and pi_scan at the nl_tree_filter frame's shapes,
-    on its inputs: the left image's arms, the cooperative WTA's two views
-    of the NL-aggregated volume, one region-vote iteration on its LR map,
-    one proper-interpolation iteration on its region-voted map."""
+    """A, D, arm_reduce, region_vote and pi_scan at the nl_tree_filter
+    frame's shapes, on its inputs: the left image's arms, the cooperative
+    WTA's two views of the NL-aggregated volume, one region-vote iteration
+    on its LR map (as four arm_reduce passes, and as one pass of
+    region_vote), one proper-interpolation iteration on its region-voted
+    map."""
     m = cfg.arm_l_out
     with plain_path():
         vols, arms_pair = compute_volumes(left, right, cfg, nl_trees(left, right, cfg))
@@ -1457,8 +1536,10 @@ def nl_kernel_rows(left, right, out, cfg, label: str, card_line: str) -> dict:
                     lambda: tuple(wta_ops.wta_plain(v) for v in coop),
                     2 * (coop[0].numel() * 4 + hw * 4), 2 * coop[0].numel()),
                    lambda: [torch.argmin(v, 0) for v in coop]),
-        "arm_reduce_nl": ("one region-vote iteration on the frame's LR map",
+        "arm_reduce_nl": ("one region-vote iteration on the frame's LR map, on no path",
                           region_vote_case(lrc, arms0, m), None),
+        "region_vote_nl": ("one region-vote pass in one launch on the frame's LR map",
+                           region_vote_kernel_case(lrc, arms0, m, cfg.rv_s_thres), None),
         "pi_scan_nl": (f"one proper-interpolation iteration on the frame's region-voted map, "
                        f"depth {cfg.pi_search_depth}",
                        pi_case(rv, left, cfg.pi_search_depth, cfg.disp_occ), None),
@@ -1630,13 +1711,14 @@ def phase_census(dev, card_line: str):
     """The census cost family's presets: ad_census_wta and census_wta at
     288x384, D=16, and census_cbca_lrc at 375x450, D=64 (each a
     :func:`census_frame`), then A, B and D at census_cbca_lrc's shapes on
-    its inputs. Returns (the kernels line's rows, census_cbca_lrc's
-    launches)."""
+    its inputs, and region_vote on its LR map. Returns (the kernels line's
+    rows, census_cbca_lrc's launches)."""
     for name in ("ad_census_wta", "census_wta"):
         census_frame(name, dev, card_line)
-    _, counts, left, right, cfg, label = census_frame("census_cbca_lrc", dev, card_line)
+    out, counts, left, right, cfg, label = census_frame("census_cbca_lrc", dev, card_line)
     with plain_path():
         vols, arms_pair = compute_volumes(left, right, cfg)
+    lrc = refine_ops.lr_consistency(out["disp_left_raw"], out["disp_right_raw"], cfg.lr_max_diff)
     vols = [vols[lor].contiguous() for lor in (0, 1)]
     hw = left.shape[0] * left.shape[1]
     rows = {
@@ -1650,6 +1732,11 @@ def phase_census(dev, card_line: str):
              lambda: tuple(wta_ops.wta_plain(v) for v in vols),
              2 * (vols[0].numel() * 4 + hw * 4), 2 * vols[0].numel()),
             card_line, lambda: [torch.argmin(v, 0) for v in vols], kernel_name="wta"),
+        "region_vote_census": run_case(
+            "region_vote_census", f"{label}: one region-vote pass on the frame's LR map (the "
+            "frame itself runs none)", region_vote_kernel_case(lrc, arms_pair[0], cfg.arm_l_out,
+                                                               cfg.rv_s_thres),
+            card_line, kernel_name="region_vote"),
     }
     del vols
     torch.cuda.empty_cache()
@@ -2088,12 +2175,16 @@ def main() -> int:
     kernels += [dict(name=row, route="cuda", source=KERNELS[name][0], replaces=tpu,
                      launches=stream_counts[name], **stream_rows[row])
                 for row, (name, tpu) in FRAME_C_ROWS.items()]
-    # the copy-bandwidth probe, on no frame's path: the main path's count
+    # arm_reduce and the copy-bandwidth probe, on no frame's path: the main
+    # path's counts
+    if counts["arm_reduce"]:
+        raise AssertionError(f"arm_reduce launched {counts['arm_reduce']} times on the main path")
     if counts["copy_bw"]:
         raise AssertionError(f"copy_bw launched {counts['copy_bw']} times on the main path")
     kernels.append(dict(name="copy_bw", route="cuda", source=COPY_BW[0], replaces=COPY_BW[1],
                         launches=counts["copy_bw"], **copy_row))
-    # A, D, arm_reduce and pi_scan at the nl_tree_filter frame's shapes, with its launches
+    # A, D, arm_reduce, region_vote and pi_scan at the nl_tree_filter frame's
+    # shapes, with its launches
     kernels += [dict(name=row, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
                      launches=nl_counts[name], **nl_rows[row])
                 for row, name in NL_ROWS.items()]
@@ -2105,7 +2196,7 @@ def main() -> int:
         kernels += [dict(name=row, route="cuda", source=PLANE_PROBES, replaces=tpu,
                          launches=counts[name], **probe_rows[row])
                     for row in (name, f"{name}_nl")]
-    # A, B and D at census_cbca_lrc's shapes, with its launches
+    # A, B, D and region_vote at census_cbca_lrc's shapes, with its launches
     kernels += [dict(name=row, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
                      launches=census_counts[name], **census_rows[row])
                 for row, name in CENSUS_ROWS.items()]

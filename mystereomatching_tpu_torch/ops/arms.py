@@ -3,11 +3,13 @@
 Counterpart of ``mystereomatching_tpu/ops/arms.py``: ``cross_arms`` /
 ``build_arms`` in ``two_level`` mode, ``_border_floor``, ``intersect_arms``
 and its disparity-block form ``intersect_arms_block``,
-the arm-bounded sums CBCA runs and the integer arm-bounded reductions region
-vote runs. Arm growth is CUDA kernel A (``csrc/arms_grow.cu``), the
-arm-bounded sums are kernel B (``csrc/arm_taps.cu``) and the integer
-reductions its integer mode (``csrc/arm_reduce.cu``); their plain torch
-versions sit beside the functions that dispatch to them.
+the arm-bounded sums CBCA runs and the integer arm-bounded reductions
+(region vote's plain version runs them). Arm growth is CUDA kernel A
+(``csrc/arms_grow.cu``), the arm-bounded sums are kernel B
+(``csrc/arm_taps.cu``) and the integer reductions its integer mode
+(``csrc/arm_reduce.cu``, on no pipeline path: region vote runs
+``csrc/region_vote.cu`` on the card); their plain torch versions sit
+beside the functions that dispatch to them.
 
 Arm rule (calHorVerDis cpp:3009-3024): the arm in direction a reaches
 length k iff for every j <= k, p + j a is inside the image,

@@ -17,6 +17,9 @@ Kernels B, C, D and E take float32 or bfloat16 volumes (the JAX package's
 any other dtype. Kernel C's scan along H with a carried-in row or an
 in-image mask, which the row-band pipeline runs, has entry points of its
 own too (``mysm_sgm_scan_ext``) and is counted apart, as ``sgm_scan_ext``.
+Region vote runs one pass a launch (``csrc/region_vote.cu``);
+``arm_reduce`` (``csrc/arm_reduce.cu``), the single-axis integer
+reduction it was built from, is on no pipeline path.
 ``copy_bw`` (``csrc/copy_bw.cu``), the gather and prefix-sum probes
 ``gather_rows``, ``gather_cols``, ``cumsum_rows`` and ``cumsum_cols``
 (``csrc/plane_probes.cu``) and the SGM-layout probes ``sgm_probe_hdw``,
@@ -46,7 +49,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # launches of each kernel since the last reset_launches(), of either dtype
 launches = {"arms_grow": 0, "arm_taps": 0, "sgm_scan": 0, "wta": 0,
-            "arm_reduce": 0, "pi_scan": 0, "sgm_diag": 0, "sgm_scan_ext": 0, "copy_bw": 0,
+            "arm_reduce": 0, "region_vote": 0, "pi_scan": 0, "sgm_diag": 0, "sgm_scan_ext": 0,
+            "copy_bw": 0,
             "gather_rows": 0, "gather_cols": 0, "cumsum_rows": 0, "cumsum_cols": 0,
             "sgm_probe_hdw": 0, "sgm_probe_g": 0, "sgm_probe_rolled": 0, "sgm_probe_unrolled": 0,
             "taps_probe_roll": 0, "taps_probe_slice": 0, "taps_probe_clones": 0,
@@ -56,6 +60,7 @@ launches_bf16 = {"arm_taps": 0, "sgm_scan": 0, "wta": 0, "sgm_diag": 0, "sgm_sca
 # of those, kernel C's launches with an in-image mask, and of these the bfloat16 ones
 launches_masked = {"sgm_scan_ext": 0, "sgm_scan_ext_bf16": 0}
 REDUCE_OPS = {"sum": 0, "min": 1, "max": 2}
+MAX_ARM = 127  # the longest arm kernels A and region_vote take (the config's bound)
 # the SGM-layout probes: entry point -> (its index, the kinds it takes)
 SGM_PROBES = {"sgm_probe_hdw": (0, ("full",)), "sgm_probe_g": (1, ("full",)),
               "sgm_probe_rolled": (2, ("copy", "prev", "full")),
@@ -88,6 +93,7 @@ _SIGNATURES = {
     "mysm_sgm_scan": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "mysm_wta": [_P, _P, _I, _I, _I, _I, _P],
     "mysm_arm_reduce": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mysm_region_vote": [_P, _P, _P, _I, _I, _I, _I, _P],
     "mysm_pi_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mysm_sgm_diag": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "mysm_sgm_scan_ext": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
@@ -214,19 +220,21 @@ def _launch_vol(name: str, lib: ctypes.CDLL, entry: str, vol: torch.Tensor, *arg
 
 def arms_grow(img: torch.Tensor, sched: Sequence[float], neigh_thresh: float,
               min_arm: int) -> torch.Tensor:
-    """Kernel A. img: [H, W, 3] float32 -> int32 [4, H, W] arms (L, R, U, D)."""
+    """Kernel A. img: [H, W, 3] float32 -> int32 [4, H, W] arms (L, R, U, D);
+    the anchor schedule (1 to 127 thresholds, rounded to float32) goes to
+    the kernel as a launch parameter, with no copy to the card."""
     if img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"arms_grow: expected [H, W, 3], got {tuple(img.shape)}")
     _check(img, "arms_grow img", torch.float32)
-    if not sched:
-        raise ValueError("arms_grow: empty threshold schedule")
+    if not 1 <= len(sched) <= MAX_ARM:
+        raise ValueError(f"arms_grow: a schedule of {len(sched)} thresholds, not 1 to {MAX_ARM}")
     lib = _load()
     h, w = img.shape[:2]
     with torch.cuda.device(img.device):
-        sched_t = torch.tensor(list(sched), dtype=torch.float32, device=img.device)
         out = torch.empty((4, h, w), dtype=torch.int32, device=img.device)
-        _launch("arms_grow", lib.mysm_arms_grow, img.data_ptr(), sched_t.data_ptr(),
-                out.data_ptr(), h, w, len(sched), float(neigh_thresh), int(min_arm))
+        _launch("arms_grow", lib.mysm_arms_grow, img.data_ptr(),
+                (ctypes.c_float * len(sched))(*sched), out.data_ptr(), h, w, len(sched),
+                float(neigh_thresh), int(min_arm))
     return out
 
 
@@ -350,6 +358,26 @@ def arm_reduce(vol: torch.Tensor, arm_neg: torch.Tensor, arm_pos: torch.Tensor,
         _launch("arm_reduce", lib.mysm_arm_reduce, vol.data_ptr(), arm_neg.data_ptr(),
                 arm_pos.data_ptr(), out.data_ptr(), c, h, w, int(axis == 2),
                 int(max_arm), REDUCE_OPS[op])
+    return out
+
+
+def region_vote(disp: torch.Tensor, arms: torch.Tensor, max_arm: int,
+                s_thres: int) -> torch.Tensor:
+    """One unanimity region-vote pass of disp [H, W] int32 over the cross
+    support of the left image's raw int32 [4, H, W] arms (L, R, U, D), each
+    capped at max_arm (0 to 127), in one launch -> a new int32 [H, W] map."""
+    if disp.ndim != 2:
+        raise ValueError(f"region_vote: expected disp [H, W], got {tuple(disp.shape)}")
+    if not 0 <= max_arm <= MAX_ARM:
+        raise ValueError(f"region_vote: max_arm {max_arm} outside [0, {MAX_ARM}]")
+    h, w = disp.shape
+    _check(disp, "region_vote disp", torch.int32)
+    _check(arms, "region_vote arms", torch.int32, (4, h, w), disp.device)
+    lib = _load()
+    with torch.cuda.device(disp.device):
+        out = torch.empty_like(disp)
+        _launch("region_vote", lib.mysm_region_vote, disp.data_ptr(), arms.data_ptr(),
+                out.data_ptr(), h, w, int(max_arm), int(s_thres))
     return out
 
 

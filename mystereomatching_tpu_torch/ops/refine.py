@@ -7,10 +7,10 @@ Counterpart of those chains' functions in
 Disparity maps are int32 [H, W]; the plain LR check marks a failure -1
 (cpp:2277) and the other sentinels are negative too (DISP_OCC -32, DISP_MIS
 -48, h:215-218).
-Region vote's arm-bounded reductions run kernel B's integer mode
-(``arms.arm_bounded_reduce``); proper interpolation runs the CUDA kernel
-``csrc/pi_scan.cu`` on a CUDA tensor and :func:`proper_interpolation_plain`
-on a CPU one.
+Region vote runs the CUDA kernel ``csrc/region_vote.cu`` (one launch a
+pass) and proper interpolation ``csrc/pi_scan.cu`` on a CUDA tensor, and
+:func:`region_vote_plain` and :func:`proper_interpolation_plain` on a CPU
+one.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from mystereomatching_tpu_torch.ops import cuda_kernels as ck
-from mystereomatching_tpu_torch.ops.arms import arm_bounded_reduce
+from mystereomatching_tpu_torch.ops.arms import arm_bounded_reduce_plain
 from mystereomatching_tpu_torch.ops.median import median_small
 from mystereomatching_tpu_torch.ops.wta import neighbour_costs
 
@@ -77,21 +77,35 @@ def region_vote(disp: torch.Tensor, arms: torch.Tensor, num_disp: int,
     The support is the anchor's vertical arms over rows whose horizontal
     arms are each row's own, so the min, max (as min of -d) and valid count
     run along W with the left/right arms, then along H with the up/down
-    arms. ``arms`` are the left image's raw [4, H, W] cross arms. The
+    arms. ``arms`` are the left image's raw [4, H, W] cross arms. A CUDA
+    tensor runs the whole pass as one launch of ``csrc/region_vote.cu``
+    (``max_arm`` at most 127), a CPU one :func:`region_vote_plain`. The
     histogram form (``int_ratio_quirk=False``) is not ported; ``num_disp``
     and ``h_ratio`` only serve it.
     """
     if not int_ratio_quirk:
         raise NotImplementedError("region vote's histogram form "
                                   "(rv_int_ratio_quirk=False) is not ported yet")
+    if ck.on_cuda(disp):
+        return ck.region_vote(disp.contiguous(), arms.contiguous(), max_arm, s_thres)
+    return region_vote_plain(disp, arms, s_thres, max_arm)
+
+
+def region_vote_plain(disp: torch.Tensor, arms: torch.Tensor, s_thres: int = 20,
+                      max_arm: int = 34) -> torch.Tensor:
+    """Plain torch unanimity region vote: the min and max (as min of -d) of
+    the valid disparities and their count, each an arm-bounded reduction
+    along W and then along H (``arms.arm_bounded_reduce_plain``), and the
+    accept rule."""
     valid = disp >= 0
     big = torch.full_like(disp, _INT32_MAX)
     mm = torch.stack([torch.where(valid, disp, big), torch.where(valid, -disp, big)])
     left, right, up, down = arms.unbind(0)
-    mm = arm_bounded_reduce(mm, left, right, 2, max_arm, "min")
-    mm = arm_bounded_reduce(mm, up, down, 1, max_arm, "min")
-    count = arm_bounded_reduce(valid.to(torch.int32)[None], left, right, 2, max_arm, "sum")
-    count = arm_bounded_reduce(count, up, down, 1, max_arm, "sum")[0]
+    mm = arm_bounded_reduce_plain(mm, left, right, 2, max_arm, "min")
+    mm = arm_bounded_reduce_plain(mm, up, down, 1, max_arm, "min")
+    count = arm_bounded_reduce_plain(valid.to(torch.int32)[None], left, right, 2, max_arm,
+                                     "sum")
+    count = arm_bounded_reduce_plain(count, up, down, 1, max_arm, "sum")[0]
     dmin, dmax = mm[0], -mm[1]
     accept = ~valid & (count > s_thres) & (dmin == dmax) & (dmin != _INT32_MAX)
     return torch.where(accept, dmin, disp)

@@ -136,7 +136,7 @@ def kernels_launched(cfg: MatchConfig) -> List[str]:
         if cfg.sgm_scan_num > 4:
             used.add("sgm_diag")
     if refining and cfg.do_region_vote:
-        used.add("arm_reduce")
+        used.add("region_vote")
     if refining and cfg.do_proper_ipol:
         used.add("pi_scan")
     return [name for name in ck.launches if name in used]

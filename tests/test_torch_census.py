@@ -175,7 +175,7 @@ def test_presets_are_supported_with_their_kernels():
     # no aggregation with a region vote reads the left image's arms
     cfg = get_model("ad_census_wta").replace(do_refine=True, do_lr_consis=True,
                                              do_region_vote=True)
-    assert kernels_launched(cfg) == ["arms_grow", "wta", "arm_reduce", "pi_scan"]
+    assert kernels_launched(cfg) == ["arms_grow", "wta", "region_vote", "pi_scan"]
 
 
 @pytest.mark.parametrize("bad", [dict(aggregation="nl"), dict(cost="census_from2"),

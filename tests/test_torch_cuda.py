@@ -52,6 +52,48 @@ def test_arms_grow_kernel(cuda, shape):
                        arms.grow_arms_plain(img, SCHED, 20.0, 1))
 
 
+def _arms_image(rng, shape, flat):
+    """A blocky noisy colour image of ``shape``, or one colour everywhere."""
+    if flat:
+        return np.full(shape + (3,), 77.0, np.float32)
+    base = np.kron(rng.integers(0, 256, (-(-shape[0] // 30), -(-shape[1] // 30), 3)),
+                   np.ones((30, 30, 1)))[:shape[0], :shape[1]]
+    return np.clip(np.round(base + rng.normal(0, 2.0, base.shape)), 0, 255).astype(np.float32)
+
+
+# Kernel A runs a thread a (pixel, direction pair), 256 pixels a block, and
+# walks at most l_out steps: sides shorter and narrower than l_out, images of
+# fewer and of more pixels than a block, and a flat image, whose arms all
+# reach min(l_out, distance to the border).
+@pytest.mark.parametrize("shape", [(1, 1), (9, 50), (20, 300), (300, 20), (45, 70),
+                                   (150, 261)])
+@pytest.mark.parametrize("l_out", [34, 127])
+@pytest.mark.parametrize("flat", [False, True])
+def test_arms_grow_kernel_l_out(cuda, shape, l_out, flat):
+    rng = np.random.default_rng(shape[0] + l_out)
+    img = _t(_arms_image(rng, shape, flat), cuda)
+    sched = [20.0 if k <= l_out // 2 else 6.0 for k in range(1, l_out + 1)]
+    got = ck.arms_grow(img, sched, 20.0, 1)
+    assert torch.equal(got, arms.grow_arms_plain(img, sched, 20.0, 1))
+    if flat:
+        room = torch.stack([arms.border_floor(*shape, dv, du, l_out, cuda)
+                            for dv, du in arms.DIRECTIONS])
+        assert torch.equal(got, room)
+
+
+def test_arms_grow_copies_nothing_to_the_card(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    img = _t(_arms_image(np.random.default_rng(1), (45, 70), False), cuda)
+    ck.arms_grow(img, SCHED, 20.0, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ck.arms_grow(img, SCHED, 20.0, 1)
+        torch.cuda.synchronize()
+    copies = [e.name for e in prof.events() if "memcpy" in e.name.lower()]
+    assert not copies, copies
+
+
 # Kernel B stages 8 rows over a tile of at most 512 columns along W (W in
 # ceil(W / 512) tiles of a multiple of 4 columns), and walks strips of 32
 # columns down H, 8 rows a stage. The shapes straddle a tile's and a strip's
@@ -314,6 +356,60 @@ def test_arm_reduce_kernel(cuda, shape, axis, op):
     an, ap = (_t(rng.integers(0, 40, shape).astype(np.int32), cuda) for _ in range(2))
     assert torch.equal(ck.arm_reduce(vol, an, ap, axis, M, op),
                        arms.arm_bounded_reduce_plain(vol, an, ap, axis, M, op))
+
+
+def _region_vote_inputs(rng, shape, max_arm, holes):
+    """A map of 16-px blocks with ``holes`` of its pixels -1 or -32, and
+    [4, H, W] arms mostly short (geometric, at most 7) with 5% past
+    max_arm, which the kernel caps."""
+    h, w = shape
+    base = np.kron(rng.integers(0, 60, (-(-h // 16), -(-w // 16))), np.ones((16, 16), np.int64))
+    r = rng.random(shape)
+    disp = np.where(r < holes / 2, -1, np.where(r < holes, -32, base[:h, :w])).astype(np.int32)
+    arms0 = np.minimum(rng.geometric(0.3, (4,) + shape) - 1, 7)
+    long = rng.random((4,) + shape) < 0.05
+    arms0 = np.where(long, rng.integers(max_arm, max_arm + 6, (4,) + shape), arms0)
+    return disp, arms0.astype(np.int32)
+
+
+# Region vote's tiles are 32 columns by 32 rows; (77, 101) and (1100, 1950)
+# are several tiles and a partial one along each axis. holes=1.0: an
+# all-invalid map.
+@pytest.mark.parametrize("shape", [(1, 1), (5, 70), (33, 41), (77, 101), (1100, 1950)])
+@pytest.mark.parametrize("max_arm", [34, 127])
+@pytest.mark.parametrize("holes", [0.3, 1.0])
+def test_region_vote_kernel(cuda, shape, max_arm, holes):
+    """Two chained passes, each one launch, against region_vote_plain."""
+    rng = np.random.default_rng(shape[0] + max_arm)
+    disp, arms0 = _region_vote_inputs(rng, shape, max_arm, holes)
+    d, a = _t(disp, cuda), _t(arms0, cuda)
+    for _ in range(2):
+        before = ck.launches["region_vote"]
+        got = ck.region_vote(d, a, max_arm, 3)
+        assert ck.launches["region_vote"] == before + 1
+        want = refine.region_vote_plain(d, a, 3, max_arm)
+        assert torch.equal(got, want)
+        d = want
+    if holes == 1.0:
+        assert torch.equal(d, _t(disp, cuda))
+
+
+def test_region_vote_on_cuda_is_one_launch(cuda):
+    """refine.region_vote on a CUDA tensor: one region_vote launch a pass,
+    no arm_reduce launch."""
+    disp, arms0 = _region_vote_inputs(np.random.default_rng(2), (45, 70), 34, 0.3)
+    d, a = _t(disp, cuda), _t(arms0, cuda)
+    ck.reset_launches()
+    got = refine.region_vote(d, a, 60, 3, 0.4, True, 34)
+    assert ck.launches["region_vote"] == 1 and ck.launches["arm_reduce"] == 0
+    assert sum(ck.launches.values()) == 1
+    assert torch.equal(got, refine.region_vote_plain(d, a, 3, 34))
+
+
+def test_region_vote_refuses_long_arms(cuda):
+    d = torch.zeros((4, 5), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ck.region_vote(d, torch.zeros((4, 4, 5), dtype=torch.int32, device=cuda), 128, 3)
 
 
 def _holed_map(rng, shape, holes):

@@ -206,6 +206,8 @@ def test_other_devices_are_refused():
     lambda: ck.arm_reduce(torch.zeros((2, 4, 5), dtype=torch.int32),
                           torch.zeros((4, 5), dtype=torch.int32),
                           torch.zeros((4, 5), dtype=torch.int32), 2, M, "min"),
+    lambda: ck.region_vote(torch.zeros((4, 5), dtype=torch.int32),
+                           torch.zeros((4, 4, 5), dtype=torch.int32), M, 20),
     lambda: ck.pi_scan(torch.zeros((4, 5), dtype=torch.int32), torch.zeros((4, 5, 3)),
                        torch.zeros((16, 20, 2), dtype=torch.int32), -32),
 ])

@@ -280,7 +280,7 @@ def test_nl_presets_are_supported():
     for name in NL_PRESETS:
         check_supported(get_model(name))
     assert kernels_launched(get_model("nl_tree_filter")) == [
-        "arms_grow", "wta", "arm_reduce", "pi_scan"]
+        "arms_grow", "wta", "region_vote", "pi_scan"]
     assert kernels_launched(get_model("nl_8nr")) == kernels_launched(get_model("nl_tree_filter"))
     assert kernels_launched(get_model("nl_post")) == ["wta"]
     assert kernels_launched(get_model("nl_census_post")) == ["wta"]

@@ -225,7 +225,7 @@ def test_fullres_occfill_is_supported_with_its_kernels():
         cfg = get_model("fullres_occfill", max_disp=255, **kw)
         check_supported(cfg)
         assert kernels_launched(cfg) == ["arms_grow", "arm_taps", "sgm_scan", "wta",
-                                         "arm_reduce", "pi_scan"]
+                                         "region_vote", "pi_scan"]
     for bad in (dict(d_stream_block=32, cbca_double_win=True),
                 dict(d_stream_block=32, cost="bt"), dict(bg_ipol_kitti=True),
                 dict(vol_dtype="float16")):

@@ -1,14 +1,16 @@
 """The port's refinement against the JAX package's, on the CPU.
 
 LR check, arm-bounded integer reductions (kernel B's integer mode), region
-vote, proper interpolation, the median, the refine chain as a whole, and
-the port's default preset against the reference binary's final map. Both
+vote (the dispatching function and its plain version), proper
+interpolation, the median, the refine chain as a whole, and the port's
+default preset against the reference binary's final map. Both
 sides get the same numpy arrays. Every comparison is exact: the maps are
 int32, and the plain torch versions keep the JAX CPU path's rules (tap
 order, tie rules, float32 colour differences).
 """
 
 import os
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -88,6 +90,40 @@ def test_region_vote_two_iterations_exact():
         ours = refine.region_vote(ours, arms0, 12, 20, 0.4, True, M)
     assert int((ours != torch.from_numpy(holed)).sum()) > 0  # some votes were accepted
     np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("case", ["arms_past_max_arm", "holes_on_every_border"])
+def test_region_vote_plain_exact(case):
+    """region_vote_plain against the JAX region vote: every arm at or past
+    max_arm (capped there), or holes along all four borders, where the
+    support is cut at the image's edge."""
+    rng = np.random.default_rng(len(case))
+    h, w, m = 23, 31, 5
+    disp = _blocky(np.random.default_rng(9), h, w, 12, np.arange(6)).astype(np.int32)
+    holed = np.where(rng.random((h, w)) < 0.2, -1, disp).astype(np.int32)
+    if case == "arms_past_max_arm":
+        arms0 = rng.integers(m, 3 * m, (4, h, w)).astype(np.int32)
+    else:
+        arms0 = rng.integers(0, 2 * m, (4, h, w)).astype(np.int32)
+        holed[[0, -1], :] = -32
+        holed[:, [0, -1]] = -1
+    ref = jax_refine.region_vote(jnp.asarray(holed), jnp.asarray(arms0), 6, 3, 0.4, True, m)
+    ours = refine.region_vote_plain(torch.from_numpy(holed), torch.from_numpy(arms0), 3, m)
+    assert int((ours != torch.from_numpy(holed)).sum()) > 0  # some votes were accepted
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+
+
+def test_region_vote_on_cpu_never_reaches_cuda_kernels():
+    rng = np.random.default_rng(6)
+    img, _, holed = _scene(rng, 20, 24)
+    d = torch.from_numpy(holed)
+    arms0 = arms.build_arms(torch.from_numpy(img), port.default_config(max_disp=11))
+    ck.reset_launches()
+    with mock.patch.object(ck, "region_vote", side_effect=AssertionError("region_vote")), \
+            mock.patch.object(ck, "arm_reduce", side_effect=AssertionError("arm_reduce")):
+        out = refine.region_vote(d, arms0, 12, 20, 0.4, True, M)
+    assert ck.launches["region_vote"] == 0 and ck.launches["arm_reduce"] == 0
+    assert torch.equal(out, refine.region_vote_plain(d, arms0, 20, M))
 
 
 def test_region_vote_histogram_form_raises():

@@ -138,6 +138,6 @@ def test_sgm8_full_exercises_its_stages(preset_outputs):
 def test_kernels_launched_per_preset():
     assert "sgm_diag" in kernels_launched(get_model("sgm8_full"))
     assert kernels_launched(port.default_config()) == [
-        "arms_grow", "arm_taps", "sgm_scan", "wta", "arm_reduce", "pi_scan"]
+        "arms_grow", "arm_taps", "sgm_scan", "wta", "region_vote", "pi_scan"]
     assert kernels_launched(port.default_config(do_refine=False)) == [
         "arms_grow", "arm_taps", "sgm_scan", "wta"]
