@@ -125,7 +125,8 @@ Phases, each of which raises (exit code 1) on failure:
    gathers exactly; the kernel's sums equal to the sequential float32 sums
    bit for bit, ``torch.cumsum``'s within
    ``plane_probes.cumsum_tolerance`` of the float64 sum), with its bound
-   and the time of ``torch.gather`` or ``torch.cumsum``;
+   and the time of ``torch.gather`` or ``torch.cumsum``, and
+   ``cumsum_cols``'s time over ``torch.cumsum``'s;
 12. census: ``ad_census_wta`` and ``census_wta`` at 288x384, D=16, and
    ``census_cbca_lrc`` at 375x450, D=64 (BASELINE configs 1 and 2 at
    scripts/bench_suite.py:39-40's sizes, uncut), each on
@@ -144,8 +145,9 @@ Phases, each of which raises (exit code 1) on failure:
    [G, H, D, W] = [4, 375, 60, 450] and [2, 750, 128, 1000], each equal to
    its plain version and, in full, to kernel C's downward scan of the
    transposed volume, bit for bit, with its bound, kernel C's time on the
-   same values, ``torch.mul``'s for copy, and each instance's registers
-   and spills;
+   same values, ``torch.mul``'s for copy, the unrolled copy's time over
+   ``torch.mul``'s and beside the rolled copy's, and each instance's
+   registers and spills;
 14. taps probes: ``tools/taps_probes.py``'s probes (``csrc/taps_probes.cu``:
    ``taps_probe_roll`` along H and W, ``taps_probe_slice`` in its kinds
    dyn (H and W), fixed and seg (64, 32), ``taps_probe_clones`` in clones,
@@ -1635,6 +1637,10 @@ def phase_micro4(dev, card_line: str) -> dict:
     for name, what, kernel, plain, library, check, nbytes, nops in micro4.cases(dev):
         rows[name] = run_case(name, what, (kernel, plain, nbytes, nops), card_line, library,
                               check=check, kernel_name=name.removesuffix("_nl"))
+    for name in ("cumsum_cols", "cumsum_cols_nl"):
+        ms, lib_ms = rows[name]["ms"], rows[name]["library_ms"]
+        print(f"kernel {name}: {ms:.4f} ms device, torch.cumsum {lib_ms:.4f} ms (kernel / "
+              f"library {ms / lib_ms:.3f}), {rows[name]['case']} [{card_line}]")
     torch.cuda.empty_cache()
     return rows
 
@@ -1765,6 +1771,8 @@ def phase_sgm_layouts(dev, card_line: str, build_log: str) -> dict:
             rows[name] = run_case(name, what, (kernel, plain, nbytes, nops), card_line, library,
                                   check=check, kernel_name=entry)
             rows[name]["kernel_c_ms"] = c_ms
+        print(sgm_layouts.copy_line(suffix, {name: (row["ms"], row["library_ms"])
+                                             for name, row in rows.items()}, card_line))
         del vol, ps, vol_t, cases
         torch.cuda.empty_cache()
     sgm_layouts.print_registers(build_log, card_line)

@@ -23,17 +23,42 @@
 // Design (simple first): the gathers take one thread an output element
 // over a grid-stride loop, neighbouring threads on neighbouring columns,
 // so the index and the output move coalesced and only the source reads
-// scatter. The cumsums take one thread a column (along axis 0: each row's
-// loads coalesce across the threads) or a row (along axis 1: each thread
-// walks its own row, the loads of a warp 32 rows apart, which L1 serves
-// over the row's cache lines); the loop is unrolled so that loads issue
+// scatter. cumsum_rows takes one thread a column: each row's loads
+// coalesce across the threads; the loop is unrolled so that loads issue
 // ahead of the dependent adds.
+//
+// cumsum_cols stages its rows through shared memory: a thread that walked
+// its own row in device memory would make each load of a warp touch 32
+// cache lines, a row apart, and a block of 128 such threads leaves most
+// SMs idle (3 blocks at [375, 450]). A block takes a band of `band`
+// consecutive rows, one contiguous span of device memory, with band chosen
+// at launch so that about kFillBlocks blocks run where R allows (2 rows at
+// R = 375, up to kScanThreads at R = 168750); the adds are not the cost
+// (450 dependent adds take about a microsecond). For each tile of the
+// band's columns:
+//   1. all its threads copy the tile into shared memory, coalesced, in
+//      16-byte loads where the tile is the whole span (a scalar head and
+//      tail around the span's 16-byte words: a band starts aligned only
+//      where row0 C % 4 == 0), else a scalar a row segment;
+//   2. shared rows are padded to an odd stride (450 gave 2-way bank
+//      conflicts), so that a warp's 32 threads, each on its own row, read
+//      32 different banks;
+//   3. thread t adds row t left to right, starting from -0.0 (so that the
+//      first sum is x[t, 0] itself) and carrying its sum in a register
+//      from tile to tile, and writes each partial sum back in place;
+//   4. the tile goes back to device memory as it came in.
+// A tile is the whole row where band (C | 1) floats fit kMaxBandBytes,
+// else the widest odd number of columns that fits: a row longer than one
+// tile is done in column chunks. The sums keep their sequential order.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kScanThreads = 128;
+constexpr int kFillBlocks = 2 * 132;         // cumsum_cols: blocks wanted, two an SM
+constexpr int kMaxBandBytes = 48 * 1024;     // cumsum_cols: shared memory a block
+constexpr int kWordsInFlight = 4;            // cumsum_cols: 16-byte loads a thread at once
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 
@@ -74,18 +99,100 @@ __global__ void __launch_bounds__(kScanThreads)
   }
 }
 
+// Moves `rows` row segments of `len` floats between device memory, where
+// segment r starts at g + r cols, and shared memory, where it starts at
+// sm + r stride: into shared memory (kIn) or back out. Where len == cols
+// the segments are one span, moved in 16-byte words from g's first 16-byte
+// boundary on, kWordsInFlight a thread loaded before any is placed, with
+// scalars for the at most 3 elements before that boundary and after the
+// last word.
+template <bool kIn>
+__device__ __forceinline__ void move_band(float* g, float* sm, int rows, int len, int cols,
+                                          int stride) {
+  const int n = rows * len;
+  if (len != cols) {
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      const int r = e / len;
+      const int c = e - r * len;
+      float* gp = g + static_cast<long long>(r) * cols + c;
+      float* sp = sm + r * stride + c;
+      if (kIn) *sp = *gp; else *gp = *sp;
+    }
+    return;
+  }
+  const int first = static_cast<int>(((16 - (reinterpret_cast<size_t>(g) & 15)) & 15) / 4);
+  const int head = first < n ? first : n;
+  const int words = (n - head) / 4;
+  const int tail = n - head - 4 * words;
+  if (threadIdx.x < head + tail) {
+    const int e = threadIdx.x < head ? threadIdx.x : threadIdx.x + 4 * words;
+    const int r = e / cols;
+    float* sp = sm + r * stride + e - r * cols;
+    if (kIn) *sp = g[e]; else g[e] = *sp;
+  }
+  float4* g4 = reinterpret_cast<float4*>(g + head);
+  for (int v0 = threadIdx.x; v0 < words; v0 += kWordsInFlight * blockDim.x) {
+    float q[kWordsInFlight][4];
+    if (kIn) {
+#pragma unroll
+      for (int k = 0; k < kWordsInFlight; ++k) {
+        const int v = v0 + k * blockDim.x;
+        if (v < words) {
+          const float4 w = g4[v];
+          q[k][0] = w.x;
+          q[k][1] = w.y;
+          q[k][2] = w.z;
+          q[k][3] = w.w;
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kWordsInFlight; ++k) {
+      const int v = v0 + k * blockDim.x;
+      if (v >= words) break;
+      const int e = head + 4 * v;
+      int r = e / cols;
+      int c = e - r * cols;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (kIn) sm[r * stride + c] = q[k][j]; else q[k][j] = sm[r * stride + c];
+        if (++c == cols) {
+          c = 0;
+          ++r;
+        }
+      }
+      if (!kIn) g4[v] = make_float4(q[k][0], q[k][1], q[k][2], q[k][3]);
+    }
+  }
+}
+
+// Running sums along the rows of x [rows, cols], block b the rows
+// [b band, (b + 1) band), tiles of `tile` columns at `stride` floats a
+// shared row (odd, at least tile).
 __global__ void __launch_bounds__(kScanThreads)
     cumsum_cols_kernel(const float* __restrict__ x, float* __restrict__ out, long long rows,
-                       int cols) {
-  const long long r = blockIdx.x * static_cast<long long>(kScanThreads) + threadIdx.x;
-  if (r >= rows) return;
-  const float* xr = x + r * cols;
-  float* orow = out + r * cols;
-  float acc = 0.0f;
+                       int cols, int band, int tile, int stride) {
+  extern __shared__ float sm[];
+  const long long row0 = static_cast<long long>(blockIdx.x) * band;
+  const int nb = static_cast<int>(rows - row0 < band ? rows - row0 : band);
+  float* src = const_cast<float*>(x) + row0 * cols;
+  float* dst = out + row0 * cols;
+  float* mine = sm + threadIdx.x * stride;
+  float acc = -0.0f;
+  for (int c0 = 0; c0 < cols; c0 += tile) {
+    const int len = cols - c0 < tile ? cols - c0 : tile;
+    if (c0 > 0) __syncthreads();  // the last tile is out of shared memory
+    move_band<true>(src + c0, sm, nb, len, cols, stride);
+    __syncthreads();
+    if (threadIdx.x < nb) {
 #pragma unroll 8
-  for (int c = 0; c < cols; ++c) {
-    acc += xr[c];
-    orow[c] = acc;
+      for (int c = 0; c < len; ++c) {
+        acc = __fadd_rn(acc, mine[c]);
+        mine[c] = acc;
+      }
+    }
+    __syncthreads();
+    move_band<false>(dst + c0, sm, nb, len, cols, stride);
   }
 }
 
@@ -124,10 +231,17 @@ extern "C" int mysm_cumsum(const float* x, float* out, long long rows, int cols,
     cumsum_rows_kernel<<<(cols + kScanThreads - 1) / kScanThreads, kScanThreads, 0, s>>>(
         x, out, rows, cols);
   } else {
-    const long long blocks = (rows + kScanThreads - 1) / kScanThreads;
+    const long long fill = (rows + kFillBlocks - 1) / kFillBlocks;
+    const int band = static_cast<int>(fill < kScanThreads ? fill : kScanThreads);
+    const long long blocks = (rows + band - 1) / band;
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-    cumsum_cols_kernel<<<static_cast<unsigned>(blocks), kScanThreads, 0, s>>>(x, out, rows,
-                                                                            cols);
+    int cap = kMaxBandBytes / static_cast<int>(sizeof(float)) / band;  // floats a shared row
+    cap -= 1 - cap % 2;  // odd
+    const int tile = (cols | 1) <= cap ? cols : cap;
+    const int stride = tile | 1;
+    cumsum_cols_kernel<<<static_cast<unsigned>(blocks), kScanThreads,
+                         sizeof(float) * band * stride, s>>>(x, out, rows, cols, band, tile,
+                                                             stride);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,8 +12,9 @@
 //   check_sgm5.py:17 make(kind) (:53), G in the block, the row loop rolled
 //                                         -> sgm_probe_rolled_kernel
 //   check_sgm5.py:74 make_unrolled(kind) (:108), the row loop unrolled
-//                                         -> sgm_probe_unrolled_kernel
-// Here each scans the whole of H in one launch.
+//                                         -> sgm_probe_unrolled_kernel (full),
+//                                            sgm_probe_unrolled_kernel_copy (copy)
+// Here each covers the whole of H in one launch.
 //
 // What they compute, per column x of volume g, from a zero carry L(-1) = 0
 // (row r's costs C(r, d), its penalty scale s = ps[g, r, x]):
@@ -33,7 +34,7 @@
 // operations an element.
 //
 // Design (simple first): a block is a tile of 32 adjacent columns (a
-// warp's width) of one volume (hdw) or of all G (g, rolled, unrolled), 8
+// warp's width) of one volume (hdw) or of all G (g, rolled, unrolled full), 8
 // warps a volume; warp j of a volume takes disparities j, j + 8, ..., so
 // that each load and store of a warp is one 128-byte row segment of one
 // disparity. A thread keeps its disparities' costs for the next two rows
@@ -45,8 +46,21 @@
 // other warps), and each warp's minimum of its new path costs,
 // [2][8 G][32]; one __syncthreads a row.
 // D <= 256 (kPer <= 32 floats); full's shared memory is
-// 256 (D + 8) G bytes, at most 227 KB. The unrolled kind unrolls the row
-// loop by kUnroll = 8 (the TPU's chunk is a multiple of 8 rows).
+// 256 (D + 8) G bytes, at most 227 KB. The unrolled full kind unrolls the
+// row loop by kUnroll = 8 (the TPU's chunk is a multiple of 8 rows).
+//
+// The unrolled copy is a streaming kernel instead
+// (sgm_probe_unrolled_kernel_copy): the copy carries nothing from row to
+// row, so the row walk above, the TPU's sequential grid carried over, only
+// held the card to ceil(W / 32) blocks (15 at W = 450, 32 at W = 1000, on
+// 132 SMs). It makes one pass over the G H D W elements as one flat array,
+// a block a tile of kStreamTile floats (9,888 blocks at [4, 375, 60, 450]):
+// each thread loads its kStreamVec 16-byte words before it stores any,
+// with scalars for the at most 3 elements before vol's first 16-byte
+// boundary and after its last (every element a scalar where vol and out
+// lie differently against 16 bytes), and 64-bit offsets; ps is not read.
+// The rolled copy keeps the row walk, so that the two designs are timed
+// side by side on the same values.
 #include <cfloat>
 
 #include <cuda_runtime.h>
@@ -58,11 +72,59 @@ constexpr int kWarpsPerG = 8;  // warps a volume
 constexpr int kMaxG = 4;       // volumes in one block: 32 kMaxG warps
 constexpr int kUnroll = 8;     // rows an unrolled step
 constexpr int kMaxSmem = 227 * 1024;
+constexpr int kStreamThreads = 256;  // the unrolled copy: threads a block
+constexpr int kStreamVec = 4;        // 16-byte words a thread, all loaded before any store
+constexpr int kStreamTile = kStreamThreads * kStreamVec * 4;  // floats a block
 
 enum Kind { kCopy = 0, kPrev = 1, kFull = 2 };
 enum Entry { kHdw = 0, kG = 1, kRolled = 2, kUnrolled = 3 };
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+__device__ __forceinline__ float copy_body(float c) { return __fmul_rn(c, 1.01f); }
+
+// The unrolled copy: out = vol * 1.01 over the n floats of vol, on
+// ceil(n / kStreamTile) blocks. Where vol and out start at the same offset
+// within 16 bytes, block b takes the 16-byte words [b, b + 1) kStreamTile / 4
+// from vol's first 16-byte boundary on; block 0 also the scalars before it
+// (at most 3), the last block those after the last word (at most 3).
+// Otherwise block b takes the elements [b, b + 1) kStreamTile as scalars.
+__global__ void __launch_bounds__(kStreamThreads)
+    sgm_probe_unrolled_kernel_copy(const float* __restrict__ vol, float* __restrict__ out,
+                                   long long n) {
+  const unsigned skew = static_cast<unsigned>(reinterpret_cast<size_t>(vol) & 15);
+  if (skew != (reinterpret_cast<size_t>(out) & 15)) {
+    const long long t0 = static_cast<long long>(blockIdx.x) * kStreamTile;
+    const long long t1 = t0 + kStreamTile < n ? t0 + kStreamTile : n;
+    for (long long i = t0 + threadIdx.x; i < t1; i += kStreamThreads) {
+      out[i] = copy_body(vol[i]);
+    }
+    return;
+  }
+  const long long first = ((16 - skew) & 15) / 4;  // scalars before the first boundary
+  const long long head = first < n ? first : n;
+  const long long words = (n - head) / 4;
+  const long long w0 = static_cast<long long>(blockIdx.x) * (kStreamTile / 4);
+  const float4* v4 = reinterpret_cast<const float4*>(vol + head);
+  float4* o4 = reinterpret_cast<float4*>(out + head);
+  float4 c[kStreamVec];
+#pragma unroll
+  for (int k = 0; k < kStreamVec; ++k) {
+    const long long i = w0 + k * kStreamThreads + threadIdx.x;
+    if (i < words) c[k] = v4[i];
+  }
+#pragma unroll
+  for (int k = 0; k < kStreamVec; ++k) {
+    const long long i = w0 + k * kStreamThreads + threadIdx.x;
+    if (i < words) {
+      o4[i] = make_float4(copy_body(c[k].x), copy_body(c[k].y), copy_body(c[k].z),
+                          copy_body(c[k].w));
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x < head) out[threadIdx.x] = copy_body(vol[threadIdx.x]);
+  const long long tail = head + 4 * words + threadIdx.x;
+  if (blockIdx.x == gridDim.x - 1 && tail < n) out[tail] = copy_body(vol[tail]);
+}
 
 // The rows of one block: volumes g0 .. g0 + blockDim.y / 8 - 1, columns
 // x0 .. x0 + 31. vol/out [G, H, D, W]; ps [G, H, W].
@@ -146,8 +208,8 @@ __device__ __forceinline__ void probe_rows(const float* __restrict__ vol,
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
         if (in && k < n) {
-          const float l = kKind == kCopy ? __fmul_rn(c[k], 1.01f)
-                                         : __fadd_rn(c[k], __fmul_rn(prev[k], 0.5f));
+          const float l =
+              kKind == kCopy ? copy_body(c[k]) : __fadd_rn(c[k], __fmul_rn(prev[k], 0.5f));
           prev[k] = l;
           o[k * dstep] = l;
         }
@@ -208,10 +270,7 @@ KernelFn pick(int entry, int kind) {
              : kind == kPrev ? sgm_probe_rolled_kernel<kPrev, kPer>
              : kind == kFull ? sgm_probe_rolled_kernel<kFull, kPer>
                              : nullptr;
-    case kUnrolled:
-      return kind == kCopy   ? sgm_probe_unrolled_kernel<kCopy, kPer>
-             : kind == kFull ? sgm_probe_unrolled_kernel<kFull, kPer>
-                             : nullptr;
+    case kUnrolled: return kind == kFull ? sgm_probe_unrolled_kernel<kFull, kPer> : nullptr;
     default: return nullptr;
   }
 }
@@ -228,6 +287,16 @@ extern "C" int mysm_sgm_probe(const float* vol, const float* ps, float* out, int
                               float edge, void* stream) {
   if (g < 1 || nd < 1 || nd > 256 || h < 1 || w < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (entry == kUnrolled && kind == kCopy) {
+    if (g > kMaxG) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const long long n = static_cast<long long>(g) * h * nd * w;
+    const long long blocks = (n + kStreamTile - 1) / kStreamTile;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+    sgm_probe_unrolled_kernel_copy<<<static_cast<unsigned>(blocks), kStreamThreads, 0, s>>>(
+        vol, out, n);
+    return static_cast<int>(cudaGetLastError());
   }
   const int per = (nd + kWarpsPerG - 1) / kWarpsPerG;
   const KernelFn fn = per <= 8 ? pick<8>(entry, kind) : per <= 16 ? pick<16>(entry, kind)
@@ -247,7 +316,6 @@ extern "C" int mysm_sgm_probe(const float* vol, const float* ps, float* out, int
   }
   const dim3 grid((w + kCols - 1) / kCols, g / gb);
   const dim3 block(kCols, kWarpsPerG * gb);
-  fn<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(vol, ps, out, nd, h, w, p1, p2,
-                                                                edge);
+  fn<<<grid, block, smem, s>>>(vol, ps, out, nd, h, w, p1, p2, edge);
   return static_cast<int>(cudaGetLastError());
 }

@@ -474,8 +474,9 @@ def gather_cols(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def cumsum(x: torch.Tensor, axis: int) -> torch.Tensor:
     """The prefix-sum probe: running float32 sums of x [R, C] along axis 0
-    (``cumsum_rows``, a thread a column) or 1 (``cumsum_cols``, a thread a
-    row), each added in sequential order."""
+    (``cumsum_rows``, a thread a column) or 1 (``cumsum_cols``, bands of
+    rows staged through shared memory, a thread a row), each added in
+    sequential order."""
     if x.ndim != 2 or axis not in (0, 1):
         raise ValueError(f"cumsum: expected a 2-D x and axis 0 or 1, got {tuple(x.shape)}, "
                          f"axis {axis}")
@@ -534,8 +535,10 @@ def sgm_probe_rolled(vol: torch.Tensor, ps: torch.Tensor, kind: str) -> torch.Te
 
 def sgm_probe_unrolled(vol: torch.Tensor, ps: torch.Tensor, kind: str) -> torch.Tensor:
     """``check_sgm5.py``'s ``make_unrolled(kind)``: as
-    :func:`sgm_probe_rolled` (``copy`` or ``full``), the row loop unrolled
-    8 rows a step at compile time."""
+    :func:`sgm_probe_rolled` (``copy`` or ``full``). ``full`` unrolls the
+    row loop 8 rows a step at compile time; ``copy``, which carries nothing
+    from row to row, is one streaming pass over the volume (``ps`` is
+    checked but not read)."""
     return _sgm_probe("sgm_probe_unrolled", vol, ps, kind, 3.4e38)
 
 

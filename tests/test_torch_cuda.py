@@ -631,8 +631,11 @@ def test_copy_bw_kernel(cuda, shape, tile, aligned):
 
 # the gather and prefix-sum probes (csrc/plane_probes.cu): micro4.py's plane,
 # sides that are not multiples of 32, one row or one column, and the NL
-# filter's rows at Teddy size (375 x 450 nodes by D + 1 = 61 columns)
-PROBE_SHAPES = [(375, 450), (33, 65), (1, 97), (97, 1), (31, 32), (168750, 61)]
+# filter's rows at Teddy size (375 x 450 nodes by D + 1 = 61 columns); for
+# cumsum_cols' row bands, a band of one row past 128, rows longer than one
+# shared-memory tile (column chunks), and rows that start off 16 bytes
+PROBE_SHAPES = [(375, 450), (33, 65), (1, 97), (97, 1), (31, 32), (168750, 61),
+                (129, 450), (3, 70000), (257, 61), (5, 3)]
 
 
 @pytest.mark.parametrize("shape", PROBE_SHAPES)
@@ -679,6 +682,25 @@ def test_cumsum_probe_kernels(cuda, shape, axis):
     assert pp.cumsum_error(pp.cumsum_plain(x, axis), x, axis) <= 1.0
 
 
+@pytest.mark.parametrize("offsets", [(1, 0), (2, 3), (3, 3)])
+def test_cumsum_cols_kernel_on_unaligned_views(cuda, offsets):
+    """Input and output starting 4, 8 or 12 bytes past a 16-byte boundary,
+    alike or not: the band's 16-byte words start elsewhere in each."""
+    from mystereomatching_tpu_torch.ops import plane_probes as pp
+
+    shape, (off_x, off_out) = (300, 61), offsets
+    n = shape[0] * shape[1]
+    gen = torch.Generator(device=cuda).manual_seed(off_x)
+    x = (torch.rand(n + 4, generator=gen, device=cuda) * 2 - 0.5)[off_x:off_x + n].view(shape)
+    out = torch.empty(n + 4, device=cuda)[off_out:off_out + n].view(shape)
+    before = ck.launches["cumsum_cols"]
+    with mock.patch.object(torch, "empty_like", lambda t: out):
+        got = ck.cumsum(x, 1)
+    assert ck.launches["cumsum_cols"] == before + 1
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(got, pp.cumsum_sequential(x, 1))
+
+
 @pytest.mark.parametrize("neighbors", [4, 8])
 def test_tree_filter_on_cuda_repeats_and_equals_cpu(cuda, neighbors):
     """No atomics: two runs on the card give the same bits, and the CPU's."""
@@ -715,7 +737,8 @@ def test_nl_preset_on_cuda_equals_cpu(cuda, preset):
 # (208 KB of shared memory in full); each against its plain version and, in
 # full, against kernel C's downward scan of the transpose
 SGM_PROBE_SHAPES = [(4, 24, 60, 40), (2, 9, 128, 33), (1, 5, 1, 7), (3, 17, 7, 70),
-                    (1, 6, 256, 45), (4, 4, 200, 31)]
+                    (1, 6, 256, 45), (4, 4, 200, 31),
+                    (3, 41, 9, 37)]  # 40,959 elements: one short of 10 copy tiles, odd
 SGM_PROBE_CASES = [(entry, kind) for entry, (_, kinds) in ck.SGM_PROBES.items() for kind in kinds]
 
 
@@ -735,6 +758,27 @@ def test_sgm_probe_kernels(cuda, shape, entry, kind):
     if kind == "full":
         want_c = ck.sgm_scan(vol.transpose(1, 2).contiguous(), ps, 1.0, 3.0, 2, False)
         assert torch.equal(got, want_c.transpose(1, 2))
+
+
+@pytest.mark.parametrize("offsets", [(1, 1), (2, 2), (3, 3), (1, 0), (0, 2)])
+def test_sgm_probe_unrolled_copy_on_unaligned_views(cuda, offsets):
+    """The streaming copy with vol and out 4, 8 or 12 bytes past a 16-byte
+    boundary: alike (a scalar head, then 16-byte words) or not (every
+    element a scalar)."""
+    from mystereomatching_tpu_torch.ops import sgm_probes
+
+    shape, (off_vol, off_out) = (2, 30, 11, 45), offsets
+    n = int(np.prod(shape))
+    gen = torch.Generator(device=cuda).manual_seed(off_vol * 4 + off_out)
+    vol = torch.rand(n + 4, generator=gen, device=cuda)[off_vol:off_vol + n].view(shape)
+    ps = torch.rand((2, 30, 45), generator=gen, device=cuda)
+    out = torch.empty(n + 4, device=cuda)[off_out:off_out + n].view(shape)
+    before = ck.launches["sgm_probe_unrolled"]
+    with mock.patch.object(torch, "empty_like", lambda t: out):
+        got = ck.sgm_probe_unrolled(vol, ps, "copy")
+    assert ck.launches["sgm_probe_unrolled"] == before + 1
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(got, sgm_probes.copy_plain(vol))
 
 
 def test_sgm_probe_refuses_more_shared_memory_than_a_block_has(cuda):

@@ -9,14 +9,27 @@ twice that bound is refused. ``plane_probes.cumsum_sequential``, which the
 cumsum kernels must equal bit for bit, is the running float32 sum, one
 term after another. The kernels themselves run on the card only
 (``tests/test_torch_cuda.py``).
+
+The TPU kernel ``k_cumsum_lane`` itself runs too, through the script's
+``pallas_call`` in TPU interpret mode. ``scripts/micro4.py`` runs its
+probes on a TPU at import, so it is parsed with ``ast`` and only that
+kernel's definition runs.
 """
 
+import ast
+from pathlib import Path
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 from mystereomatching_tpu_torch.ops import plane_probes as pp
+
+MICRO4 = Path(__file__).resolve().parents[1] / "scripts" / "micro4.py"
 
 SHAPES = [(375, 450), (33, 65), (1, 97)]
 
@@ -70,3 +83,33 @@ def test_cumsum_sequential_adds_in_order(shape, axis):
         want[i] = run
     got = pp.cumsum_sequential(torch.from_numpy(np.moveaxis(xs, 0, axis)), axis)
     np.testing.assert_array_equal(got.numpy(), np.moveaxis(want, 0, axis))
+
+
+def _k_cumsum_lane():
+    """``scripts/micro4.py``'s ``k_cumsum_lane``, run alone in a namespace
+    of its own (nothing else of the file runs)."""
+    keep = [node for node in ast.parse(MICRO4.read_text()).body
+            if isinstance(node, ast.FunctionDef) and node.name == "k_cumsum_lane"]
+    ns = {"jnp": jnp}
+    exec(compile(ast.Module(body=keep, type_ignores=[]), str(MICRO4), "exec"), ns)
+    return ns["k_cumsum_lane"]
+
+
+@pytest.mark.parametrize("shape", [(375, 450), (33, 65)])
+def test_cumsum_lane_tpu_kernel_and_sequential_sums_within_the_bound(shape):
+    """The TPU kernel in interpret mode, with the script's block specs (the
+    whole plane in VMEM), and the sequential float32 sums that the
+    ``cumsum_cols`` kernel equals both lie within the bound of the float64
+    cumsum; they sum in different orders, so only the bound holds them
+    together."""
+    x, _, _ = _inputs(shape)
+    with pltpu.force_tpu_interpret_mode():
+        tpu = pl.pallas_call(
+            _k_cumsum_lane(),
+            out_shape=jax.ShapeDtypeStruct(shape, jnp.float32),
+            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
+            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        )(jnp.asarray(x))
+    xt = torch.from_numpy(x)
+    assert pp.cumsum_error(torch.from_numpy(np.array(tpu)), xt, 1) <= 1.0
+    assert pp.cumsum_error(pp.cumsum_sequential(xt, 1), xt, 1) <= 1.0

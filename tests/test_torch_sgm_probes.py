@@ -5,7 +5,10 @@ a TPU at import, so their kernels are held here through the functions they
 compute: the ``full`` recurrence is the JAX package's kernel C,
 ``pallas_kernels.sgm_scan_pallas``, on the [G, D, H, W] transpose (in
 interpret mode, in 8-row chunks so that its carry crosses chunks);
-``copy`` and ``prev`` are ``jnp`` expressions. Inputs as the scripts make
+``copy`` and ``prev`` are ``jnp`` expressions. ``check_sgm5.py``'s
+unrolled copy also runs itself: the file is parsed with ``ast`` and only
+``_cdiv``, ``make_unrolled`` and ``scan_u`` run, in TPU interpret mode
+(8-row chunks, a 256-column block over W = 40). Inputs as the scripts make
 them (``rng.random``) at [G, H, D, W] = [4, 24, 60, 40]. Every comparison
 is exact but one: in interpret mode XLA's CPU backend contracts the
 kernel's minL + p2 s into a fused multiply-add, which the plain version
@@ -14,11 +17,16 @@ and the card's kernels (built with -fmad=false, as kernel C) do not. So
 scales (1 and 1 / 4), and within a few ULPs on the scripts' random ones.
 """
 
+import ast
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 from mystereomatching_tpu.ops.pallas_kernels import sgm_scan_pallas
 
@@ -26,6 +34,7 @@ from mystereomatching_tpu_torch.ops import cuda_kernels as ck
 from mystereomatching_tpu_torch.ops import sgm_probes
 
 SHAPE = (4, 24, 60, 40)  # [G, H, D, W]
+CHECK_SGM5 = Path(__file__).resolve().parents[1] / "scripts" / "check_sgm5.py"
 
 
 @pytest.fixture(scope="module")
@@ -69,6 +78,21 @@ def test_copy_plain_is_jnp(inputs):
     vol, ps = inputs
     got = sgm_probes.plain(torch.from_numpy(vol), torch.from_numpy(ps), "copy")
     np.testing.assert_array_equal(got.numpy(), np.asarray(jnp.asarray(vol) * 1.01))
+
+
+def test_copy_plain_is_the_unrolled_tpu_kernel(inputs):
+    """``scan_u(vol, ps, "copy")``, the TPU kernel that
+    ``sgm_probe_unrolled``'s copy replaces, in interpret mode."""
+    keep = [node for node in ast.parse(CHECK_SGM5.read_text()).body
+            if isinstance(node, ast.FunctionDef)
+            and node.name in ("_cdiv", "make_unrolled", "scan_u")]
+    ns = dict(jax=jax, jnp=jnp, pl=pl, pltpu=pltpu)
+    exec(compile(ast.Module(body=keep, type_ignores=[]), str(CHECK_SGM5), "exec"), ns)
+    vol, ps = inputs
+    with pltpu.force_tpu_interpret_mode():
+        want = ns["scan_u"](jnp.asarray(vol), jnp.asarray(ps), "copy")
+    got = sgm_probes.copy_plain(torch.from_numpy(vol))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_prev_plain_is_a_lax_scan(inputs):

@@ -17,9 +17,11 @@ columns), made the same way. Each gather must equal ``torch.gather`` bit
 for bit; each cumsum kernel must equal the sequential float32 sums
 (``plane_probes.cumsum_sequential``) bit for bit, and ``torch.cumsum``
 must lie within ``plane_probes.cumsum_tolerance`` of the float64 cumsum
-rounded to float32. Times are the mean device time between CUDA events around
-``REPS`` calls after a warm-up, with the card's name and power limit on
-every line.
+rounded to float32. ``cumsum_cols`` stages bands of rows through shared
+memory, a thread adding its own row in sequential order; its lines end
+with its time over ``torch.cumsum``'s. Times are the mean device time
+between CUDA events around ``REPS`` calls after a warm-up, with the card's
+name and power limit on every line.
 """
 
 from __future__ import annotations
@@ -127,9 +129,9 @@ def run(dev, card_line: str) -> None:
         err = check(kernel(), plain())
         ms, plain_ms, lib_ms = events_ms(kernel), events_ms(plain), events_ms(library)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        print(f"{what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms; "
-              f"bound {bound_ms:.4f} ms by bytes, {bound_ms / ms:.3f} of it; max |kernel - "
-              f"plain| {err} [{card_line}]")
+        print(f"{what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+              f"(kernel / library {ms / lib_ms:.3f}); bound {bound_ms:.4f} ms by bytes, "
+              f"{bound_ms / ms:.3f} of it; max |kernel - plain| {err} [{card_line}]")
 
 
 def main() -> int:

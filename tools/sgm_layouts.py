@@ -12,9 +12,13 @@ Counterpart of ``scripts/check_sgm3.py``, ``check_sgm4.py`` and
 ``check_sgm5.py``, the TPU probes of kernel C's layout: the SGM scan down H
 of float32 volumes laid out [G, H, D, W] with a D row stored together, G
 volumes in a block or one, the row loop rolled or unrolled, and the
-trivial row bodies ``copy`` and ``prev`` beside the full recurrence. Two
-shapes: the scripts' [G, H, D, W] = [4, 375, 60, 450], and ``sgm8_full``'s
-scan [2, 750, 128, 1000] (its left and right volumes at 750x1000, D=128);
+trivial row bodies ``copy`` and ``prev`` beside the full recurrence. The
+unrolled ``copy`` is one streaming pass over the whole volume (the copy
+carries nothing from row to row, so it walks no rows); a line for each
+shape gives its time over ``torch.mul``'s and beside the rolled copy's,
+which keeps the row walk, on the same values. Two shapes: the scripts'
+[G, H, D, W] = [4, 375, 60, 450], and ``sgm8_full``'s scan
+[2, 750, 128, 1000] (its left and right volumes at 750x1000, D=128);
 inputs ``rng.random`` from seed 0, as the scripts make them. Each kernel
 must equal its plain version bit for bit, and each ``full`` kind kernel
 C's downward scan (``cuda_kernels.sgm_scan`` along H) of the [G, D, H, W]
@@ -59,8 +63,12 @@ COPY_BYTES_PER_S = 2.9426e12    # copy_bw's measured rate on an H100 (tools/chec
 FLUSH_BYTES = 256 << 20         # five times the H100's 50 MB L2
 REPS = 10
 OPS = {"copy": 1, "prev": 2, "full": 7}  # operations an element
-# the probes' instances by carried disparities a thread (kPer), D <= 8 kPer
-D_CLASS = {8: "D <= 64 (D=60)", 16: "D <= 128 (D=128)", 32: "D <= 256"}
+# the probes' instances by carried disparities a thread (kPer), D <= 8 kPer;
+# 0 for the unrolled copy's streaming kernel, which carries none
+D_CLASS = {8: "the D <= 64 (D=60) instance (8 disparities a thread)",
+           16: "the D <= 128 (D=128) instance (16 disparities a thread)",
+           32: "the D <= 256 instance (32 disparities a thread)",
+           0: "the streaming kernel (any D)"}
 
 
 def inputs(shape, dev, seed: int = 0):
@@ -138,6 +146,18 @@ def flushed_ms(fn, reps: int = REPS) -> float:
     return sum(a.elapsed_time(b) for a, b in zip(starts, stops)) / reps
 
 
+def copy_line(suffix: str, times: dict, card_line: str) -> str:
+    """The unrolled copy (a streaming pass) over torch.mul's time and beside
+    the rolled copy's (the row walk), from ``times``: kernels line name ->
+    (kernel ms, library ms or None), measured in one run."""
+    ms, lib_ms = times[f"sgm_probe_unrolled_copy{suffix}"]
+    rolled_ms, _ = times[f"sgm_probe_rolled_copy{suffix}"]
+    return (f"sgm_probe_unrolled copy on {list(SHAPES[suffix])}: {ms:.4f} ms, torch.mul "
+            f"{lib_ms:.4f} ms (kernel / library {ms / lib_ms:.3f}); the rolled copy (the row "
+            f"walk) {rolled_ms:.4f} ms on the same values (rolled / unrolled "
+            f"{rolled_ms / ms:.3f}) [{card_line}]")
+
+
 def bound_line(nb: int, ms: float) -> str:
     b, bc = nb / HBM_BYTES_PER_S * 1e3, nb / COPY_BYTES_PER_S * 1e3
     return (f"bound {b:.4f} ms by bytes ({nb / 1e6:.1f} MB) at 3.35 TB/s [{bc:.4f} at "
@@ -152,8 +172,9 @@ def transposed_hdw_ms(vol_t, ps) -> float:
 
 
 def ptxas_lines(log: str):
-    """Each probe instance's (entry, kind, kPer, registers, spill
-    stores, spill loads) from an ``nvcc -Xptxas -v`` report."""
+    """Each probe instance's (entry, kind, kPer or 0 for the streaming
+    copy, registers, spill stores, spill loads) from an ``nvcc -Xptxas -v``
+    report."""
     kinds = {0: "copy", 1: "prev", 2: "full"}
     found, current, spills = [], None, (0, 0)
     for line in log.splitlines():
@@ -164,6 +185,8 @@ def ptxas_lines(log: str):
             if k:
                 args = [int(a) for a in re.findall(r"Li(\d+)E", k.group(2))]
                 current = (k.group(1), kinds[args[0]] if len(args) == 2 else "full", args[-1])
+            elif "sgm_probe_unrolled_kernel_copy" in m.group(1):
+                current = ("sgm_probe_unrolled", "copy", 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
@@ -195,9 +218,8 @@ def print_registers(log: str, card_line: str) -> None:
     if not rows:
         raise AssertionError("no sgm_probe instance in the nvcc report")
     for entry, kind, per, regs, stores, loads in sorted(rows):
-        print(f"nvcc {entry} {kind}, the {D_CLASS[per]} instance ({per} disparities a thread): "
-              f"{regs} registers, {stores} bytes spill stores, {loads} bytes spill loads "
-              f"[{card_line}]")
+        print(f"nvcc {entry} {kind}, {D_CLASS[per]}: {regs} registers, {stores} bytes spill "
+              f"stores, {loads} bytes spill loads [{card_line}]")
 
 
 def run(dev, card_line: str, log: str = "") -> None:
@@ -210,13 +232,17 @@ def run(dev, card_line: str, log: str = "") -> None:
               f"{c_ms:.4f} ms; {bound_line(nbytes(vol, 'full'), c_ms)} [{card_line}]")
         print(f"sgm_probe_hdw with the two transposes around it: "
               f"{transposed_hdw_ms(vol_t, ps):.4f} ms [{card_line}]")
+        times = {}
         for name, _, _, what, kernel, plain, library, check, nb, _ in cases:
             check(kernel(), plain())
             ms, plain_ms = flushed_ms(kernel), flushed_ms(plain, 3)
-            lib = f", library (torch.mul) {flushed_ms(library):.4f} ms" if library else ""
+            lib_ms = flushed_ms(library) if library else None
+            times[name] = ms, lib_ms
+            lib = f", library (torch.mul) {lib_ms:.4f} ms" if library else ""
             print(f"{what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, kernel C "
                   f"{c_ms:.4f} ms; {bound_line(nb, ms)}; equal to plain"
                   f"{' and to kernel C' if 'full' in name else ''} [{card_line}]")
+        print(copy_line(suffix, times, card_line))
         del vol, ps, vol_t, cases
         torch.cuda.empty_cache()
     print_registers(log, card_line)
