@@ -102,7 +102,7 @@ Phases, each of which raises (exit code 1) on failure:
    wavefront, all-gather and gather bytes); a failing rank fails the script;
 9. copy bandwidth: ``tools/check_bw.py``'s probe kernel ``copy_bw`` (out =
    in * 1.0001) against its plain version, its rate in each tiling and on
-   a 4 GiB buffer beside ``Tensor.copy_``'s;
+   a 4 GiB buffer beside ``Tensor.copy_``'s and ``torch.mul``'s;
 10. NL: ``get_model("nl_tree_filter", max_disp=59)`` on the Teddy-sized
    pair (375x450, D=60; the trees built on the host, the filter level by
    level on the card), with the launch counts set to 0 just before its
@@ -145,8 +145,9 @@ Phases, each of which raises (exit code 1) on failure:
    [G, H, D, W] = [4, 375, 60, 450] and [2, 750, 128, 1000], each equal to
    its plain version and, in full, to kernel C's downward scan of the
    transposed volume, bit for bit, with its bound, kernel C's time on the
-   same values, ``torch.mul``'s for copy, the unrolled copy's time over
-   ``torch.mul``'s and beside the rolled copy's, and each instance's
+   same values, ``torch.mul``'s for copy, each copy's time over
+   ``torch.mul``'s (the rolled and the unrolled copy are one streaming
+   pass, so their ratio is a consistency check), and each instance's
    registers and spills;
 14. taps probes: ``tools/taps_probes.py``'s probes (``csrc/taps_probes.cu``:
    ``taps_probe_roll`` along H and W, ``taps_probe_slice`` in its kinds
@@ -1463,8 +1464,9 @@ def phase_stream(dev, card_line: str):
 
 def phase_copy_bw(dev, card_line: str) -> dict:
     """The copy-bandwidth probe (tools/check_bw.py), once: every probe
-    tiling's rate beside Tensor.copy_'s, then the kernels line's row on the
-    4 GiB buffer, with Tensor.copy_ as the library call, and the measured
+    tiling's rate beside Tensor.copy_'s and torch.mul's, then the kernels
+    line's row on the 4 GiB buffer, with Tensor.copy_ as the library call
+    and torch.mul's (x * 1.0001) device time beside it, and the measured
     copy rate from that row's device time."""
     from tools import check_bw
 
@@ -1477,10 +1479,14 @@ def phase_copy_bw(dev, card_line: str) -> dict:
                    f"{rows}x{cols}", (lambda: ck.copy_bw(x, rows, cols),
                                       lambda: bandwidth.scaled_copy_plain(x), 8 * n, n),
                    card_line, lambda: out.copy_(x))
+    row["torch_mul_ms"] = device_ms(lambda: x * bandwidth.COPY_SCALE)[0]
     rate = check_bw.gbs(x, row["ms"])
     print(f"copy_bw measured copy rate (4 GiB buffer, device time): {rate:.1f} GB/s, "
           f"{rate / 3350:.3f} of the nominal 3.35 TB/s; Tensor.copy_ "
-          f"{check_bw.gbs(x, row['library_ms']):.1f} GB/s [{card_line}]")
+          f"{check_bw.gbs(x, row['library_ms']):.1f} GB/s ({row['library_ms']:.4f} ms, kernel / "
+          f"copy_ {row['ms'] / row['library_ms']:.3f}); torch.mul "
+          f"{check_bw.gbs(x, row['torch_mul_ms']):.1f} GB/s ({row['torch_mul_ms']:.4f} ms, "
+          f"kernel / mul {row['ms'] / row['torch_mul_ms']:.3f}) [{card_line}]")
     row["copy_rate_gbs"] = rate
     del x, out
     torch.cuda.empty_cache()

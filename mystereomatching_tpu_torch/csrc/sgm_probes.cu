@@ -10,7 +10,8 @@
 //   check_sgm4.py:17 kern_g (:48), all G volumes in one block
 //                                         -> sgm_probe_g_kernel
 //   check_sgm5.py:17 make(kind) (:53), G in the block, the row loop rolled
-//                                         -> sgm_probe_rolled_kernel
+//                                         -> sgm_probe_rolled_kernel (prev, full),
+//                                            sgm_probe_rolled_kernel_copy (copy)
 //   check_sgm5.py:74 make_unrolled(kind) (:108), the row loop unrolled
 //                                         -> sgm_probe_unrolled_kernel (full),
 //                                            sgm_probe_unrolled_kernel_copy (copy)
@@ -34,10 +35,10 @@
 // operations an element.
 //
 // Design (simple first): a block is a tile of 32 adjacent columns (a
-// warp's width) of one volume (hdw) or of all G (g, rolled, unrolled full), 8
-// warps a volume; warp j of a volume takes disparities j, j + 8, ..., so
-// that each load and store of a warp is one 128-byte row segment of one
-// disparity. A thread keeps its disparities' costs for the next two rows
+// warp's width) of one volume (hdw) or of all G (g, rolled prev and full,
+// unrolled full), 8 warps a volume; warp j of a volume takes disparities j,
+// j + 8, ..., so that each load and store of a warp is one 128-byte row
+// segment of one disparity. A thread keeps its disparities' costs for the next two rows
 // in registers (kPer of them a row, chosen from D at launch): each row's
 // loads are issued two rows ahead, so that their latency hides behind two
 // rows' work (PERF.md compares one row ahead). prev keeps its carry in
@@ -49,18 +50,19 @@
 // 256 (D + 8) G bytes, at most 227 KB. The unrolled full kind unrolls the
 // row loop by kUnroll = 8 (the TPU's chunk is a multiple of 8 rows).
 //
-// The unrolled copy is a streaming kernel instead
-// (sgm_probe_unrolled_kernel_copy): the copy carries nothing from row to
-// row, so the row walk above, the TPU's sequential grid carried over, only
-// held the card to ceil(W / 32) blocks (15 at W = 450, 32 at W = 1000, on
-// 132 SMs). It makes one pass over the G H D W elements as one flat array,
-// a block a tile of kStreamTile floats (9,888 blocks at [4, 375, 60, 450]):
-// each thread loads its kStreamVec 16-byte words before it stores any,
-// with scalars for the at most 3 elements before vol's first 16-byte
-// boundary and after its last (every element a scalar where vol and out
-// lie differently against 16 bytes), and 64-bit offsets; ps is not read.
-// The rolled copy keeps the row walk, so that the two designs are timed
-// side by side on the same values.
+// Both copies, rolled and unrolled, are one streaming pass instead
+// (stream_copy, launched as sgm_probe_rolled_kernel_copy and
+// sgm_probe_unrolled_kernel_copy, so that a profile names each apart): the
+// copy carries nothing from row to row, so the row walk above, the TPU's
+// sequential grid carried over, only held the card to ceil(W / 32) blocks
+// (15 at W = 450, 32 at W = 1000, on 132 SMs). "Rolled" and "unrolled" name
+// how the TPU kernels wrote their row loop; the function, c * 1.01, is the
+// same. The pass goes over the G H D W elements as one flat array, a block a
+// tile of kStreamTile floats (9,888 blocks at [4, 375, 60, 450]): each
+// thread loads its kStreamVec 16-byte words before it stores any, with
+// scalars for the at most 3 elements before vol's first 16-byte boundary and
+// after its last (every element a scalar where vol and out lie differently
+// against 16 bytes), and 64-bit offsets; ps is not read.
 #include <cfloat>
 
 #include <cuda_runtime.h>
@@ -72,7 +74,7 @@ constexpr int kWarpsPerG = 8;  // warps a volume
 constexpr int kMaxG = 4;       // volumes in one block: 32 kMaxG warps
 constexpr int kUnroll = 8;     // rows an unrolled step
 constexpr int kMaxSmem = 227 * 1024;
-constexpr int kStreamThreads = 256;  // the unrolled copy: threads a block
+constexpr int kStreamThreads = 256;  // the streaming copy: threads a block
 constexpr int kStreamVec = 4;        // 16-byte words a thread, all loaded before any store
 constexpr int kStreamTile = kStreamThreads * kStreamVec * 4;  // floats a block
 
@@ -83,15 +85,14 @@ __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
 __device__ __forceinline__ float copy_body(float c) { return __fmul_rn(c, 1.01f); }
 
-// The unrolled copy: out = vol * 1.01 over the n floats of vol, on
+// The streaming copy: out = vol * 1.01 over the n floats of vol, on
 // ceil(n / kStreamTile) blocks. Where vol and out start at the same offset
 // within 16 bytes, block b takes the 16-byte words [b, b + 1) kStreamTile / 4
 // from vol's first 16-byte boundary on; block 0 also the scalars before it
 // (at most 3), the last block those after the last word (at most 3).
 // Otherwise block b takes the elements [b, b + 1) kStreamTile as scalars.
-__global__ void __launch_bounds__(kStreamThreads)
-    sgm_probe_unrolled_kernel_copy(const float* __restrict__ vol, float* __restrict__ out,
-                                   long long n) {
+__device__ __forceinline__ void stream_copy(const float* __restrict__ vol,
+                                            float* __restrict__ out, long long n) {
   const unsigned skew = static_cast<unsigned>(reinterpret_cast<size_t>(vol) & 15);
   if (skew != (reinterpret_cast<size_t>(out) & 15)) {
     const long long t0 = static_cast<long long>(blockIdx.x) * kStreamTile;
@@ -124,6 +125,18 @@ __global__ void __launch_bounds__(kStreamThreads)
   if (blockIdx.x == 0 && threadIdx.x < head) out[threadIdx.x] = copy_body(vol[threadIdx.x]);
   const long long tail = head + 4 * words + threadIdx.x;
   if (blockIdx.x == gridDim.x - 1 && tail < n) out[tail] = copy_body(vol[tail]);
+}
+
+__global__ void __launch_bounds__(kStreamThreads)
+    sgm_probe_rolled_kernel_copy(const float* __restrict__ vol, float* __restrict__ out,
+                                 long long n) {
+  stream_copy(vol, out, n);
+}
+
+__global__ void __launch_bounds__(kStreamThreads)
+    sgm_probe_unrolled_kernel_copy(const float* __restrict__ vol, float* __restrict__ out,
+                                   long long n) {
+  stream_copy(vol, out, n);
 }
 
 // The rows of one block: volumes g0 .. g0 + blockDim.y / 8 - 1, columns
@@ -208,8 +221,7 @@ __device__ __forceinline__ void probe_rows(const float* __restrict__ vol,
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
         if (in && k < n) {
-          const float l =
-              kKind == kCopy ? copy_body(c[k]) : __fadd_rn(c[k], __fmul_rn(prev[k], 0.5f));
+          const float l = __fadd_rn(c[k], __fmul_rn(prev[k], 0.5f));  // prev
           prev[k] = l;
           o[k * dstep] = l;
         }
@@ -266,8 +278,7 @@ KernelFn pick(int entry, int kind) {
     case kHdw: return kind == kFull ? sgm_probe_hdw_kernel<kPer> : nullptr;
     case kG: return kind == kFull ? sgm_probe_g_kernel<kPer> : nullptr;
     case kRolled:
-      return kind == kCopy   ? sgm_probe_rolled_kernel<kCopy, kPer>
-             : kind == kPrev ? sgm_probe_rolled_kernel<kPrev, kPer>
+      return kind == kPrev   ? sgm_probe_rolled_kernel<kPrev, kPer>
              : kind == kFull ? sgm_probe_rolled_kernel<kFull, kPer>
                              : nullptr;
     case kUnrolled: return kind == kFull ? sgm_probe_unrolled_kernel<kFull, kPer> : nullptr;
@@ -280,8 +291,9 @@ KernelFn pick(int entry, int kind) {
 // vol/out: [G, H, D, W] float32, D <= 256; ps: [G, H, W] float32. entry:
 // 0 hdw (a block a volume's column tile), 1 g (a block all G volumes'
 // tile, G <= 4), 2 rolled, 3 unrolled (as g); kind: 0 copy, 1 prev, 2 full
-// (hdw and g: full only; unrolled: copy or full). edge: the value beyond
-// disparities 0 and D - 1 in full.
+// (hdw and g: full only; unrolled: copy or full; copy, rolled or unrolled,
+// the streaming pass). edge: the value beyond disparities 0 and D - 1 in
+// full.
 extern "C" int mysm_sgm_probe(const float* vol, const float* ps, float* out, int g, int nd,
                               int h, int w, int entry, int kind, float p1, float p2,
                               float edge, void* stream) {
@@ -289,13 +301,14 @@ extern "C" int mysm_sgm_probe(const float* vol, const float* ps, float* out, int
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (entry == kUnrolled && kind == kCopy) {
+  if ((entry == kRolled || entry == kUnrolled) && kind == kCopy) {
     if (g > kMaxG) return static_cast<int>(cudaErrorInvalidConfiguration);
     const long long n = static_cast<long long>(g) * h * nd * w;
     const long long blocks = (n + kStreamTile - 1) / kStreamTile;
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-    sgm_probe_unrolled_kernel_copy<<<static_cast<unsigned>(blocks), kStreamThreads, 0, s>>>(
-        vol, out, n);
+    const auto copy = entry == kRolled ? sgm_probe_rolled_kernel_copy
+                                       : sgm_probe_unrolled_kernel_copy;
+    copy<<<static_cast<unsigned>(blocks), kStreamThreads, 0, s>>>(vol, out, n);
     return static_cast<int>(cudaGetLastError());
   }
   const int per = (nd + kWarpsPerG - 1) / kWarpsPerG;

@@ -428,9 +428,10 @@ def sgm_diag_scan(vol: torch.Tensor, pscale: torch.Tensor, p1: float, p2: float,
 
 def copy_bw(x: torch.Tensor, tile_rows: int, tile_cols: int) -> torch.Tensor:
     """The copy-bandwidth probe: x * 1.0001 of a float32 x [..., W], viewed
-    as [rows, W], in tiles of tile_rows x tile_cols elements, a block of
-    256 threads a tile; float4 moves where W and tile_cols are multiples of
-    4 and the buffers 16-byte aligned."""
+    as [rows, W], in tiles of tile_rows x tile_cols elements, a block a
+    tile; bulk copies through a ring of shared-memory stages where W and
+    tile_cols are multiples of 4 and the buffers 16-byte aligned, floats
+    otherwise."""
     if x.ndim < 1 or tile_rows < 1 or tile_cols < 1:
         raise ValueError(f"copy_bw: x {tuple(x.shape)}, tile {tile_rows}x{tile_cols}")
     _check(x, "copy_bw x", torch.float32)
@@ -528,8 +529,10 @@ def sgm_probe_g(vol: torch.Tensor, ps: torch.Tensor) -> torch.Tensor:
 
 def sgm_probe_rolled(vol: torch.Tensor, ps: torch.Tensor, kind: str) -> torch.Tensor:
     """``check_sgm5.py``'s ``make(kind)``, G <= 4 in a block, the row loop
-    rolled: ``copy`` vol * 1.01, ``prev`` the running c + 0.5 prev, or
-    ``full`` the scan with p1 = 1, p2 = 3 and the edge 3.4e38."""
+    rolled: ``prev`` the running c + 0.5 prev, or ``full`` the scan with
+    p1 = 1, p2 = 3 and the edge 3.4e38; ``copy``, vol * 1.01, carries
+    nothing from row to row and is one streaming pass over the volume, as
+    :func:`sgm_probe_unrolled`'s (``ps`` is checked but not read)."""
     return _sgm_probe("sgm_probe_rolled", vol, ps, kind, 3.4e38)
 
 

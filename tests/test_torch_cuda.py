@@ -607,11 +607,17 @@ def test_wta_kernel_bf16_past_2_31_bytes(cuda, big_bf16_volume, choose_small):
 
 
 # the copy-bandwidth probe: the TPU probe's shape in its tiles (W = 450,
-# one float a thread), ragged tiles, float4 moves (W and the tile a
-# multiple of 4), and a buffer one float off 16-byte alignment
+# floats), ragged tiles, bulk copies (W and the tile a multiple of 4), and
+# a buffer one float off 16-byte alignment; then the persistent grid's
+# edges: a tile count that is no multiple of the grid (1,125 tiles), tile
+# rows that are no multiple of a 4,096-float stage (6,000 floats: a stage
+# and a part; a tile wider than W), a width that is no multiple of 4 with
+# rows past a stage, and a buffer past 2**31 bytes
 COPY_CASES = [((4, 375, 60, 450), (60, 256)), ((4, 375, 60, 450), (60, 450)),
               ((7, 33), (3, 5)), ((5, 12), (2, 6)), ((64, 4096), (8, 4096)), ((9, 20), (4, 8)),
-              ((1,), (1, 1))]
+              ((1,), (1, 1)),
+              ((9000, 4096), (8, 4096)), ((40, 12000), (4, 6000)), ((33, 6004), (3, 10000)),
+              ((37, 4098), (5, 4098)), ((131073, 4096), (8, 4096))]
 
 
 @pytest.mark.parametrize("shape,tile", COPY_CASES)
@@ -760,11 +766,13 @@ def test_sgm_probe_kernels(cuda, shape, entry, kind):
         assert torch.equal(got, want_c.transpose(1, 2))
 
 
+@pytest.mark.parametrize("entry", ["sgm_probe_rolled", "sgm_probe_unrolled"])
 @pytest.mark.parametrize("offsets", [(1, 1), (2, 2), (3, 3), (1, 0), (0, 2)])
-def test_sgm_probe_unrolled_copy_on_unaligned_views(cuda, offsets):
-    """The streaming copy with vol and out 4, 8 or 12 bytes past a 16-byte
-    boundary: alike (a scalar head, then 16-byte words) or not (every
-    element a scalar)."""
+def test_sgm_probe_unrolled_copy_on_unaligned_views(cuda, offsets, entry):
+    """The streaming copy, which both the rolled and the unrolled copy
+    launch, with vol and out 4, 8 or 12 bytes past a 16-byte boundary:
+    alike (a scalar head, then 16-byte words) or not (every element a
+    scalar)."""
     from mystereomatching_tpu_torch.ops import sgm_probes
 
     shape, (off_vol, off_out) = (2, 30, 11, 45), offsets
@@ -773,10 +781,11 @@ def test_sgm_probe_unrolled_copy_on_unaligned_views(cuda, offsets):
     vol = torch.rand(n + 4, generator=gen, device=cuda)[off_vol:off_vol + n].view(shape)
     ps = torch.rand((2, 30, 45), generator=gen, device=cuda)
     out = torch.empty(n + 4, device=cuda)[off_out:off_out + n].view(shape)
-    before = ck.launches["sgm_probe_unrolled"]
+    before = {name: ck.launches[name] for name in ("sgm_probe_rolled", "sgm_probe_unrolled")}
     with mock.patch.object(torch, "empty_like", lambda t: out):
-        got = ck.sgm_probe_unrolled(vol, ps, "copy")
-    assert ck.launches["sgm_probe_unrolled"] == before + 1
+        got = getattr(ck, entry)(vol, ps, "copy")
+    assert {name: ck.launches[name] - n0 for name, n0 in before.items()} == {
+        name: int(name == entry) for name in before}
     assert got.data_ptr() == out.data_ptr()
     assert torch.equal(got, sgm_probes.copy_plain(vol))
 

@@ -6,9 +6,10 @@ compute: the ``full`` recurrence is the JAX package's kernel C,
 ``pallas_kernels.sgm_scan_pallas``, on the [G, D, H, W] transpose (in
 interpret mode, in 8-row chunks so that its carry crosses chunks);
 ``copy`` and ``prev`` are ``jnp`` expressions. ``check_sgm5.py``'s
-unrolled copy also runs itself: the file is parsed with ``ast`` and only
-``_cdiv``, ``make_unrolled`` and ``scan_u`` run, in TPU interpret mode
-(8-row chunks, a 256-column block over W = 40). Inputs as the scripts make
+two copies also run themselves: the file is parsed with ``ast`` and only
+``_cdiv`` with ``make`` and ``scan`` (the rolled row loop) or with
+``make_unrolled`` and ``scan_u`` run, in TPU interpret mode (8-row chunks,
+a 256-column block over W = 40). Inputs as the scripts make
 them (``rng.random``) at [G, H, D, W] = [4, 24, 60, 40]. Every comparison
 is exact but one: in interpret mode XLA's CPU backend contracts the
 kernel's minL + p2 s into a fused multiply-add, which the plain version
@@ -80,17 +81,18 @@ def test_copy_plain_is_jnp(inputs):
     np.testing.assert_array_equal(got.numpy(), np.asarray(jnp.asarray(vol) * 1.01))
 
 
-def test_copy_plain_is_the_unrolled_tpu_kernel(inputs):
-    """``scan_u(vol, ps, "copy")``, the TPU kernel that
-    ``sgm_probe_unrolled``'s copy replaces, in interpret mode."""
+@pytest.mark.parametrize("make,scan", [("make_unrolled", "scan_u"), ("make", "scan")])
+def test_copy_plain_is_the_unrolled_tpu_kernel(inputs, make, scan):
+    """``scan_u(vol, ps, "copy")`` and ``scan(vol, ps, "copy")``, the TPU
+    kernels that ``sgm_probe_unrolled``'s and ``sgm_probe_rolled``'s copy
+    replace (the row loop unrolled and rolled), in interpret mode."""
     keep = [node for node in ast.parse(CHECK_SGM5.read_text()).body
-            if isinstance(node, ast.FunctionDef)
-            and node.name in ("_cdiv", "make_unrolled", "scan_u")]
+            if isinstance(node, ast.FunctionDef) and node.name in ("_cdiv", make, scan)]
     ns = dict(jax=jax, jnp=jnp, pl=pl, pltpu=pltpu)
     exec(compile(ast.Module(body=keep, type_ignores=[]), str(CHECK_SGM5), "exec"), ns)
     vol, ps = inputs
     with pltpu.force_tpu_interpret_mode():
-        want = ns["scan_u"](jnp.asarray(vol), jnp.asarray(ps), "copy")
+        want = ns[scan](jnp.asarray(vol), jnp.asarray(ps), "copy")
     got = sgm_probes.copy_plain(torch.from_numpy(vol))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 

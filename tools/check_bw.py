@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Copy bandwidth of one GPU: the hand-written probe kernel ``copy_bw``
-(``csrc/copy_bw.cu``, out = in * 1.0001) against ``Tensor.copy_``.
+(``csrc/copy_bw.cu``, out = in * 1.0001) against ``Tensor.copy_`` and
+``torch.mul`` (``x * 1.0001``, the same function).
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc:
 
@@ -10,8 +11,8 @@ Counterpart of ``scripts/check_bw.py``, the TPU probe that times the same
 scaled copy of a [4, 375, 60, 450] float32 array (161 MB) in four VMEM
 block shapes. Here the array is viewed as [90000, 450] rows and the kernel
 takes tiles of the minor two dimensions of those blocks ((60, 256),
-(64, 512), (64, 128), (60, 450): rows x columns, a block of 256 threads a
-tile); then a 4 GiB buffer viewed as [262144, 4096] in tiles of (8, 4096).
+(64, 512), (64, 128), (60, 450): rows x columns, a block a tile); then a
+4 GiB buffer viewed as [262144, 4096] in tiles of (8, 4096).
 Each kernel result must equal ``x * 1.0001`` bit for bit. Each rate is the
 bytes read and written (twice the buffer) over the mean device time between
 CUDA events around ``REPS`` calls, after a warm-up; the buffers exceed the
@@ -79,7 +80,8 @@ def check(x: torch.Tensor, rows: int, cols: int, label: str) -> None:
 
 def run(dev, card_line: str, big: bool = True):
     """Checks and times every probe tiling, and the 4 GiB buffer unless
-    ``big`` is false, each beside ``Tensor.copy_``; raises where the kernel
+    ``big`` is false, each beside ``Tensor.copy_`` and ``torch.mul``
+    (``x * 1.0001``); raises where the kernel
     differs from its plain version. Returns the kernel's rate on the 4 GiB
     buffer in GB/s, or None without it."""
     cases = list(probe_cases(dev))
@@ -91,9 +93,11 @@ def run(dev, card_line: str, big: bool = True):
         ms = events_ms(lambda: ck.copy_bw(x, rows, cols))
         out = torch.empty_like(x)
         lib_ms = events_ms(lambda: out.copy_(x))
+        mul_ms = events_ms(lambda: x * bandwidth.COPY_SCALE)
         rate = gbs(x, ms)
         print(f"copy_bw {label}: {ms:.4f} ms, {rate:.1f} GB/s; Tensor.copy_ {lib_ms:.4f} ms, "
-              f"{gbs(x, lib_ms):.1f} GB/s [{card_line}]")
+              f"{gbs(x, lib_ms):.1f} GB/s; torch.mul {mul_ms:.4f} ms, {gbs(x, mul_ms):.1f} "
+              f"GB/s [{card_line}]")
         del out
     del cases
     if not big:

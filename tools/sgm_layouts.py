@@ -12,12 +12,12 @@ Counterpart of ``scripts/check_sgm3.py``, ``check_sgm4.py`` and
 ``check_sgm5.py``, the TPU probes of kernel C's layout: the SGM scan down H
 of float32 volumes laid out [G, H, D, W] with a D row stored together, G
 volumes in a block or one, the row loop rolled or unrolled, and the
-trivial row bodies ``copy`` and ``prev`` beside the full recurrence. The
-unrolled ``copy`` is one streaming pass over the whole volume (the copy
-carries nothing from row to row, so it walks no rows); a line for each
-shape gives its time over ``torch.mul``'s and beside the rolled copy's,
-which keeps the row walk, on the same values. Two shapes: the scripts'
-[G, H, D, W] = [4, 375, 60, 450], and ``sgm8_full``'s scan
+trivial row bodies ``copy`` and ``prev`` beside the full recurrence. Both
+copies, rolled and unrolled, are one streaming pass over the whole volume
+(the copy carries nothing from row to row, so neither walks rows); a line
+for each shape gives each copy's time over ``torch.mul``'s and their
+ratio, which should be 1, as a check of the measurement. Two shapes: the
+scripts' [G, H, D, W] = [4, 375, 60, 450], and ``sgm8_full``'s scan
 [2, 750, 128, 1000] (its left and right volumes at 750x1000, D=128);
 inputs ``rng.random`` from seed 0, as the scripts make them. Each kernel
 must equal its plain version bit for bit, and each ``full`` kind kernel
@@ -25,8 +25,8 @@ C's downward scan (``cuda_kernels.sgm_scan`` along H) of the [G, D, H, W]
 transpose. Times are the mean device time between CUDA events around each
 call, a 256 MiB fill evicting the L2 before it; the bound is the bytes read
 and written at the nominal 3.35 TB/s and at the copy rate ``copy_bw``
-measured on an H100 (2.9426 TB/s, ``tools/check_bw.py``). Every line
-carries the card's name and power limit. Last, each probe instance's
+measured on an H100 (``COPY_BYTES_PER_S``, ``tools/check_bw.py``). Every
+line carries the card's name and power limit. Last, each probe instance's
 registers and spills from ``nvcc -Xptxas -v``.
 """
 
@@ -59,12 +59,12 @@ PROBES = {
     ("sgm_probe_unrolled", "full"): "scripts/check_sgm5.py:108",
 }
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
-COPY_BYTES_PER_S = 2.9426e12    # copy_bw's measured rate on an H100 (tools/check_bw.py)
+COPY_BYTES_PER_S = 3.1059e12    # copy_bw's measured rate on an H100 (4 GiB, chip_smoke.py)
 FLUSH_BYTES = 256 << 20         # five times the H100's 50 MB L2
 REPS = 10
 OPS = {"copy": 1, "prev": 2, "full": 7}  # operations an element
 # the probes' instances by carried disparities a thread (kPer), D <= 8 kPer;
-# 0 for the unrolled copy's streaming kernel, which carries none
+# 0 for the copies' streaming kernel, which carries none
 D_CLASS = {8: "the D <= 64 (D=60) instance (8 disparities a thread)",
            16: "the D <= 128 (D=128) instance (16 disparities a thread)",
            32: "the D <= 256 instance (32 disparities a thread)",
@@ -147,21 +147,21 @@ def flushed_ms(fn, reps: int = REPS) -> float:
 
 
 def copy_line(suffix: str, times: dict, card_line: str) -> str:
-    """The unrolled copy (a streaming pass) over torch.mul's time and beside
-    the rolled copy's (the row walk), from ``times``: kernels line name ->
+    """Each copy, rolled and unrolled (one streaming pass each), over
+    torch.mul's time, and their ratio, from ``times``: kernels line name ->
     (kernel ms, library ms or None), measured in one run."""
     ms, lib_ms = times[f"sgm_probe_unrolled_copy{suffix}"]
-    rolled_ms, _ = times[f"sgm_probe_rolled_copy{suffix}"]
-    return (f"sgm_probe_unrolled copy on {list(SHAPES[suffix])}: {ms:.4f} ms, torch.mul "
-            f"{lib_ms:.4f} ms (kernel / library {ms / lib_ms:.3f}); the rolled copy (the row "
-            f"walk) {rolled_ms:.4f} ms on the same values (rolled / unrolled "
-            f"{rolled_ms / ms:.3f}) [{card_line}]")
+    rolled_ms, rolled_lib_ms = times[f"sgm_probe_rolled_copy{suffix}"]
+    return (f"sgm_probe_rolled and sgm_probe_unrolled copy on {list(SHAPES[suffix])}: "
+            f"{rolled_ms:.4f} and {ms:.4f} ms, torch.mul {rolled_lib_ms:.4f} and {lib_ms:.4f} "
+            f"ms (kernel / library {rolled_ms / rolled_lib_ms:.3f} and {ms / lib_ms:.3f}); "
+            f"rolled / unrolled {rolled_ms / ms:.3f}, one streaming pass each [{card_line}]")
 
 
 def bound_line(nb: int, ms: float) -> str:
     b, bc = nb / HBM_BYTES_PER_S * 1e3, nb / COPY_BYTES_PER_S * 1e3
     return (f"bound {b:.4f} ms by bytes ({nb / 1e6:.1f} MB) at 3.35 TB/s [{bc:.4f} at "
-            f"2.9426], {b / ms:.3f} of it [{bc / ms:.3f}]")
+            f"{COPY_BYTES_PER_S / 1e12:.4f}], {b / ms:.3f} of it [{bc / ms:.3f}]")
 
 
 def transposed_hdw_ms(vol_t, ps) -> float:
@@ -181,12 +181,13 @@ def ptxas_lines(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"(sgm_probe_[a-z]+)_kernelI((?:Li\d+E)+)E", m.group(1))
+            copy = re.search(r"(sgm_probe_[a-z]+)_kernel_copy", m.group(1))
             current = None
             if k:
                 args = [int(a) for a in re.findall(r"Li(\d+)E", k.group(2))]
                 current = (k.group(1), kinds[args[0]] if len(args) == 2 else "full", args[-1])
-            elif "sgm_probe_unrolled_kernel_copy" in m.group(1):
-                current = ("sgm_probe_unrolled", "copy", 0)
+            elif copy:
+                current = (copy.group(1), "copy", 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:

@@ -30,7 +30,8 @@ Times are the mean device time between CUDA events around each call, a
 256 MiB fill evicting the L2 before it (``sgm_layouts.flushed_ms``); the
 bound is the bytes read and written (16 an element with int32 arms, 10 for
 kernel B's int8 ones) at the nominal 3.35 TB/s and at ``copy_bw``'s
-measured 2.9426 TB/s. Every line carries the card's name and power limit.
+measured rate (``sgm_layouts.COPY_BYTES_PER_S``). Every line carries the
+card's name and power limit.
 Last, each probe instance's registers and spills from ``nvcc -Xptxas -v``.
 """
 
