@@ -75,14 +75,19 @@ Phases, each of which raises (exit code 1) on failure:
 8. row bands: the row-band pipeline (``parallel.run_row_bands``), one
    process a rank, one card a rank over NCCL where there are cards enough,
    else every rank on card 0 over gloo (the phase prints which). First
-   kernel C's carried-in row and in-image mask (``sgm_scan_ext``) against
-   their plain versions, in float32 and bfloat16, each with its bound and
-   device time, at the shapes the banded sgm8_full frame launches: a W
-   chunk [1, 128, 250, 125] of band 1's CBCA volume scanned down from band
-   0's boundary row, and a chunk [1, 128, 250, 219] of band 1's skewed
-   diagonal buffer with its in-image mask, from band 0's boundary row; and
-   (the rows' ``whole_band``) on the whole band [1, 128, 250, 1000] and its
-   whole skewed buffer [1, 128, 250, 1749] from a random initial row. Then
+   kernel C's table kernel (``sgm_scan_ext``: a table of W-chunk scans
+   along H with carried-in rows, in-image masks and boundary-row outputs,
+   read and written in place) against the plain table, in float32 and
+   bfloat16, each with its bound, device time, and device time at each
+   block width it is built for (16 and 4 columns, with the ring depth,
+   shared memory and blocks an SM each allows), on the sgm8_full frame's
+   two CBCA volumes as the band path scans them: band 1's down-order chunk
+   step (6 scans: the vertical W chunk [1, 128, 250, 125] and the two
+   diagonals' chunks [1, 128, 250, 219] of their skewed buffers with their
+   in-image masks, for both volumes; chunk 1, from band 0's boundary rows)
+   in one launch, and its vertical and first diagonal scan alone; each of
+   those two also (``whole_band``) over its whole buffer [1, 128, 250,
+   1000] or [1, 128, 250, 1749] from a random initial row. Then
    over 3 bands of 250 rows, 8 W chunks: the downward vertical path costs
    and two diagonals' gathered on rank 0 must equal kernels C's and E's on
    the whole volume bit for bit; sgm8_full's three maps (raw, refined
@@ -90,7 +95,12 @@ Phases, each of which raises (exit code 1) on failure:
    summed in the band path's order (the same kernels' path costs, another
    association than the dense sum's) exactly; against the dense maps the
    differing pixels are counted, and the float map may differ by more
-   than 1e-4 at no more than 16 pixels and by 1e-2 nowhere. Then
+   than 1e-4 at no more than 16 pixels and by 1e-2 nowhere. On every rank
+   of every measured banded frame, each band scan along H must have gone
+   through the table kernel, one launch a chunk step of each band order
+   (plain kernel C only for the two horizontal directions). Then kernel
+   C's table kernel as above on frame A's two CBCA volumes (the chunk step
+   of its 2 vertical scans [1, 192, 250, 175], and one alone), then
    fullres_occfill's frame A over 4 bands through ``run_row_bands``: its
    map must equal the dense map exactly; then frame A over 2 bands x 2
    blocks of 96 disparities (``n_disp=2``: each rank builds the cost and
@@ -176,9 +186,12 @@ Each phase prints its seconds.
 The line before the last is ``{"kernels": [...]}`` (each row's ``case``
 names what was measured: kernels B, C and E at full width, on the
 ``sgm8_full`` frame, with that frame's launches; the bfloat16 instances
-``*_bf16`` on frame B, with its launches; kernel C's new entry points
-``sgm_scan_ext*`` on a W chunk of the banded sgm8_full frame's inputs, with
-the launches summed over its ranks; the rows ``*_frame_c`` at frame C's
+``*_bf16`` on frame B, with its launches; kernel C's table kernel
+``sgm_scan_ext*`` on a chunk step of the banded sgm8_full frame's and
+frame A's inputs, with the launches (and, as ``path_scans``, the scans)
+of that banded frame summed over its ranks, 0 for the bfloat16 rows, and
+on one scan of that step, with 0 launches (the path launches it only
+within the step row that ``within`` names); the rows ``*_frame_c`` at frame C's
 shapes, with its launches; ``copy_bw`` on the 4 GiB buffer, on no frame's
 path, with the main path's launches, which must be 0, as must
 ``arm_reduce``'s (its rows measure region vote's four integer passes, on
@@ -205,6 +218,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -230,7 +244,9 @@ from mystereomatching_tpu_torch.ops import wta as wta_ops
 from mystereomatching_tpu_torch.parallel import _harness as band_harness
 from mystereomatching_tpu_torch.parallel import run_row_bands
 from mystereomatching_tpu_torch.parallel.launch import band_pipeline
-from mystereomatching_tpu_torch.parallel.sharded import _cost_halo, sgm_band_direction
+from mystereomatching_tpu_torch.parallel.mesh import RowMesh
+from mystereomatching_tpu_torch.parallel.sharded import (BAND_ORDERS, _band_scan, _cost_halo,
+                                                         sgm_band_direction)
 from mystereomatching_tpu_torch.pipeline import (compute_volumes, kernels_launched, nl_trees,
                                                  refine, to_gray)
 from mystereomatching_tpu_torch.utils.metrics import bad_pixel_rate
@@ -301,16 +317,14 @@ FRAME_C_ROWS = {
 }
 COPY_BW = ("mystereomatching_tpu_torch/csrc/copy_bw.cu", "scripts/check_bw.py:28")
 BF16_ROWS = {f"{name}_bf16": name for name in ("arm_taps", "sgm_scan", "wta", "sgm_diag")}
-# kernel C's scan with the row-band pipeline's inputs: kernels line row ->
-# (the TPU kernel's lines it replaces, storage type, with the in-image mask)
-EXT_ROWS = {
-    "sgm_scan_ext": ("mystereomatching_tpu/ops/pallas_kernels.py:788", torch.float32, False),
-    "sgm_scan_ext_mask": ("mystereomatching_tpu/ops/pallas_kernels.py:803", torch.float32, True),
-    "sgm_scan_ext_bf16": ("mystereomatching_tpu/ops/pallas_kernels.py:788", torch.bfloat16,
-                          False),
-    "sgm_scan_ext_mask_bf16": ("mystereomatching_tpu/ops/pallas_kernels.py:803",
-                               torch.bfloat16, True),
-}
+# kernel C's table kernel (sgm_scan_ext), at the shapes the banded frames
+# launch it: kernels line row -> the TPU kernel's lines it replaces (788:
+# the carried-in row, init_ref; 803: the in-image mask, mask_ref)
+_INIT, _MASK = (f"mystereomatching_tpu/ops/pallas_kernels.py:{n}" for n in (788, 803))
+EXT_ROWS = {f"sgm_scan_ext{row}{dtype}": tpu
+            for row, tpu in (("_step", _INIT), ("", _INIT), ("_mask", _MASK),
+                             ("_frame_a_step", _INIT), ("_frame_a", _INIT))
+            for dtype in ("", "_bf16")}
 # the NL presets at Teddy size (scripts/bench_suite.py:42: nl_tree_filter
 # at 375x450, D=60), uncut; the qx flows on the golden scenes of
 # tests/test_nl_golden.py (teddy_scale's are its slow tests): scene -> (make_synthetic_pair or
@@ -1862,78 +1876,159 @@ def direction_dense(gathered, left, right, cfg, n_chunks, direction):
     return dict(equal=bool(torch.equal(gathered, want)), max_abs_err=err, dense=name)
 
 
-def ext_case(vol, pscale, init, mask, cfg):
-    """Kernel C with a carried-in row (and mask) as (kernel, plain, bytes,
-    operations): the volume read and the path costs written once, the
-    scales, the mask and the initial row read once; 7 operations an element,
-    8 with the mask."""
+def table_case(scans, cfg, lines=None):
+    """Kernel C's table kernel on ``scans`` (ChunkScans) as (kernel, plain,
+    bytes, operations): each chunk's costs read and path costs written once,
+    its scales, mask and initial row read once and its edge row written
+    once; 7 operations an element, 8 with the mask. The plain version writes
+    outputs and edge rows of its own, and :func:`table_check` holds the
+    kernel's against them."""
     p1, p2 = cfg.sgm_p1_eff, cfg.sgm_p2_eff
-    n, es = vol.numel(), vol.element_size()
-    nbytes = 2 * n * es + pscale.numel() * 4 + init.numel() * es
-    if mask is not None:
-        nbytes += mask.numel() * 4
-    return (lambda: ck.sgm_scan(vol, pscale, p1, p2, 2, False, init=init, mask=mask),
-            lambda: sgm_ops.sgm_scan_plain(vol, pscale, p1, p2, 2, False, init,
-                                           mask.to(vol.dtype) if mask is not None else None),
-            nbytes, (8 if mask is not None else 7) * n)
+    outs = {}
+    plain_scans = []
+    for sc in scans:
+        outs.setdefault(sc.out.data_ptr(), torch.empty_like(sc.out))
+        plain_scans.append(dataclasses.replace(
+            sc, out=outs[sc.out.data_ptr()],
+            edge=torch.empty_like(sc.edge) if sc.edge is not None else None))
+    nbytes = nops = 0
+    for sc in scans:
+        d, h = sc.vol.shape[:2]
+        n, es = d * h * sc.width, sc.vol.element_size()
+        nbytes += 2 * n * es + h * sc.width * 4 * (1 + (sc.mask is not None))
+        nbytes += sum(d * sc.width * es for t in (sc.init, sc.edge) if t is not None)
+        nops += (8 if sc.mask is not None else 7) * n
+    return (lambda: ck.sgm_scan_table(scans, p1, p2, lines),
+            lambda: sgm_ops.sgm_scan_table_plain(plain_scans, p1, p2),
+            nbytes, nops, plain_scans)
 
 
-def band_scan_inputs(vol, left, cfg, band: int, skewed: bool):
-    """Band ``band`` (of ROW_BANDS_SGM8) of the frame's [D, Hg, W] volume
-    as the row-band pipeline scans it down: (costs [D, h, Ws], penalty
-    scales [h, Ws], in-image mask [h, Ws] or None). Skewed: the diagonal
-    (-1, 1)'s buffer, skewed by the local row, padded to the global skewed
-    width W + Hg - 1 and rolled by the band's first global row."""
-    hg = vol.shape[1]
-    h = hg // ROW_BANDS_SGM8
-    rows = slice(band * h, (band + 1) * h)
-    v, img = vol[:, rows], left[rows]
+def table_check(scans, plain_scans):
+    """check for run_case: every chunk and edge row of the kernel's table
+    equal to the plain version's; returns the largest difference."""
+    def check(got, want):
+        del got, want
+        err = 0.0
+        for sc, ref in zip(scans, plain_scans):
+            pairs = [(sc.out[:, :, sc.lo:sc.lo + sc.width], ref.out[:, :, sc.lo:sc.lo + sc.width])]
+            if sc.edge is not None:
+                pairs.append((sc.edge, ref.edge))
+            for a, b in pairs:
+                err = max(err, compare("sgm_scan_ext", a, b))
+        return err
+    return check
+
+
+def band_step(vols, images, cfg, n_row: int, dirs, chunk: int, dtype):
+    """Band 1's chunk ``chunk`` of every direction of ``dirs`` (one band
+    order) of every volume [D, Hg, W] (with its [Hg, W, 3] image), in
+    ``dtype``, as the row-band pipeline launches it: ChunkScans over the
+    band path's own buffers (``sharded._band_scan``: the volume for a
+    vertical scan, the skewed buffer of W + Hg - 1 columns with its in-image
+    mask for a diagonal one), each from band 0's boundary row of that chunk
+    (the plain version's), with an edge row to send on."""
     thres, coeff = cfg.sgm_cor_dif_thres, cfg.sgm_redu_coeff
-    if not skewed:
-        return v.contiguous(), sgm_ops.penalty_scale(img, -1, 0, thres, coeff), None
-    v_s, ok = sgm_ops._skew(v, 1, 0.0)
-    ps_s, _ = sgm_ops._skew(sgm_ops.penalty_scale(img, -1, 1, thres, coeff), 1, 1.0)
-    pad, grow, g0 = torch.nn.functional.pad, hg - h, band * h
-    return (torch.roll(pad(v_s, (0, grow)), g0, -1).contiguous(),
-            torch.roll(pad(ps_s, (0, grow), value=1.0), g0, -1).contiguous(),
-            torch.roll(pad(ok.float(), (0, grow)), g0, -1).contiguous())
+    h = vols[0].shape[1] // n_row
+
+    def band(b):
+        mesh = RowMesh(rank=b, n_data=1, n_row=n_row, device=vols[0].device, backend="gloo")
+        rows = slice(b * h, (b + 1) * h)
+        scans = []
+        for rv, ru in dirs:
+            for vol, image in zip(vols, images):
+                ps = sgm_ops.penalty_scale(image, rv, ru, thres, coeff)[rows].contiguous()
+                whole, _ = _band_scan(vol[:, rows].to(dtype).contiguous(), ps, rv, ru, mesh)
+                cw = -(-whole.width // ROW_BANDS_CHUNKS)
+                scans.append(dataclasses.replace(whole, lo=chunk * cw,
+                                                 width=min(cw, whole.width - chunk * cw)))
+        return scans
+
+    first = band(0)
+    for sc in first:
+        sc.edge = torch.empty((sc.vol.shape[0], sc.width), dtype=dtype, device=sc.vol.device)
+    sgm_ops.sgm_scan_table_plain(first, cfg.sgm_p1_eff, cfg.sgm_p2_eff)
+    scans = band(1)
+    for sc, prev in zip(scans, first):
+        sc.init, sc.edge = prev.edge, torch.empty_like(prev.edge)
+    return scans
 
 
-def ext_kernel_rows(vol, left, cfg, card_line: str) -> dict:
-    """Kernel C's new inputs on the sgm8_full frame's left CBCA volume, in
-    float32 and bfloat16, against the plain version. Each kernels line row
-    is the shape the banded frame launches: one W chunk of band 1 (chunk 0
-    of its band, chunk 1 of its skewed buffer, where the in-image mask
-    begins mid-line), scanned down from band 0's boundary row of that
-    chunk. Its ``whole_band`` is the same input over the band's whole width
-    from a random initial row, one launch where the wavefront makes
-    ROW_BANDS_CHUNKS."""
-    p1, p2 = cfg.sgm_p1_eff, cfg.sgm_p2_eff
-    gen = torch.Generator(device=vol.device).manual_seed(1)
+def ext_row(name: str, what: str, scans, cfg, card_line: str) -> dict:
+    """One kernels line row of the table kernel: run_case at the wrapper's
+    block width, then the device time at each width the kernel is built
+    for, with the ring depth, shared memory and blocks an SM each allows;
+    ``row_walk_us``: the time a row of the walk (ms / rows)."""
+    kernel, plain, nbytes, nops, plain_scans = table_case(scans, cfg)
+    d, h = scans[0].vol.shape[:2]
+    row = run_case("sgm_scan_ext", what, (kernel, plain, nbytes, nops), card_line,
+                   check=table_check(scans, plain_scans))
+    row.update(scans=len(scans), lines=ck.scan_table_lines([sc.width for sc in scans],
+                                                           scans[0].vol.device),
+               row_walk_us=row["ms"] / h * 1e3, widths={})
+    dtype = scans[0].vol.dtype
+    for lines in ck.SCAN_TABLE_LINES:
+        ms, ms_from = device_ms(table_case(scans, cfg, lines)[0], "sgm_scan_ext")
+        info = ck.scan_table_info(d, dtype, lines)
+        blocks = sum(-(-sc.width // lines) for sc in scans)
+        row["widths"][lines] = dict(ms=ms, ms_from=ms_from, blocks=blocks, **info)
+        print(f"kernel {name} at {lines} columns a block: {ms:.4f} ms device ({ms_from}); "
+              f"{blocks} blocks, ring of {info['ring']} stages, {info['smem_bytes']} B of shared "
+              f"memory a block, {info['blocks_per_sm']} blocks an SM [{card_line}]")
+    return row
+
+
+def ext_kernel_rows(vols, images, cfg, n_row: int, frame: str, label: str,
+                    card_line: str) -> dict:
+    """Kernel C's table kernel on a frame's CBCA volumes, in float32 and
+    bfloat16, against the plain table, at the shapes the banded frame
+    launches it: the down order's chunk step (chunk 1 of band 1, every
+    direction of the order for every volume), and one scan of it alone, the
+    vertical one and (8 paths) the first diagonal, which takes the in-image
+    mask. The sgm8_full frame's one-scan rows also give ``whole_band``: the
+    same scan over its buffer's whole width from a random initial row, one
+    launch where the wavefront makes ROW_BANDS_CHUNKS."""
+    gen = torch.Generator(device=vols[0].device).manual_seed(1)
+    dirs = BAND_ORDERS[0] if cfg.sgm_scan_num >= 8 else BAND_ORDERS[0][:1]
     rows = {}
-    for row, (_, dtype, masked) in EXT_ROWS.items():
-        (v0, ps0, m0), (v1, ps1, m1) = (band_scan_inputs(vol, left, cfg, b, masked)
-                                        for b in (0, 1))
-        v0, v1 = v0.to(dtype)[None], v1.to(dtype)[None]
-        m0, m1 = (m[None] if masked else None for m in (m0, m1))
-        edge = sgm_ops.sgm_scan_plain(v0, ps0[None], p1, p2, 2, False, None,
-                                      m0.to(dtype) if masked else None)[:, :, -1]
-        ws = v1.shape[-1]
-        cw = -(-ws // ROW_BANDS_CHUNKS)
-        cols = slice(cw, 2 * cw) if masked else slice(0, cw)
-        chunk = [t[..., cols].contiguous() if t is not None else None
-                 for t in (v1, ps1[None], edge, m1)]
-        kind = "skewed diagonal buffer with its in-image mask" if masked else "band"
-        what = (f"W chunk {list(chunk[0].shape)} of band 1's {kind} {str(dtype)[6:]}, "
-                "scanned down from band 0's boundary row")
-        rows[row] = run_case("sgm_scan_ext", what, ext_case(*chunk, cfg), card_line)
-        init = (torch.rand((1, v1.shape[1], ws), generator=gen, device=v1.device) * 4
-                + 0.5).to(dtype)
-        what = f"whole {kind} {list(v1.shape)} {str(dtype)[6:]}, from a random initial row"
-        whole = run_case("sgm_scan_ext", what, ext_case(v1, ps1[None], init, m1, cfg),
-                         card_line)
-        rows[row]["whole_band"] = {k: whole[k] for k in ("case", "ms", "ms_from", "plain_ms",
-                                                         "bound_ms", "max_abs_err")}
+    for dtype in (torch.float32, torch.bfloat16):
+        suffix = "" if dtype == torch.float32 else "_bf16"
+        scans = band_step(vols, images, cfg, n_row, dirs, 1, dtype)
+        shapes = ", ".join(f"[1, {sc.vol.shape[0]}, {sc.vol.shape[1]}, {sc.width}]"
+                           + (" masked" if sc.mask is not None else "") for sc in scans)
+        name = f"sgm_scan_ext{frame}_step{suffix}"
+        what = (f"chunk step of {label}'s band 1 down order, {len(scans)} scans "
+                f"{shapes} {str(dtype)[6:]}, from band 0's boundary rows")
+        rows[name] = ext_row(name, what, scans, cfg, card_line)
+        # one scan alone: the first volume's vertical one and, with 8 paths, its first diagonal
+        alone = {"": scans[0]}
+        if len(dirs) > 1:
+            alone["_mask"] = scans[len(vols)]
+        for kind, sc in alone.items():
+            name = f"sgm_scan_ext{frame}{kind}{suffix}"
+            buf = "skewed diagonal buffer with its in-image mask" if kind else "band"
+            what = (f"W chunk [1, {sc.vol.shape[0]}, {sc.vol.shape[1]}, {sc.width}] of band 1's "
+                    f"{buf} {str(dtype)[6:]}, scanned down from band 0's boundary row")
+            rows[name] = ext_row(name, what, [sc], cfg, card_line)
+            rows[name]["within"] = f"sgm_scan_ext{frame}_step{suffix}"
+            rows[name]["step_ms"] = rows[rows[name]["within"]]["ms"]
+            if frame:
+                continue
+            init = (torch.rand((sc.vol.shape[0], sc.vol.shape[-1]), generator=gen,
+                               device=sc.vol.device) * 4 + 0.5).to(dtype)
+            whole = ck.ChunkScan(sc.vol, sc.pscale, sc.out, 0, sc.vol.shape[-1], sc.reverse,
+                                 init, sc.mask)
+            what = (f"whole {buf} {[1] + list(sc.vol.shape)} {str(dtype)[6:]}, from a random "
+                    "initial row")
+            kernel, plain, nbytes, nops, plain_scans = table_case([whole], cfg)
+            res = run_case("sgm_scan_ext", what, (kernel, plain, nbytes, nops), card_line,
+                           check=table_check([whole], plain_scans))
+            rows[name]["whole_band"] = {k: res[k] for k in ("case", "ms", "ms_from", "plain_ms",
+                                                            "bound_ms", "max_abs_err")}
+        # the row walk's floor of the step: its rows at the one-scan walk's time a row
+        step = rows[f"sgm_scan_ext{frame}_step{suffix}"]
+        step["walk_floor_ms"] = rows[f"sgm_scan_ext{frame}{suffix}"]["ms"]
+        del scans, alone
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1957,7 +2052,7 @@ def sgm_multi_band_order(vol_list, img_list, num_directions: int = 4, p1: float 
 
 def band_report(label: str, reports, card_line: str) -> None:
     """Each rank's wall time per frame, device time of the profiled frame,
-    peak memory, launches and communication."""
+    peak memory, launches, kernel C's table scans and communication."""
     for r in reports:
         comm = r["comm"]
         chunks, steps = comm["wavefront_chunks"], comm["wavefront_steps"]
@@ -1965,42 +2060,68 @@ def band_report(label: str, reports, card_line: str) -> None:
         dev_ms = (f"{r['device_ms']:.3f} ms ({r['nccl_ms']:.3f} of it NCCL's kernels, waits "
                   "included)" if r["device_ms"] is not None else "not measured")
         launches = {k: v for k, v in r["launches"].items() if v}
+        scans = {k: v for k, v in r["launches_scans"].items() if v}
         print(f"{label} rank {r['rank']} on {r['device']} ({r['backend']}): wall ms/frame "
               f"{', '.join(f'{t:.3f}' for t in r['wall_ms'])} (the last under the profiler); "
               f"device {dev_ms}; peak {r['peak_bytes'] / 2**20:.1f} MiB; launches "
-              f"{json.dumps(launches)} (masked sgm_scan_ext "
-              f"{r['launches_masked']['sgm_scan_ext']}); halo {comm['halo_exchanges']} "
-              f"exchanges {comm['halo_bytes']} B sent, wavefront {comm['wavefront_scans']} "
-              f"scans of {eff} chunk steps, {comm['wavefront_bytes']} B sent, all-gather "
-              f"{comm['all_gathers']}x {comm['all_gather_bytes']} B sent, gather "
-              f"{comm['gather_bytes']} B, total {comm['total_bytes']} B [{card_line}]")
+              f"{json.dumps(launches)}; sgm_scan_ext scans {json.dumps(scans)}; halo "
+              f"{comm['halo_exchanges']} exchanges {comm['halo_bytes']} B sent, wavefront "
+              f"{comm['wavefront_scans']} scans of {eff} chunk steps, {comm['wavefront_bytes']} "
+              f"B sent, all-gather {comm['all_gathers']}x {comm['all_gather_bytes']} B sent, "
+              f"gather {comm['gather_bytes']} B, total {comm['total_bytes']} B [{card_line}]")
         for name, ms, n in r["top_kernels"]:
             print(f"{label} rank {r['rank']}:   {ms:9.3f} ms {n:6d}x  {name}")
 
 
 def check_band_launches(label: str, reports, masked: bool) -> dict:
-    """Kernel C's new entry points launched over the ranks (with the mask
-    when ``masked``), kernel E never (the band path skews through C).
-    Returns those launches summed over the ranks by kernels line row."""
+    """Every band scan along H went through kernel C's table kernel: on each
+    rank its scans are the wavefront's chunks (one a chunk of a scan), with
+    the in-image mask exactly when ``masked`` (the diagonals), in one launch
+    a chunk step of each band order; plain kernel C ran only the
+    band-local horizontal pair (one launch a direction, the volumes
+    batched), kernel E never (the band path skews through C). Returns the
+    launches and scans summed over the ranks."""
     total = collections.Counter()
     for r in reports:
-        total.update(r["launches"])
-        total.update({f"bf16_{k}": v for k, v in r["launches_bf16"].items()})
-        total.update({f"masked_{k}": v for k, v in r["launches_masked"].items()})
-    if not total["sgm_scan_ext"] or total["sgm_diag"] or \
-            bool(total["masked_sgm_scan_ext"]) != masked:
-        raise AssertionError(f"{label}: launches over the ranks {dict(total)}")
-    masked_bf16 = total["masked_sgm_scan_ext_bf16"]
-    masked_f32 = total["masked_sgm_scan_ext"] - masked_bf16
-    bf16 = total["bf16_sgm_scan_ext"] - masked_bf16
-    return {"sgm_scan_ext": total["sgm_scan_ext"] - bf16 - masked_bf16 - masked_f32,
-            "sgm_scan_ext_mask": masked_f32, "sgm_scan_ext_bf16": bf16,
-            "sgm_scan_ext_mask_bf16": masked_bf16}
+        chunks = r["comm"]["wavefront_chunks"]
+        scans = r["launches_scans"]
+        steps = 2 * max(chunks)          # the down order's chunk steps, then the up order's
+        ok = (sum(chunks) == scans["sgm_scan_ext"] + scans["sgm_scan_ext_mask"]
+              and bool(scans["sgm_scan_ext_mask"]) == masked
+              and r["launches"]["sgm_scan_ext"] == steps and r["launches"]["sgm_scan"] == 2
+              and not r["launches"]["sgm_diag"] and not r["launches_bf16"]["sgm_scan_ext"])
+        print(f"{label} rank {r['rank']}: sgm_scan_ext {r['launches']['sgm_scan_ext']} launches "
+              f"(one a chunk step: {steps}) of {sum(scans.values())} scans ({json.dumps(scans)}; "
+              f"wavefront chunks {sum(chunks)}), plain sgm_scan {r['launches']['sgm_scan']}, "
+              f"sgm_diag {r['launches']['sgm_diag']}")
+        if not ok:
+            raise AssertionError(f"{label} rank {r['rank']}: not every band scan went through "
+                                 f"sgm_scan_ext, one launch a chunk step")
+        total.update(launches=r["launches"]["sgm_scan_ext"], scans=sum(scans.values()),
+                     masked=scans["sgm_scan_ext_mask"])
+    print(f"{label}: sgm_scan_ext {total['launches']} launches of {total['scans']} scans "
+          f"({total['masked']} masked) over {len(reports)} ranks")
+    return dict(total)
+
+
+def frame_ext_rows(left, right, cfg, n_row: int, frame: str, label: str,
+                   card_line: str) -> dict:
+    """:func:`ext_kernel_rows` on the frame's CBCA volumes as the band path
+    scans them (both views where it keeps both)."""
+    vols, _ = compute_volumes(left, right, cfg)
+    rows = ext_kernel_rows([vols[k] for k in sorted(vols)], [(left, right)[k] for k in
+                                                              sorted(vols)],
+                           cfg, n_row, frame, label, card_line)
+    del vols
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_row_bands(dev, card_line: str):
     """The row-band pipeline at full width. Returns the kernels line's rows
-    of sgm_scan_ext and their launches on the banded sgm8_full frame."""
+    of sgm_scan_ext and, for each, the launches and scans of its frame
+    (banded sgm8_full, or frame A over 4 bands) summed over the ranks, 0
+    for the bfloat16 rows."""
     torch.cuda.empty_cache()
     pair = make_synthetic_pair(**SGM8)
     left = torch.from_numpy(pair.left).to(dev, torch.float32)
@@ -2009,7 +2130,7 @@ def phase_row_bands(dev, card_line: str):
     label = f"row bands sgm8_full {SGM8['h']}x{SGM8['w']} D={cfg.num_disp}"
     print(f"{label}: cost halo {_cost_halo(cfg)} rows, bands of "
           f"{SGM8['h'] // ROW_BANDS_SGM8} rows")
-    rows = ext_kernel_rows(frame_volume(left, right, cfg), left, cfg, card_line)
+    rows = frame_ext_rows(left, right, cfg, ROW_BANDS_SGM8, "", "sgm8_full", card_line)
 
     # the dense references on this card, in the dense sum's order and in
     # the band path's
@@ -2043,7 +2164,7 @@ def phase_row_bands(dev, card_line: str):
     print(f"{label}: {len(jobs)} jobs over {ROW_BANDS_SGM8} ranks in "
           f"{time.perf_counter() - t0:.3f} s, processes included")
     band_report(label, reports, card_line)
-    launches = check_band_launches(label, reports, masked=True)
+    path = {"": check_band_launches(label, reports, masked=True)}
     for d, (res, _) in zip(directions, dirs):
         print(f"{label}: direction {d} over {ROW_BANDS_SGM8} bands vs dense kernel "
               f"{res['dense']}: equal {res['equal']} (max |err| {res['max_abs_err']})")
@@ -2075,6 +2196,11 @@ def phase_row_bands(dev, card_line: str):
     pair = make_synthetic_pair(**params)
     cfg = get_model("fullres_occfill", max_disp=params["max_disp"], **overrides)
     label = f"row bands fullres_occfill A {params['h']}x{params['w']} D={cfg.num_disp}"
+    left = torch.from_numpy(pair.left).to(dev, torch.float32)
+    right = torch.from_numpy(pair.right).to(dev, torch.float32)
+    rows.update(frame_ext_rows(left, right, cfg, ROW_BANDS_OCCFILL, "_frame_a",
+                               "fullres_occfill frame A", card_line))
+    del left, right
     dense = StereoPipeline(cfg, device=dev)(pair.left, pair.right)["disparity"].cpu()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2095,12 +2221,20 @@ def phase_row_bands(dev, card_line: str):
     [(again, reports)] = band_harness.run_jobs([job], ROW_BANDS_OCCFILL, devices=devices,
                                                backend=backend)
     band_report(label, reports, card_line)
-    check_band_launches(label, reports, masked=False)
+    path["_frame_a"] = check_band_launches(label, reports, masked=False)
     if not torch.equal(torch.from_numpy(again[0]), disp):
         raise AssertionError(f"{label}: the measured frames' map differs from run_row_bands'")
 
     row_bands_disp(dev, card_line)
-    return rows, launches
+    # the path launches the table only as chunk steps: a one-scan row is
+    # launched within its frame's step row, and counts none of its own
+    counts = {}
+    for row in rows:
+        frame = "_frame_a" if row.startswith("sgm_scan_ext_frame_a") else ""
+        on_path = "within" not in rows[row] and not row.endswith("_bf16")
+        counts[row] = path[frame]["launches"] if on_path else 0
+        rows[row]["path_scans"] = path[frame]["scans"] if on_path else 0
+    return rows, counts
 
 
 def row_bands_disp(dev, card_line: str) -> None:
@@ -2180,11 +2314,11 @@ def main() -> int:
     kernels += [dict(name=row, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
                      launches=bf16_counts[name], **bf16_rows[row])
                 for row, name in BF16_ROWS.items()]
-    # kernel C's new entry points, with the banded sgm8_full frame's launches
-    # summed over its ranks (no banded path runs bfloat16 volumes)
+    # kernel C's table kernel, with its banded frame's launches summed over
+    # the ranks (no banded path runs bfloat16 volumes)
     kernels += [dict(name=row, route="cuda", source=KERNELS["sgm_scan"][0], replaces=tpu,
                      launches=ext_counts[row], **ext_rows[row])
-                for row, (tpu, _, _) in EXT_ROWS.items()]
+                for row, tpu in EXT_ROWS.items()]
     # frame C's kernels at its shapes, with the streamed frame's launches
     kernels += [dict(name=row, route="cuda", source=KERNELS[name][0], replaces=tpu,
                      launches=stream_counts[name], **stream_rows[row])

@@ -10,10 +10,12 @@
 //   L(cur, d) = (C(cur, d) + best) - minL
 // with s = pscale at cur and L(prev) = 0 before the first step of the line
 // (so the first step gives L = C, the reference's scan-edge rule,
-// h:2277-2279). Two optional inputs serve the row-band pipeline, whose scans
-// cross the bands: an initial carry, the neighbouring band's last L row, in
-// place of those zeros, and an in-image mask, by which each L is multiplied
-// (0 or 1) before it is stored and carried, for skewed diagonal buffers. The
+// h:2277-2279). Three optional pieces serve the row-band pipeline, whose
+// scans cross the bands: an initial carry, the neighbouring band's last L
+// row, in place of those zeros; an in-image mask, by which each L is
+// multiplied (0 or 1) before it is stored and carried, for skewed diagonal
+// buffers; and a copy of each line's last L (the row the next band starts
+// from) into a separate row buffer. The
 // operation order is that of sgm._scan_down and the TPU kernels; with
 // -fmad=false the result is bit-identical to the plain torch versions. The
 // volumes are float32 or bfloat16 (the storage type T). In bfloat16 every
@@ -174,15 +176,20 @@ __device__ __forceinline__ void sgm_steps(float* box, const float* scale, const 
 //                            from init).
 // init, when not null, is the carry each line starts from: line l's path
 // cost at disparity d is init[d * init_pitch + l]. With kMasked, mask [H, W]
-// holds the in-image mask (0 or 1) by which every path cost is multiplied.
-template <typename T, int kSlots, class Geom, bool kMasked = false>
+// holds the in-image mask (0 or 1) by which every path cost is multiplied;
+// a null mask stages 1.0f instead, and x * 1.0f is x in both types. With
+// kEdge and a non-null edge, each line's last step is also stored at
+// edge[d * geom.edge_pitch() + geom.edge(s, b)] (edge(s, b) is -1 for
+// every other box pixel).
+template <typename T, int kSlots, class Geom, bool kMasked = false, bool kEdge = false>
 __device__ __forceinline__ void sgm_band(const T* __restrict__ vol,
                                          const float* __restrict__ scale,
                                          T* __restrict__ out, long long plane, int nd,
                                          float p1, float p2, const Geom& geom,
                                          const T* __restrict__ init = nullptr,
                                          long long init_pitch = 0,
-                                         const float* __restrict__ mask = nullptr) {
+                                         const float* __restrict__ mask = nullptr,
+                                         T* __restrict__ edge = nullptr) {
   constexpr int kBox = Geom::kBox, kPitch = kBox + 1;
   constexpr int kThreads = Geom::kLines * 32;
   constexpr int kDStride = kThreads / kBox;  // disparities between a thread's copies
@@ -218,7 +225,13 @@ __device__ __forceinline__ void sgm_band(const T* __restrict__ vol,
         reinterpret_cast<int*>(box + nd * kPitch + kBox)[b] =
             static_cast<int>((reinterpret_cast<uintptr_t>(vol + off) >> 1) & 1);
       }
-      if constexpr (kMasked) cp_async4(box + nd * kPitch + kMaskAt + b, mask + off);
+      if constexpr (kMasked) {
+        if (mask != nullptr) {
+          cp_async4(box + nd * kPitch + kMaskAt + b, mask + off);
+        } else {
+          box[nd * kPitch + kMaskAt + b] = 1.0f;
+        }
+      }
     }
   };
 
@@ -255,6 +268,15 @@ __device__ __forceinline__ void sgm_band(const T* __restrict__ vol,
     const long long off = geom.pixel(s, b);
     if (off >= 0) {
       for (int d = d0; d < nd; d += kDStride) out[d * plane + off] = narrow<T>(box[d * kPitch + b]);
+      if constexpr (kEdge) {
+        const int e = edge != nullptr ? geom.edge(s, b) : -1;
+        if (e >= 0) {
+          const long long pitch = geom.edge_pitch();
+          for (int d = d0; d < nd; d += kDStride) {
+            edge[d * pitch + e] = narrow<T>(box[d * kPitch + b]);
+          }
+        }
+      }
     }
   }
 }

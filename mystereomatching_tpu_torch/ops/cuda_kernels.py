@@ -14,9 +14,12 @@ and adds one to its entry of :data:`launches`. Wrappers take CUDA tensors
 only; the op modules run their plain torch versions for CPU tensors.
 Kernels B, C, D and E take float32 or bfloat16 volumes (the JAX package's
 ``vol_dtype``), each type through an entry point of its own, and refuse
-any other dtype. Kernel C's scan along H with a carried-in row or an
-in-image mask, which the row-band pipeline runs, has entry points of its
-own too (``mysm_sgm_scan_ext``) and is counted apart, as ``sgm_scan_ext``.
+any other dtype. Kernel C's scans along H with a carried-in row or an
+in-image mask, which the row-band pipeline runs, are a kernel of their own
+(``mysm_sgm_scan_ext``) that takes a table of W-chunk scans a launch
+(:func:`sgm_scan_table`, each scan a :class:`ChunkScan`) and writes into
+the caller's buffers in place, counted apart as ``sgm_scan_ext``, its scans
+in :data:`launches_scans`.
 Region vote runs one pass a launch (``csrc/region_vote.cu``);
 ``arm_reduce`` (``csrc/arm_reduce.cu``), the single-axis integer
 reduction it was built from, is on no pipeline path.
@@ -32,6 +35,7 @@ reduction it was built from, is on no pipeline path.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -57,8 +61,12 @@ launches = {"arms_grow": 0, "arm_taps": 0, "sgm_scan": 0, "wta": 0,
             "taps_probe_static": 0}
 # of those, the launches of the bfloat16 instances of kernels B, C, D and E
 launches_bf16 = {"arm_taps": 0, "sgm_scan": 0, "wta": 0, "sgm_diag": 0, "sgm_scan_ext": 0}
-# of those, kernel C's launches with an in-image mask, and of these the bfloat16 ones
-launches_masked = {"sgm_scan_ext": 0, "sgm_scan_ext_bf16": 0}
+# the scans of kernel C's table launches (sgm_scan_ext): all of them, those with an
+# in-image mask, and of each the bfloat16 ones
+launches_scans = {"sgm_scan_ext": 0, "sgm_scan_ext_mask": 0, "sgm_scan_ext_bf16": 0,
+                  "sgm_scan_ext_mask_bf16": 0}
+SCAN_TABLE_MAX = 32  # scans in one sgm_scan_ext launch (the kernel's kMaxScans)
+SCAN_TABLE_LINES = (16, 4)  # the block widths, in columns, it is built for
 REDUCE_OPS = {"sum": 0, "min": 1, "max": 2}
 MAX_ARM = 127  # the longest arm kernels A and region_vote take (the config's bound)
 # the SGM-layout probes: entry point -> (its index, the kinds it takes)
@@ -96,7 +104,8 @@ _SIGNATURES = {
     "mysm_region_vote": [_P, _P, _P, _I, _I, _I, _I, _P],
     "mysm_pi_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mysm_sgm_diag": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
-    "mysm_sgm_scan_ext": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    "mysm_sgm_scan_ext": [_P, _I, _I, _I, _F, _F, _P],
+    "mysm_sgm_scan_ext_info": [_I, _I, _I, _P],
     "mysm_copy_bw": [_P, _P, _L, _I, _I, _I, _I, _P],
     "mysm_gather_rows": [_P, _P, _P, _I, _L, _I, _P],
     "mysm_gather_cols": [_P, _P, _P, _I, _L, _I, _P],
@@ -111,7 +120,7 @@ VOL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
-    for counts in (launches, launches_bf16, launches_masked):
+    for counts in (launches, launches_bf16, launches_scans):
         for name in counts:
             counts[name] = 0
 
@@ -278,7 +287,8 @@ def sgm_scan(vol: torch.Tensor, pscale: torch.Tensor, p1: float, p2: float,
     Along H only, as the row-band pipeline scans: init [G, D, W] in vol's
     dtype is the carry before the first step (instead of zeros), and mask
     [G, H, W] (0s and 1s, float32 or vol's dtype) multiplies every path
-    cost. Either launches ``sgm_scan_ext``."""
+    cost. Either launches ``sgm_scan_ext`` once, a table of one scan a
+    volume (:func:`sgm_scan_table`)."""
     if vol.ndim != 4 or axis not in (2, 3):
         raise ValueError(f"sgm_scan: expected [G, D, H, W] and axis 2 or 3, got "
                          f"{tuple(vol.shape)}, axis {axis}")
@@ -299,7 +309,8 @@ def sgm_scan(vol: torch.Tensor, pscale: torch.Tensor, p1: float, p2: float,
 
 
 def _sgm_scan_ext(vol, pscale, p1, p2, axis, reverse, init, mask) -> torch.Tensor:
-    """Kernel C along H with a carried-in row and/or an in-image mask."""
+    """Kernel C along H with a carried-in row and/or an in-image mask: a
+    table of G whole-width scans, one a volume."""
     if axis != 2:
         raise ValueError("sgm_scan: init and mask are taken along H (axis 2) only")
     g, d, h, w = vol.shape
@@ -308,17 +319,127 @@ def _sgm_scan_ext(vol, pscale, p1, p2, axis, reverse, init, mask) -> torch.Tenso
     if mask is not None:
         _check(mask, "sgm_scan mask", (torch.float32, vol.dtype), (g, h, w), vol.device)
         mask = mask.to(torch.float32)  # 0 and 1 are exact in either type
-    lib = _load()
     with torch.cuda.device(vol.device):
         out = torch.empty_like(vol)
-        _launch_vol("sgm_scan_ext", lib, "mysm_sgm_scan_ext", vol, pscale.data_ptr(),
-                    init.data_ptr() if init is not None else None,
-                    mask.data_ptr() if mask is not None else None, out.data_ptr(),
-                    g, d, h, w, int(bool(reverse)), float(p1), float(p2))
-    if mask is not None:
-        launches_masked["sgm_scan_ext"] += 1
-        launches_masked["sgm_scan_ext_bf16"] += vol.dtype == torch.bfloat16
+    sgm_scan_table([ChunkScan(vol[i], pscale[i], out[i], 0, w, bool(reverse),
+                              init[i] if init is not None else None,
+                              mask[i] if mask is not None else None) for i in range(g)],
+                   p1, p2)
     return out
+
+
+@dataclasses.dataclass
+class ChunkScan:
+    """One scan down (or, ``reverse``, up) the columns lo .. lo + width - 1
+    of a [D, h, Ws] buffer of costs ``vol`` (float32 or bfloat16), with its
+    [h, Ws] float32 penalty scales ``pscale``, into the same columns of
+    ``out`` (vol's shape and dtype), in place.
+
+    init: the [D, width] carry before the first step (vol's dtype), or None
+    for zeros. mask: an [h, Ws] in-image mask of 0s and 1s (float32 for the
+    kernel; the plain version takes vol's dtype too), multiplying every
+    path cost, or None. edge: a [D, width] row (vol's dtype) that receives
+    the last row scanned (row h - 1, or row 0 when reverse): the one the
+    next band starts from."""
+
+    vol: torch.Tensor
+    pscale: torch.Tensor
+    out: torch.Tensor
+    lo: int
+    width: int
+    reverse: bool = False
+    init: Optional[torch.Tensor] = None
+    mask: Optional[torch.Tensor] = None
+    edge: Optional[torch.Tensor] = None
+
+
+_sm_count = {}
+
+
+def scan_table_lines(widths: Sequence[int], device: torch.device) -> int:
+    """The block width of a table launch of chunks ``widths`` columns wide:
+    4 columns where its blocks, one a band of 4 columns, fit on the card's
+    SMs one a block, else 16. A launch of few blocks walks its rows faster
+    the fewer warps share an SM; one that would not fit, with fewer and
+    wider blocks (measured on an H100: PERF.md, section 6)."""
+    if device not in _sm_count:
+        _sm_count[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return 4 if sum(-(-w // 4) for w in widths) <= _sm_count[device] else 16
+
+
+def _scan_table_desc(scans: Sequence[ChunkScan]):
+    """Checks a table of scans for kernel C's table kernel (1 to 32, all of
+    one dtype and one D <= 256, on one card) and packs it: (the int64
+    fields of each scan for ``mysm_sgm_scan_ext``, D, dtype, masked scans)."""
+    if not 1 <= len(scans) <= SCAN_TABLE_MAX:
+        raise ValueError(f"sgm_scan_table: {len(scans)} scans, not 1 to {SCAN_TABLE_MAX}")
+    first = scans[0].vol
+    _check(first, "sgm_scan_table vol", VOL_DTYPES)
+    dtype, dev, d = first.dtype, first.device, first.shape[0] if first.ndim == 3 else 0
+    if not 1 <= d <= 256:
+        raise ValueError(f"sgm_scan_table: expected vol [D <= 256, h, Ws], got "
+                         f"{tuple(first.shape)}")
+    desc, masked = [], 0
+    for sc in scans:
+        _check(sc.vol, "sgm_scan_table vol", dtype, device=dev)
+        if sc.vol.ndim != 3 or sc.vol.shape[0] != d:
+            raise ValueError(f"sgm_scan_table: vol {tuple(sc.vol.shape)}, expected [{d}, h, Ws]"
+                             " (one D a table)")
+        _, h, ws = sc.vol.shape
+        if not (0 <= sc.lo and 1 <= sc.width and sc.lo + sc.width <= ws):
+            raise ValueError(f"sgm_scan_table: chunk {sc.lo} .. {sc.lo + sc.width} outside "
+                             f"the buffer's {ws} columns")
+        _check(sc.pscale, "sgm_scan_table pscale", torch.float32, (h, ws), dev)
+        _check(sc.out, "sgm_scan_table out", dtype, sc.vol.shape, dev)
+        for name, t in (("init", sc.init), ("edge", sc.edge)):
+            if t is not None:
+                _check(t, f"sgm_scan_table {name}", dtype, (d, sc.width), dev)
+        if sc.mask is not None:
+            _check(sc.mask, "sgm_scan_table mask", torch.float32, (h, ws), dev)
+            masked += 1
+        ptr = [t.data_ptr() + sc.lo * t.element_size() if t is not None else 0
+               for t in (sc.vol, sc.pscale, sc.mask)]
+        ptr += [sc.init.data_ptr() if sc.init is not None else 0,
+                sc.out.data_ptr() + sc.lo * sc.out.element_size(),
+                sc.edge.data_ptr() if sc.edge is not None else 0]
+        desc += ptr + [h * ws, ws, h, sc.width, int(bool(sc.reverse)), 0]
+    return desc, d, dtype, masked
+
+
+def sgm_scan_table(scans: Sequence[ChunkScan], p1: float, p2: float,
+                   lines: Optional[int] = None) -> None:
+    """Kernel C's table kernel: every scan of ``scans`` (1 to 32
+    :class:`ChunkScan`, all of one dtype and one D <= 256, all on one card)
+    in one launch, each writing its chunk of ``out`` and its ``edge`` row
+    in place. lines: the block width in columns (16 or 4), or None for
+    :func:`scan_table_lines`'s choice."""
+    if lines is not None and lines not in SCAN_TABLE_LINES:
+        raise ValueError(f"sgm_scan_table: lines {lines} not one of {SCAN_TABLE_LINES}")
+    desc, d, dtype, masked = _scan_table_desc(scans)
+    dev = scans[0].vol.device
+    if lines is None:
+        lines = scan_table_lines([sc.width for sc in scans], dev)
+    bf16 = "_bf16" if dtype == torch.bfloat16 else ""
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch("sgm_scan_ext", getattr(lib, "mysm_sgm_scan_ext" + bf16),
+                (ctypes.c_longlong * len(desc))(*desc), len(scans), d, int(lines), float(p1),
+                float(p2))
+    launches_bf16["sgm_scan_ext"] += bool(bf16)
+    launches_scans["sgm_scan_ext" + bf16] += len(scans) - masked
+    launches_scans["sgm_scan_ext_mask" + bf16] += masked
+
+
+def scan_table_info(d: int, dtype: torch.dtype, lines: int) -> dict:
+    """The table kernel's instance for D disparities of ``dtype`` at
+    ``lines`` columns a block: its ring stages, dynamic shared memory
+    bytes a block and blocks an SM (the occupancy calculator's)."""
+    lib = _load()
+    out = (ctypes.c_int * 3)()
+    rc = lib.mysm_sgm_scan_ext_info(int(d), int(dtype == torch.bfloat16), int(lines), out)
+    if rc != 0:
+        raise RuntimeError(f"sgm_scan_ext_info: CUDA error {rc}")
+    return dict(ring=out[0], smem_bytes=out[1], blocks_per_sm=out[2])
 
 
 def wta(vol: torch.Tensor, choose_small: bool = True) -> torch.Tensor:

@@ -5,7 +5,9 @@ Counterpart of ``mystereomatching_tpu/ops/sgm.py`` (``penalty_scale``,
 ``_unskew``, ``scan_direction``, ``sgm``, ``sgm_multi``,
 ``sgm_directions``). Each axis direction's path costs are CUDA kernel C
 (``csrc/sgm_scan.cu``) on a CUDA tensor, each diagonal's kernel E
-(``csrc/sgm_diag.cu``). Volumes are float32 or bfloat16; in bfloat16 every
+(``csrc/sgm_diag.cu``); the row-band pipeline's W-chunk scans along H go
+as tables of scans (:func:`sgm_scan_table`) through kernel C's table
+kernel. Volumes are float32 or bfloat16; in bfloat16 every
 operation rounds to it (see :func:`_step`), the direction sum's adds too.
 
 Recurrence (updateCost h:2268-2274), along the scan from the predecessor:
@@ -27,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from mystereomatching_tpu_torch.ops import cuda_kernels as ck
+from mystereomatching_tpu_torch.ops.cuda_kernels import ChunkScan
 
 # predecessor offsets (rv, ru), reference order (cpp:6206-6208)
 DIRECTIONS_8: Tuple[Tuple[int, int], ...] = (
@@ -97,6 +100,32 @@ def sgm_scan(vol: torch.Tensor, pscale: torch.Tensor, p1: float, p2: float,
     if ck.on_cuda(vol):
         return ck.sgm_scan(vol, pscale, p1, p2, axis, reverse, init, mask)
     return sgm_scan_plain(vol, pscale, p1, p2, axis, reverse, init, mask)
+
+
+def sgm_scan_table_plain(scans: Sequence[ChunkScan], p1: float, p2: float) -> None:
+    """Plain torch version of kernel C's table: each :class:`ChunkScan`
+    scanned by :func:`sgm_scan_plain` on views of its buffers' columns
+    lo .. lo + width - 1, its path costs written into those columns of its
+    ``out`` and its last row scanned into its ``edge``, in place. The mask
+    is taken in the costs' dtype (0 and 1 are exact in either)."""
+    for sc in scans:
+        cols = slice(sc.lo, sc.lo + sc.width)
+        mask = sc.mask[None, :, cols].to(sc.vol.dtype) if sc.mask is not None else None
+        res = sgm_scan_plain(sc.vol[None, :, :, cols], sc.pscale[None, :, cols], p1, p2, 2,
+                             sc.reverse, sc.init[None] if sc.init is not None else None,
+                             mask)[0]
+        sc.out[:, :, cols] = res
+        if sc.edge is not None:
+            sc.edge.copy_(res[:, 0 if sc.reverse else -1])
+
+
+def sgm_scan_table(scans: Sequence[ChunkScan], p1: float, p2: float) -> None:
+    """Every scan of ``scans`` in place: one kernel launch on CUDA tensors,
+    the plain version on CPU ones."""
+    if ck.on_cuda(scans[0].vol):
+        ck.sgm_scan_table(scans, p1, p2)
+    else:
+        sgm_scan_table_plain(scans, p1, p2)
 
 
 def _skew(x: torch.Tensor, sign: int, fill: float):

@@ -55,7 +55,7 @@ def band_sgm(mesh: RowMesh, vol, image, cfg: MatchConfig, n_chunks: int,
     vb = band_rows(torch.as_tensor(vol), mesh, 1).to(mesh.device)
     ib = band_rows(torch.as_tensor(image), mesh, 0).to(mesh.device, torch.float32)
     if direction is None:
-        return _sgm_sharded(vb, ib, cfg, n_chunks, mesh)
+        return _sgm_sharded([vb], [ib], cfg, n_chunks, mesh)[0]
     return sgm_band_direction(vb, ib, cfg, *direction, n_chunks, mesh)
 
 
@@ -116,7 +116,7 @@ def _run_job(job: Job, mesh: RowMesh):
             if last:
                 result = gather_bands(out, mesh, job.row_axis, job.batch_axis)
     report.update(launches=dict(ck.launches), launches_bf16=dict(ck.launches_bf16),
-                  launches_masked=dict(ck.launches_masked), comm=rec.summary())
+                  launches_scans=dict(ck.launches_scans), comm=rec.summary())
     if on_card:
         report["peak_bytes"] = torch.cuda.max_memory_allocated(mesh.device)
     if result is None:

@@ -17,7 +17,12 @@ branches that the three ported presets reach (``census_grad_cbca_sgm``,
   band scans chunk c from the previous band's last path-cost row of chunk
   c, which arrives point to point (kernel C's carried-in row; the diagonals
   also take its in-image mask). Band p can start chunk c once band p-1 has
-  finished it: C chunks over P bands take C + P - 1 chunk steps;
+  finished it: C chunks over P bands take C + P - 1 chunk steps. Every
+  scan of one band order (down: the vertical and the two diagonals whose
+  predecessor lies above, for every volume; up: the other three) runs
+  through the same chunk steps, each step one exchange of all their
+  boundary rows and one launch of kernel C's table kernel, which reads
+  and writes each chunk in place;
 * WTA, the LR checks, the background fill and the subpixel steps are
   row-local.
 
@@ -28,7 +33,8 @@ halos and boundary rows sent by ``torch.distributed``.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,12 +45,16 @@ from mystereomatching_tpu_torch.ops import cost as cost_ops
 from mystereomatching_tpu_torch.ops import refine as refine_ops
 from mystereomatching_tpu_torch.ops import sgm as sgm_ops
 from mystereomatching_tpu_torch.ops import wta as wta_ops
+from mystereomatching_tpu_torch.ops.sgm import ChunkScan
 from mystereomatching_tpu_torch.parallel.counters import note_all_gather, note_wavefront
 from mystereomatching_tpu_torch.parallel.halo import crop_rows, exchange_rows
 from mystereomatching_tpu_torch.parallel.mesh import RowMesh, all_gather_disp, sendrecv
 from mystereomatching_tpu_torch.pipeline import apply_sub_ipol, check_supported, to_gray
 
 _GRAD_COSTS = ("grad", "census_grad", "ad_grad", "ad_census_grad")
+# the vertical and diagonal directions (rv, ru) of each band order: those
+# whose predecessor lies above scan down (band 0 first), the others up
+BAND_ORDERS = (((-1, 0), (-1, 1), (-1, -1)), ((1, 0), (1, -1), (1, 1)))
 
 
 def _cost_halo(cfg: MatchConfig) -> int:
@@ -75,92 +85,128 @@ def _band_order(mesh: RowMesh, down: bool) -> Tuple[int, Optional[int], Optional
     return (i, above, below) if down else (n - 1 - i, below, above)
 
 
-def _wavefront_scan(voln: torch.Tensor, psn: torch.Tensor, order, p1: float, p2: float,
-                    n_chunks: int, mesh: RowMesh, mask: Optional[torch.Tensor] = None,
-                    reverse: bool = False) -> torch.Tensor:
-    """SGM scan along H across the row bands, chunk by chunk of W.
+def _band_scan(vol: torch.Tensor, pscale: torch.Tensor, rv: int, ru: int,
+               mesh: RowMesh) -> Tuple[ChunkScan, torch.Tensor]:
+    """The scan with predecessor (rv, ru), rv = -1 or +1, of a band's
+    [D, h, W] volume over its buffers' whole width, which the wavefront
+    cuts into chunks, and the direction's [D, h, W] path costs (the scan's
+    output, or a view of its in-image pixels). pscale [h, W] is this
+    direction's, from a 1-row image halo. The scan runs opposite the
+    predecessor, down the band or up it in place (``reverse``) where the
+    JAX package flips the band.
 
-    voln: this band's [D, h, Ws] costs, psn [h, Ws] its penalty scales and
-    mask an optional [h, Ws] in-image mask (skewed diagonal buffers); the
-    scan runs down the band, or up when ``reverse``; order: (place, previous
-    band's rank, next band's rank) from :func:`_band_order`. For each chunk
-    the band receives the previous band's boundary path-cost row (none for
-    the first band: the scan starts from zeros), scans the chunk from it
-    (kernel C) and sends its own boundary row on, so that band p scans
-    chunk c while band p+1 scans chunk c-1. Chunks are ceil(Ws / n_chunks)
-    columns; columns scan independently, so the last, narrower chunk needs
-    no padding."""
-    place, prev_rank, next_rank = order
-    d_, h, w = voln.shape
-    cw = -(-w // n_chunks)
-    chunks = [(lo, min(lo + cw, w)) for lo in range(0, w, cw)]
-    out = torch.empty_like(voln)
-    edge = 0 if reverse else h - 1          # the row the next band starts from
-    for lo, hi in chunks:
-        init = None
-        if prev_rank is not None:
-            init = sendrecv(mesh, [], [((1, d_, hi - lo), voln.dtype, prev_rank)])[0]
-        res = sgm_ops.sgm_scan(
-            voln[None, :, :, lo:hi].contiguous(), psn[None, :, lo:hi].contiguous(), p1, p2,
-            axis=2, reverse=reverse, init=init,
-            mask=mask[None, :, lo:hi].contiguous() if mask is not None else None)[0]
-        out[:, :, lo:hi] = res
-        if next_rank is not None:
-            sendrecv(mesh, [(res[:, edge], next_rank)], [])
-    note_wavefront(len(chunks), mesh.n_row, (d_, cw), voln.dtype,
-                   len(chunks) if next_rank is not None else 0)
-    return out
-
-
-def _vertical_sgm_band(vol: torch.Tensor, pscale: torch.Tensor, down: bool, p1: float,
-                       p2: float, n_chunks: int, mesh: RowMesh) -> torch.Tensor:
-    """The vertical path costs of a band's [D, h, W] volume, exact across
-    the full image height: down (predecessor above) or up. pscale [h, W]
-    is this direction's, from a 1-row image halo. Scans up in place
-    (``reverse``) where the JAX package flips the band."""
-    return _wavefront_scan(vol, pscale, _band_order(mesh, down), p1, p2, n_chunks, mesh,
-                           reverse=not down)
-
-
-def _diag_sgm_band(vol: torch.Tensor, pscale: torch.Tensor, rv: int, ru: int, p1: float,
-                   p2: float, n_chunks: int, mesh: RowMesh) -> torch.Tensor:
-    """The diagonal path costs with predecessor (rv, ru) of a band's
-    [D, h, W] volume, exact across the full image.
-
-    The rows are skewed so that the diagonal predecessor becomes the
-    vertical one, with the skew offset of the global row: the local skew
-    and then a roll by a constant of the band, to a skewed width of
-    W + Hg - 1 for an image of Hg rows. The boundary row a band passes on
-    then lands on the next band's first row at the same skewed column, the
-    same image diagonal, and the vertical wavefront scans it, with the
-    in-image mask zeroing the skew margins (kernel C's mask)."""
+    A vertical scan reads the volume itself. A diagonal one reads a skewed
+    buffer, in which the diagonal predecessor becomes the vertical one, with
+    the skew offset of the global row: W + Hg - 1 columns for an image of Hg
+    rows, zeros outside the image, scales 1 and the in-image mask 0 there.
+    Its row v holds image row v from column r0 + v on (or r0 + h - 1 - v,
+    where the skew falls), r0 the band's constant: the JAX package's local
+    skew, pad and roll (with the band flipped to scan up), written by one
+    copy through a strided view. The boundary row a band passes on then
+    lands on the next band's first row at the same skewed column, the same
+    image diagonal."""
     d_, h, w = vol.shape
+    down = rv < 0
+    if ru == 0:
+        out = torch.empty_like(vol)
+        return ChunkScan(vol, pscale, out, 0, w, not down), out
     hg = mesh.n_row * h
-    down = rv < 0                        # the scan runs opposite the predecessor
-    vol_f = vol if down else vol.flip(1)
-    ps_f = pscale if down else pscale.flip(0)
-    order = _band_order(mesh, down)
-    g0 = order[0] * h                    # global row offset in the scan's frame
-
+    ws = w + hg - 1
     sign = 1 if ru > 0 else -1
-    vol_s, ok = sgm_ops._skew(vol_f, sign, 0.0)
-    ps_s, _ = sgm_ops._skew(ps_f, sign, 1.0)
-    ok_s = ok.to(vol_s.dtype)
-    grow = hg - h                        # W + Hg - 1 less the local W + h - 1
-    vol_s = torch.nn.functional.pad(vol_s, (0, grow))
-    ps_s = torch.nn.functional.pad(ps_s, (0, grow), value=1.0)
-    ok_s = torch.nn.functional.pad(ok_s, (0, grow))
+    g0 = _band_order(mesh, down)[0] * h  # global row offset in the scan's frame
     # sign +1: column u + g, a roll by g0; sign -1: column u + (Hg - 1 - g),
     # where the local skew gives u + (h - 1 - i): a roll by Hg - 1 - g0 - (h - 1)
     r0 = g0 if sign > 0 else hg - 1 - g0 - (h - 1)
-    vol_s = torch.roll(vol_s, r0, -1)
-    ps_s = torch.roll(ps_s, r0, -1)
-    ok_s = torch.roll(ok_s, r0, -1)
+    # in the band's own row order the skew rises with the row where the scan
+    # frame's does and the band is not flipped, or neither
+    row_step, first = (ws + 1, r0) if (sign > 0) == down else (ws - 1, r0 + h - 1)
 
-    out_s = _wavefront_scan(vol_s, ps_s, order, p1, p2, n_chunks, mesh, mask=ok_s)
-    out_s = torch.roll(out_s, -r0, -1)[:, :, :w + h - 1]
-    out_f = sgm_ops._unskew(out_s, sign, w)
-    return out_f if down else out_f.flip(1)
+    def image(buf: torch.Tensor) -> torch.Tensor:
+        return buf.as_strided(buf.shape[:-2] + (h, w), buf.stride()[:-2] + (row_step, 1),
+                              first)
+
+    costs = vol.new_zeros((d_, h, ws))
+    image(costs).copy_(vol)
+    ps = pscale.new_ones((h, ws))
+    image(ps).copy_(pscale)
+    mask = torch.zeros((h, ws), dtype=torch.float32, device=vol.device)
+    image(mask).fill_(1.0)
+    out = torch.empty_like(costs)
+    return ChunkScan(costs, ps, out, 0, ws, not down, mask=mask), image(out)
+
+
+def _rows_of(flat: Optional[torch.Tensor], widths: Sequence[int], d_: int) -> list:
+    """[D, width] views of consecutive pieces of a flat buffer, or Nones."""
+    if flat is None:
+        return [None] * len(widths)
+    rows, at = [], 0
+    for w in widths:
+        rows.append(flat[at:at + d_ * w].view(d_, w))
+        at += d_ * w
+    return rows
+
+
+def _wavefront(scans: Sequence[ChunkScan], order, p1: float, p2: float, n_chunks: int,
+               mesh: RowMesh) -> None:
+    """Every scan of one band order along H across the row bands, chunk by
+    chunk of W, all through the same chunk steps; each scan (over its
+    buffers' whole width) writes its ``out`` in place.
+
+    order: (place, previous band's rank, next band's rank) from
+    :func:`_band_order`. At chunk step c a band receives the previous
+    band's boundary path-cost rows of every scan's chunk c in one exchange
+    (none for the first band: its scans start from zeros), which also sends
+    the rows of its step c - 1 on; scans all its chunks c in one launch of
+    kernel C's table; and keeps their boundary rows, written by that launch
+    into one contiguous buffer, for the next exchange. So band p scans chunk
+    c while band p+1 scans chunk c-1. A scan's chunks are ceil(Ws / n_chunks)
+    columns; columns scan independently, so the last, narrower chunk needs
+    no padding."""
+    _, prev_rank, next_rank = order
+    d_ = scans[0].vol.shape[0]
+    dtype, device = scans[0].vol.dtype, scans[0].vol.device
+    chunks = []
+    for sc in scans:
+        cw = -(-sc.width // n_chunks)
+        chunks.append([(lo, min(lo + cw, sc.width)) for lo in range(0, sc.width, cw)])
+    edges = None                          # the last step's boundary rows, to send on
+    for c in range(max(map(len, chunks))):
+        step = [(sc, ch[c]) for sc, ch in zip(scans, chunks) if c < len(ch)]
+        widths = [hi - lo for _, (lo, hi) in step]
+        sends = [(edges, next_rank)] if edges is not None else []
+        recvs = [((d_ * sum(widths),), dtype, prev_rank)] if prev_rank is not None else []
+        got = sendrecv(mesh, sends, recvs) if sends or recvs else []
+        inits = _rows_of(got[0] if recvs else None, widths, d_)
+        edges = (torch.empty(d_ * sum(widths), dtype=dtype, device=device)
+                 if next_rank is not None else None)
+        sgm_ops.sgm_scan_table(
+            [dataclasses.replace(sc, lo=lo, width=hi - lo, init=init, edge=edge)
+             for (sc, (lo, hi)), init, edge in zip(step, inits, _rows_of(edges, widths, d_))],
+            p1, p2)
+    if edges is not None:
+        sendrecv(mesh, [(edges, next_rank)], [])
+    for ch in chunks:
+        note_wavefront(len(ch), mesh.n_row, (d_, ch[0][1] - ch[0][0]), dtype,
+                       len(ch) if next_rank is not None else 0)
+
+
+def _order_paths(vols: Sequence[torch.Tensor], images: Sequence[torch.Tensor],
+                 cfg: MatchConfig, dirs, n_chunks: int,
+                 mesh: RowMesh) -> Dict[Tuple[int, Tuple[int, int]], torch.Tensor]:
+    """The path costs of every direction of ``dirs`` (vertical or diagonal,
+    all of one band order) of every band volume [D, h, W], with its band
+    image [h, W, 3], through one wavefront: {(volume index, (rv, ru)):
+    [D, h, W]}."""
+    thres, coeff = cfg.sgm_cor_dif_thres, cfg.sgm_redu_coeff
+    scans, paths = [], {}
+    for rv, ru in dirs:
+        for i, (vol, image) in enumerate(zip(vols, images)):
+            ps = _band_pscale(image, rv, ru, thres, coeff, mesh)
+            scan, paths[(i, (rv, ru))] = _band_scan(vol, ps, rv, ru, mesh)
+            scans.append(scan)
+    _wavefront(scans, _band_order(mesh, dirs[0][0] < 0), cfg.sgm_p1_eff, cfg.sgm_p2_eff,
+               n_chunks, mesh)
+    return paths
 
 
 def _band_pscale(image: torch.Tensor, rv: int, ru: int, thres, coeff,
@@ -180,34 +226,39 @@ def sgm_band_direction(vol: torch.Tensor, image: torch.Tensor, cfg: MatchConfig,
                        ru: int, n_chunks: int, mesh: RowMesh) -> torch.Tensor:
     """One direction's path costs (predecessor (rv, ru)) of a band's
     [D, h, W] volume; image: the band's [h, W, 3] reference image."""
-    p1, p2 = cfg.sgm_p1_eff, cfg.sgm_p2_eff
-    thres, coeff = cfg.sgm_cor_dif_thres, cfg.sgm_redu_coeff
     if rv == 0:
-        ps = sgm_ops.penalty_scale(image, rv, ru, thres, coeff)[None].contiguous()
-        return sgm_ops.sgm_scan(vol[None].contiguous(), ps, p1, p2, axis=3, reverse=ru > 0)[0]
-    ps = _band_pscale(image, rv, ru, thres, coeff, mesh)
-    if ru == 0:
-        return _vertical_sgm_band(vol, ps, rv < 0, p1, p2, n_chunks, mesh)
-    return _diag_sgm_band(vol, ps, rv, ru, p1, p2, n_chunks, mesh)
+        ps = sgm_ops.penalty_scale(image, rv, ru, cfg.sgm_cor_dif_thres,
+                                   cfg.sgm_redu_coeff)[None].contiguous()
+        return sgm_ops.sgm_scan(vol[None].contiguous(), ps, cfg.sgm_p1_eff, cfg.sgm_p2_eff,
+                                axis=3, reverse=ru > 0)[0]
+    return _order_paths([vol], [image], cfg, ((rv, ru),), n_chunks, mesh)[(0, (rv, ru))]
 
 
-def _sgm_sharded(vol: torch.Tensor, image: torch.Tensor, cfg: MatchConfig, n_chunks: int,
-                 mesh: RowMesh) -> torch.Tensor:
-    """SGM of a band's [D, h, W] volume: horizontal scans band-local, the
-    vertical and (8 paths) diagonal ones as wavefronts. The directions are
-    summed as the JAX band path sums them, not as the dense path does:
-    0 + down + up + (the horizontal pair) + each diagonal in order. With 4
-    paths that is the dense sum; with 8 it is another association."""
+def _sgm_sharded(vols: Sequence[torch.Tensor], images: Sequence[torch.Tensor],
+                 cfg: MatchConfig, n_chunks: int, mesh: RowMesh) -> List[torch.Tensor]:
+    """SGM of a band's [D, h, W] volumes (each with its [h, W, 3] image),
+    batched as the dense ``sgm_directions`` batches them: horizontal scans
+    band-local, the vertical and (8 paths) diagonal ones as one wavefront a
+    band order. The directions are summed as the JAX band path sums them,
+    not as the dense path does: 0 + down + up + (the horizontal pair) +
+    each diagonal in ``DIRECTIONS_8`` order. With 4 paths that is the dense
+    sum; with 8 it is another association."""
     p1, p2 = cfg.sgm_p1_eff, cfg.sgm_p2_eff
-    out = torch.zeros_like(vol)
-    out = out + sgm_band_direction(vol, image, cfg, -1, 0, n_chunks, mesh)
-    out = out + sgm_band_direction(vol, image, cfg, 1, 0, n_chunks, mesh)
-    out = out + sgm_ops.sgm_directions([vol], [image], ((0, 1), (0, -1)), p1, p2,
-                                       cfg.sgm_cor_dif_thres, cfg.sgm_redu_coeff)[0]
-    if cfg.sgm_scan_num >= 8:
-        for rv, ru in sgm_ops.DIRECTIONS_8[4:]:
-            out = out + sgm_band_direction(vol, image, cfg, rv, ru, n_chunks, mesh)
-    return out
+    n_dirs = 3 if cfg.sgm_scan_num >= 8 else 1
+    outs = [torch.zeros_like(vol) for vol in vols]
+    diagonals = {}
+    for order in BAND_ORDERS:
+        paths = _order_paths(vols, images, cfg, order[:n_dirs], n_chunks, mesh)
+        for i, out in enumerate(outs):
+            out += paths.pop((i, order[0]))
+        diagonals.update(paths)
+    horizontal = sgm_ops.sgm_directions(vols, images, ((0, 1), (0, -1)), p1, p2,
+                                        cfg.sgm_cor_dif_thres, cfg.sgm_redu_coeff)
+    for i, out in enumerate(outs):
+        out += horizontal[i]
+        for d in sgm_ops.DIRECTIONS_8[4:] if n_dirs > 1 else ():
+            out += diagonals.pop((i, d))
+    return outs
 
 
 def _global_rows(mesh: RowMesh, hext: int, halo: int) -> torch.Tensor:
@@ -285,10 +336,10 @@ def _match_pair_band(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
             note_all_gather(vols[lor], mesh.n_disp, stage="d_shard_volume")
             vols[lor] = all_gather_disp(mesh, vols[lor])
 
-    # optimization (pipeline.optimize), one volume at a time
+    # optimization (pipeline.optimize), the volumes batched
     images = {0: left, 1: right}
-    for lor in vols:
-        vols[lor] = _sgm_sharded(vols[lor], images[lor], cfg, n_chunks, mesh)
+    vols = dict(zip(vols, _sgm_sharded(list(vols.values()), [images[lor] for lor in vols], cfg,
+                                       n_chunks, mesh)))
     if 1 in vols:
         dl = wta_ops.wta(vols[0], cfg.choose_small)
         dr = wta_ops.wta(vols[1], cfg.choose_small)

@@ -11,6 +11,7 @@ sums; its plain version, ``torch.cumsum``, sums in a parallel scan's order
 and is held within a stated bound of the float64 sum.
 """
 
+import dataclasses
 from unittest import mock
 
 import numpy as np
@@ -262,6 +263,122 @@ def test_sgm_scan_kernel_init_mask_refusals(cuda):
     assert ck.launches["sgm_scan_ext"] == before["sgm_scan_ext"]
 
 
+# Kernel C's table of W-chunk scans (sgm_scan_ext): buffers (h, pitch) and
+# tables of 1, 2 and 6 scans (buffer, lo, width, masked, with init,
+# reverse, with edge) at odd offsets and pitches, of different widths (a
+# block's 16 or 4 columns - 1, + 0, + 1 and beyond), masked beside
+# unmasked, down and up; two scans of a table may share a buffer and its
+# output, at disjoint columns.
+SGM_TABLE_BUFFERS = [(13, 37), (17, 41), (4, 16)]
+SGM_TABLE_SCANS = {
+    "one": [(1, 3, 33, True, True, False, True)],
+    "two": [(0, 1, 17, False, True, True, True), (1, 20, 15, True, False, False, False)],
+    "six": [(0, 0, 1, True, True, False, True), (0, 1, 16, False, False, True, True),
+            (0, 17, 20, True, True, True, False), (1, 5, 9, False, True, False, True),
+            (1, 14, 27, True, False, False, True), (2, 3, 13, False, True, True, True)],
+}
+
+
+def _sgm_table(cuda, nd, dtype, name):
+    """The table's buffers on the card, each output filled with -7."""
+    rng = np.random.default_rng(nd + len(name))
+    vols, scales, masks = [], [], []
+    for h, w in SGM_TABLE_BUFFERS:
+        vols.append(_t((rng.random((nd, h, w)) * 3).astype(np.float32), cuda).to(dtype))
+        scales.append(_t(np.where(rng.random((h, w)) < 0.3, 0.25, 1.0).astype(np.float32), cuda))
+        m = np.zeros((h, w), np.float32)
+        for v in range(h):
+            m[v, v % 5: v % 5 + max(1, w // 2)] = 1.0
+        masks.append(_t(m, cuda))
+    outs = [torch.full_like(v, -7.0) for v in vols]
+    table = []
+    for b, lo, width, masked, init, reverse, edge in SGM_TABLE_SCANS[name]:
+        init_row = (_t((rng.random((nd, width)) * 4 + 0.5).astype(np.float32), cuda).to(dtype)
+                    if init else None)
+        table.append(sgm.ChunkScan(vols[b], scales[b], outs[b], lo, width, reverse, init_row,
+                                   masks[b] if masked else None,
+                                   torch.empty((nd, width), dtype=dtype, device=cuda)
+                                   if edge else None))
+    return table
+
+
+def _cpu_copy(table):
+    """The same table on the CPU, with outputs and edges of its own."""
+    outs = {}
+    copy = []
+    for sc in table:
+        if sc.out.data_ptr() not in outs:
+            outs[sc.out.data_ptr()] = sc.out.cpu()
+        copy.append(sgm.ChunkScan(sc.vol.cpu(), sc.pscale.cpu(), outs[sc.out.data_ptr()], sc.lo,
+                                  sc.width, sc.reverse,
+                                  sc.init.cpu() if sc.init is not None else None,
+                                  sc.mask.cpu() if sc.mask is not None else None,
+                                  torch.empty_like(sc.edge.cpu()) if sc.edge is not None
+                                  else None))
+    return copy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nd", SGM_DS)
+@pytest.mark.parametrize("name", list(SGM_TABLE_SCANS))
+@pytest.mark.parametrize("lines", ck.SCAN_TABLE_LINES)
+def test_sgm_scan_table_kernel(cuda, dtype, nd, name, lines):
+    """One launch for the whole table, bit-equal to the plain table: every
+    chunk of every output, every edge row, and the columns no scan covers
+    left as they were."""
+    table = _sgm_table(cuda, nd, dtype, name)
+    want = _cpu_copy(table)
+    before, scans = dict(ck.launches), dict(ck.launches_scans)
+    ck.sgm_scan_table(table, 1.0, 3.0, lines=lines)
+    torch.cuda.synchronize()
+    assert ck.launches["sgm_scan_ext"] == before["sgm_scan_ext"] + 1
+    bf16 = "_bf16" if dtype == torch.bfloat16 else ""
+    masked = sum(sc.mask is not None for sc in table)
+    assert ck.launches_scans["sgm_scan_ext_mask" + bf16] == \
+        scans["sgm_scan_ext_mask" + bf16] + masked
+    assert ck.launches_scans["sgm_scan_ext" + bf16] == \
+        scans["sgm_scan_ext" + bf16] + len(table) - masked
+    sgm.sgm_scan_table_plain(want, 1.0, 3.0)
+    for got, ref in zip(table, want):
+        assert torch.equal(got.out.cpu(), ref.out)
+        if got.edge is not None:
+            assert torch.equal(got.edge.cpu(), ref.edge)
+
+
+def test_sgm_scan_table_kernel_refusals(cuda):
+    """Tables of one D and one dtype, float32 scales and masks, chunks
+    inside their buffers, 1 to 32 scans, block widths 16 or 4."""
+    table = _sgm_table(cuda, 5, torch.float32, "two")
+    other_d = _sgm_table(cuda, 6, torch.float32, "one")
+    bf16 = _sgm_table(cuda, 5, torch.bfloat16, "one")
+    sc = table[1]
+    value_errors = [
+        table[:1] + other_d,
+        [dataclasses.replace(sc, lo=sc.vol.shape[-1] - sc.width + 1)],
+        [dataclasses.replace(sc, lo=-1)],
+        [dataclasses.replace(sc, width=0)],
+        [dataclasses.replace(sc, init=torch.zeros((5, sc.width + 1), device=cuda))],
+        [dataclasses.replace(sc, out=sc.out[:, :-1])],
+        [],
+        table * 17,
+    ]
+    for bad in value_errors:
+        with pytest.raises(ValueError):
+            ck.sgm_scan_table(bad, 1.0, 3.0)
+    with pytest.raises(ValueError):
+        ck.sgm_scan_table(table, 1.0, 3.0, lines=32)
+    type_errors = [
+        table[:1] + bf16,
+        [dataclasses.replace(sc, vol=sc.vol.to(torch.float16), out=sc.out.to(torch.float16))],
+        [dataclasses.replace(sc, mask=sc.mask.to(torch.bfloat16))],
+        [dataclasses.replace(sc, pscale=sc.pscale.double())],
+        [dataclasses.replace(sc, out=sc.out.to(torch.bfloat16))],
+    ]
+    for bad in type_errors:
+        with pytest.raises(TypeError):
+            ck.sgm_scan_table(bad, 1.0, 3.0)
+
+
 @pytest.mark.parametrize("preset", ["census_grad_cbca_sgm", "sgm8_full"])
 def test_row_bands_on_one_card_equal_cpu(cuda, preset):
     """Two ranks sharing the card (gloo): the row-band maps equal the same
@@ -286,7 +403,7 @@ def test_row_bands_on_one_card_equal_cpu(cuda, preset):
     for r in reports:
         assert r["backend"] == "gloo" and r["launches"]["sgm_scan_ext"] > 0
         assert r["launches"]["sgm_diag"] == 0
-        assert (r["launches_masked"]["sgm_scan_ext"] > 0) == (cfg.sgm_scan_num == 8)
+        assert (r["launches_scans"]["sgm_scan_ext_mask"] > 0) == (cfg.sgm_scan_num == 8)
 
 
 def _sgm_diag_case(cuda, nd, shape, g, dtype):

@@ -20,7 +20,8 @@ commit unpacked with ``git archive``: its kernels are built as they are.
 A variant named twice runs twice (parent, change, change, parent).
 
 All variants are built at once, one nvcc each. For each size (the
-``sgm8_full`` frame's [2,128,750,1000] and the Teddy [2,60,375,450]) and
+``sgm8_full`` frame's [2,128,750,1000] and the Teddy [2,60,375,450] in
+float32, and fullres_occfill frame B's [1,256,1280,1500] in bfloat16) and
 each of the eight directions, every variant in turn: device time between
 CUDA events around one launch, a 256 MiB fill evicting L2 before each,
 mean of ``REPS``. A variant that runs the recurrence must equal the
@@ -50,7 +51,8 @@ OUT = ROOT / "build" / "variants"
 REPS = 10
 VARIANTS = ["h16x64_w4x64_d16x64_r4", "h16x64_w4x64_d16x64_r4_copy"]
 NAME = re.compile(r"h(\d+)x(\d+)_w(\d+)x(\d+)_d(\d+)x(\d+)_r(\d+)(_copy)?$")
-SIZES = {"full": (2, 128, 750, 1000), "teddy": (2, 60, 375, 450)}
+SIZES = {"full": ((2, 128, 750, 1000), torch.float32), "teddy": ((2, 60, 375, 450), torch.float32),
+         "frame_b_bf16": ((1, 256, 1280, 1500), torch.bfloat16)}
 # direction (rv, ru) -> (kernel, entry point, its direction arguments)
 DIRECTIONS = {(1, 0): ("C", "mysm_sgm_scan", (0, 1)), (-1, 0): ("C", "mysm_sgm_scan", (0, 0)),
               (0, 1): ("C", "mysm_sgm_scan", (1, 1)), (0, -1): ("C", "mysm_sgm_scan", (1, 0)),
@@ -134,8 +136,9 @@ def build(names) -> dict:
         for file, text in variant_sources(name).items():
             (d / file).write_text(text)
         dirs[name] = d
-    return compile_libs(dirs, ("sgm_scan.cu", "sgm_diag.cu"), ("mysm_sgm_scan", "mysm_sgm_diag"),
-                        r"(sgm_(?:scan|diag)_kernelIf\w*?)EEv")
+    return compile_libs(dirs, ("sgm_scan.cu", "sgm_diag.cu"),
+                        ("mysm_sgm_scan", "mysm_sgm_diag", "mysm_sgm_scan_bf16",
+                         "mysm_sgm_diag_bf16"), r"(sgm_(?:scan|diag)_kernelIf\w*?)EEv")
 
 
 def main() -> int:
@@ -152,12 +155,13 @@ def main() -> int:
     flush = torch.empty((256 << 20) // 4, dtype=torch.int32, device=dev)
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     stream = torch.cuda.current_stream().cuda_stream
-    for size, (g, nd, h, w) in SIZES.items():
-        vol = torch.rand((g, nd, h, w), generator=gen, device=dev) * 3
+    for size, ((g, nd, h, w), dtype) in SIZES.items():
+        vol = (torch.rand((g, nd, h, w), generator=gen, device=dev) * 3).to(dtype)
         ps = torch.where(torch.rand((g, h, w), generator=gen, device=dev) < 0.3, 0.25, 1.0)
         out = torch.empty_like(vol)
         sums = {}  # (run, kernel) -> ms
         for direction, (kernel, fn, args) in DIRECTIONS.items():
+            fn += "_bf16" if dtype == torch.bfloat16 else ""
             if kernel == "C":
                 want = ck.sgm_scan(vol, ps, 1.0, 3.0, 2 + args[0], bool(args[1]))
             else:
