@@ -169,12 +169,30 @@ Phases, each of which raises (exit code 1) on failure:
    device time, and the largest difference to it, within (2 max_arm + 1)
    2^-24 sum |terms| at each pixel but for fixed, which is wrong by
    design), and each instance's registers and spills;
-15. timing: ms/frame and MP*disp/s of the kernel path and of the same
+15. presets: ``census_cbca_vmtop`` (vmTop in place of WTA),
+   ``cbca_double`` (CBCA at two arm scales, merged by combine2Vm_4),
+   ``ad_grad_gf`` (the guided filter) and ``zncc_bf_wta`` (ZNCC and the
+   box filter), and the default preset beside them, each on
+   ``make_synthetic_pair(seed=0)`` at 375x450, D=60, with the launch counts
+   set to 0 just before its frame: exactly the kernels of
+   ``kernels_launched``, each as many times a frame as ``PRESET_FRAMES``
+   says (A and B twice the default frame's on cbca_double, D never on
+   census_cbca_vmtop), the maps equal to the same pipeline's with every
+   kernel replaced by its plain version, the median ms/frame of 3 frames
+   on both paths, the peak device memory and, for ad_grad_gf and
+   zncc_bf_wta, the pixels differing from the CPU port. Then the default
+   preset on the committed ``photo_small`` pair
+   (``data.load_photo_pair``): 0/0 px off the reference binary's goldens
+   (tests/golden/photo_small_{wta,final}.bin), bad-1.0 at least 0.01.
+   Then kernel B's four launch kinds of a CBCA pass on cbca_double's left
+   raw volume at its large window (max_arm 23) and its small one (34),
+   each against its plain version, in turns, and their ratio;
+16. timing: ms/frame and MP*disp/s of the kernel path and of the same
    pipeline with every kernel replaced by its plain torch version, for the
    full default configuration and for ``do_refine=False``, in alternating
    rounds; the refine chain alone, kernel and plain; and the peak device
    memory of a frame;
-16. profile: ``torch.profiler`` over frames of the full default
+17. profile: ``torch.profiler`` over frames of the full default
    configuration: device time, idle share, launches per frame, the largest
    device kernels and each hand kernel's device time a launch; ``region_vote``
    must launch twice a frame and ``arm_reduce`` never, and the frame must make
@@ -230,7 +248,8 @@ import numpy as np
 import torch
 
 from mystereomatching_tpu_torch import StereoPipeline, default_config
-from mystereomatching_tpu_torch.data import make_adversarial_pair, make_synthetic_pair
+from mystereomatching_tpu_torch.data import (load_photo_pair, make_adversarial_pair,
+                                             make_synthetic_pair)
 from mystereomatching_tpu_torch.models import get_model
 from mystereomatching_tpu_torch.ops import aggregation as agg_ops
 from mystereomatching_tpu_torch.ops import arms as arms_ops
@@ -362,6 +381,23 @@ CENSUS_PROFILE_FRAMES = 3
 # kernels line rows at census_cbca_lrc's shapes -> the kernel
 CENSUS_ROWS = {f"{name}_census": name
                for name in ("arms_grow", "arm_taps", "wta", "region_vote")}
+# the presets of the box and guided filters, vmTop and double-window CBCA at
+# Teddy size (375x450, D=60) beside the default preset, and each one's
+# launches a frame: the default's, with cbca_double's second arm build and
+# CBCA pass doubling A and B, vmTop in place of D, and the filters without
+# B or C
+PRESET_REPS = 3
+DEFAULT_FRAME = {"arms_grow": 2, "arm_taps": 8, "sgm_scan": 4, "wta": 2, "region_vote": 2,
+                 "pi_scan": 2}
+PRESET_FRAMES = {
+    "census_grad_cbca_sgm": DEFAULT_FRAME,
+    "census_cbca_vmtop": {k: n for k, n in DEFAULT_FRAME.items() if k != "wta"},
+    "cbca_double": dict(DEFAULT_FRAME, arms_grow=4, arm_taps=16),
+    "ad_grad_gf": {"arms_grow": 2, "wta": 2, "region_vote": 2, "pi_scan": 2},
+    "zncc_bf_wta": {"wta": 1},
+}
+PRESETS_ON_CPU = ("ad_grad_gf", "zncc_bf_wta")  # also held against the CPU port
+
 ROW_BANDS_CHUNKS = 8
 ROW_BANDS_SGM8 = 3       # ranks: 250-row bands of the 750-row frame
 ROW_BANDS_OCCFILL = 4    # ranks: 250-row bands of frame A's 1000 rows
@@ -2274,6 +2310,113 @@ def row_bands_disp(dev, card_line: str) -> None:
         raise AssertionError(f"{label}: the measured frames' map differs from run_row_bands'")
 
 
+def preset_frame(name: str, left, right, dev, card_line: str) -> dict:
+    """One frame of preset ``name`` at Teddy size with the launch counts set
+    to 0 just before it: exactly the kernels of ``kernels_launched``, each
+    as many times as ``PRESET_FRAMES`` says; its maps equal to the plain
+    path's on the card (and, for ``PRESETS_ON_CPU``, the differing pixels
+    of the CPU port's printed); the median ms of ``PRESET_REPS`` frames on
+    both paths, and the kernel path's peak device memory above what was
+    held before the frame (earlier phases leave tensors alive). Returns its
+    launches."""
+    cfg = get_model(name, max_disp=TEDDY["max_disp"])
+    label = f"{name} {TEDDY['h']}x{TEDDY['w']} D={cfg.num_disp}"
+    pipe = StereoPipeline(cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    ck.reset_launches()
+    out = pipe(left, right)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ck.launches.items() if n}
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    if list(counts) != kernels_launched(cfg) or counts != PRESET_FRAMES[name]:
+        raise AssertionError(f"{label}: launched {counts}, not {PRESET_FRAMES[name]} "
+                             f"(kernels_launched {kernels_launched(cfg)})")
+    shape = (TEDDY["h"], TEDDY["w"])
+    for key, d in out.items():
+        want_dtype = torch.float32 if key == "disparity" else torch.int32
+        if d.shape != shape or d.dtype != want_dtype or not bool(torch.isfinite(d).all()):
+            raise AssertionError(f"{label} {key}: {d.dtype}{tuple(d.shape)}, or not finite")
+    with plain_path():
+        equal_maps(label, out, pipe(left, right), "the plain path on the card")
+    cpu = ""
+    if name in PRESETS_ON_CPU:
+        ref = StereoPipeline(cfg, device="cpu")(left.cpu(), right.cpu())
+        cpu = (f"; pixels differing from the CPU port "
+               f"{json.dumps({k: int((out[k].cpu() != ref[k]).sum()) for k in ref})}")
+    times = {}
+    for path, ctx in (("kernel", contextlib.nullcontext), ("plain", plain_path)):
+        with ctx():
+            times[path] = frame_ms(pipe, left, right, PRESET_REPS, warm_up=False)[1]
+    print(f"preset {label}: launches a frame {json.dumps(counts)} (exactly kernels_launched); "
+          f"maps equal to the plain path on the card{cpu}; median of {PRESET_REPS} frames: "
+          f"kernel path {times['kernel']:.3f} ms/frame, plain path {times['plain']:.3f} "
+          f"ms/frame; peak device memory {peak / 2**20:.1f} MiB above the "
+          f"{held / 2**20:.1f} MiB held before the frame [{card_line}]")
+    return counts
+
+
+def window1_arm_taps(left, right, card_line: str) -> None:
+    """Kernel B's four launch kinds of a CBCA pass on cbca_double's left raw
+    volume at both of its windows: the large one (``cfg.window1()``,
+    max_arm 23) and the small one (max_arm 34), each against its plain
+    version, in turns (34, 23, 23, 34), and the ratio of their device
+    times."""
+    cfg = get_model("cbca_double", max_disp=TEDDY["max_disp"])
+    w1 = cfg.window1()
+    vol, arms_int = frame_cbca_inputs(left, right, cfg)
+    arms1 = [arms_ops.build_arms(img, w1) for img in (left, right)]
+    windows = {cfg.arm_l_out: arms_int,
+               w1.arm_l_out: arms_ops.intersect_arms(arms1[0], arms1[1], cfg.num_disp, 0)}
+    ms = collections.defaultdict(list)
+    for m in (cfg.arm_l_out, w1.arm_l_out, w1.arm_l_out, cfg.arm_l_out):
+        row = run_case("arm_taps", f"cbca_double {TEDDY['h']}x{TEDDY['w']} D={cfg.num_disp}: "
+                       f"the four launch kinds of a CBCA pass at max_arm {m} on its left raw "
+                       f"volume {list(vol.shape)}", combined([case for _, case in cbca_kinds(
+                           vol, windows[m], m)]), card_line)
+        ms[m].append(row["ms"])
+    small, large = (float(np.mean(ms[m])) for m in (cfg.arm_l_out, w1.arm_l_out))
+    print(f"kernel B on cbca_double's volume: max_arm {w1.arm_l_out} {large:.4f} ms, max_arm "
+          f"{cfg.arm_l_out} {small:.4f} ms for the four kinds (means of 2 turns), ratio "
+          f"{large / small:.3f} [{card_line}]")
+
+
+def phase_presets(dev, card_line: str) -> None:
+    """The presets of the box and guided filters, vmTop and double-window
+    CBCA (``census_cbca_vmtop``, ``cbca_double``, ``ad_grad_gf``,
+    ``zncc_bf_wta``) beside the default one, each a :func:`preset_frame` on
+    ``make_synthetic_pair(seed=0)`` at 375x450, D=60; then the default
+    preset on the committed ``photo_small`` pair against the reference
+    binary's goldens at 0/0 px; then kernel B at both of cbca_double's
+    windows on the same volume (:func:`window1_arm_taps`)."""
+    pair = make_synthetic_pair(**TEDDY)
+    left = torch.from_numpy(pair.left).to(dev, torch.float32)
+    right = torch.from_numpy(pair.right).to(dev, torch.float32)
+    counts = {name: preset_frame(name, left, right, dev, card_line) for name in PRESET_FRAMES}
+    base = counts["census_grad_cbca_sgm"]
+    if any(counts["cbca_double"].get(k) != 2 * base.get(k, -1) for k in ("arms_grow", "arm_taps")) \
+            or "wta" in counts["census_cbca_vmtop"]:
+        raise AssertionError(f"launches against the default frame's: {json.dumps(counts)}")
+    photo = load_photo_pair("photo_small")
+    cfg = get_model("census_grad_cbca_sgm", max_disp=photo.max_disp)
+    out = StereoPipeline(cfg, device=dev)(photo.left, photo.right)
+    n_wta = int((out["disp_left_raw"].cpu().numpy()
+                 != load_ref_disp(os.path.join(GOLDEN, "photo_small_wta.bin"))).sum())
+    final = torch.round(out["disparity"]).to(torch.int32).cpu().numpy()
+    n_final = int((final != load_ref_disp(os.path.join(GOLDEN, "photo_small_final.bin"))).sum())
+    m = photo.masks["nonocc"]
+    bad1 = float((((np.abs(final - photo.gt) > 1) | (final < 0)) & m).sum() / m.sum())
+    print(f"photo_small (committed pair) default preset on the card: WTA differs from the "
+          f"reference binary at {n_wta} px, the refined map at {n_final} px (budgets 0, 0); "
+          f"bad-1.0 nonocc {bad1:.6f}")
+    if n_wta or n_final or bad1 < 0.01:
+        raise AssertionError(f"photo_small: {n_wta} / {n_final} px off the goldens, bad-1.0 "
+                             f"{bad1}")
+    window1_arm_taps(left, right, card_line)
+    torch.cuda.empty_cache()
+
+
 def timed(phase, *args):
     t0 = time.perf_counter()
     result = phase(*args)
@@ -2304,6 +2447,7 @@ def main() -> int:
     census_rows, census_counts = timed(phase_census, dev, card_line)
     layout_rows = timed(phase_sgm_layouts, dev, card_line, build_log)
     taps_rows = timed(phase_taps_probes, dev, card_line, build_log)
+    timed(phase_presets, dev, card_line)
     timed(phase_timing, dev, card_line)
     timed(phase_profile, dev, card_line)
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,

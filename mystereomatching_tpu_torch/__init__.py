@@ -18,6 +18,12 @@ with the image's MST built on the host (``native/``, a C++ runtime built
 at first use) and the tree filter on the device. BASELINE configs 1-2,
 ``ad_census_wta`` and ``census_cbca_lrc``, and ``census_wta`` run the
 census cost family (any ``census_func``) with no aggregation or CBCA.
+``census_cbca_vmtop`` (the vmTop decision), ``cbca_double`` (CBCA at two
+arm scales, merged), ``ad_grad_gf`` (the guided filter) and
+``zncc_bf_wta`` (ZNCC and the box filter) run on the same kernels. The
+photo scenes are ``data.make_photo_pair`` (``photo_small`` also committed
+rendered, ``data.load_photo_pair``); ``entry.entry()`` gives the flagship
+pipeline and an example pair.
 """
 
 from mystereomatching_tpu_torch.config import MatchConfig, default_config

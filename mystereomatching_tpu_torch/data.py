@@ -2,15 +2,22 @@
 
 This package's own copy of the numpy code in
 ``mystereomatching_tpu/data.py``: ``StereoPair``, ``rgb_to_gray``,
-``make_synthetic_pair`` and ``make_adversarial_pair`` with their helpers,
-unchanged, so both packages make the same pairs from the same seed
-(``tests/test_torch_port.py`` holds them equal). The Middlebury directory
-loader is not ported yet.
+``make_synthetic_pair``, ``make_adversarial_pair`` and
+``make_photo_pair`` with their helpers, so both packages make the same
+pairs from the same seed (``tests/test_torch_port.py`` and
+``tests/test_torch_photo.py`` hold them equal). The photo scenes read
+matplotlib's and pygame's bundled photographs; where one is missing,
+:func:`_load_photos` raises instead of skipping it, since a skipped source
+changes the scene. ``photo_small`` is also kept rendered in
+``photo_small.npz`` beside this module (:func:`load_photo_pair`; written by
+``python3 -m mystereomatching_tpu_torch.data``), for machines without those
+packages. The Middlebury directory loader is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -107,6 +114,154 @@ def _left_nonocc_mask(disp: np.ndarray) -> np.ndarray:
             else:
                 best[xr] = u
     return nonocc
+
+
+# Photographs bundled with matplotlib and pygame (no download): natural
+# texture, smooth regions, JPEG noise and real edges.
+_PHOTO_CANDIDATES = (
+    "matplotlib:grace_hopper.jpg",
+    "pygame:docs/generated/_images/intro_freedom.jpg",
+    "pygame:docs/generated/_images/intro_blade.jpg",
+    "pygame:examples/data/alien1.jpg",
+)
+# the photo scene of the reference goldens tests/golden/photo_small_*.bin,
+# kept rendered beside this module
+PHOTO_SCENES = {"photo_small": dict(h=144, w=192, max_disp=23, seed=3)}
+
+
+def _photo_path(spec: str) -> str:
+    """The file of a ``package:relative path`` source. pygame is located,
+    not imported (its import prints a banner)."""
+    import importlib.util
+
+    mod_name, rel = spec.split(":", 1)
+    if mod_name == "matplotlib":
+        import matplotlib.cbook as cbook
+
+        return str(cbook.get_sample_data(rel, asfileobj=False))
+    found = importlib.util.find_spec(mod_name)
+    if found is None or found.origin is None:
+        raise ModuleNotFoundError(f"no module {mod_name!r}")
+    return os.path.join(os.path.dirname(found.origin), rel)
+
+
+def _load_photos():
+    """The photographic sources as RGB uint8 [H, W, 3], in the order of
+    ``_PHOTO_CANDIDATES``. Raises RuntimeError naming a source that cannot
+    be read: the JAX package skips it, which changes the scene."""
+    import matplotlib.image as mpimg
+
+    out = []
+    for spec in _PHOTO_CANDIDATES:
+        try:
+            path = _photo_path(spec)
+            if not os.path.isfile(path):
+                raise FileNotFoundError(path)
+            img = mpimg.imread(path)
+        except Exception as err:
+            raise RuntimeError(f"photo source {spec!r} is missing: {err}") from err
+        if img.ndim == 2:
+            img = np.stack([img] * 3, -1)
+        out.append(np.asarray(img[..., :3], np.uint8))
+    return out
+
+
+def _box_blur(img: np.ndarray, radius: int, reps: int = 2) -> np.ndarray:
+    """Repeated separable box blur (close to a Gaussian): the weak-texture maker."""
+    out = img.astype(np.float32)
+    k = 2 * radius + 1
+    for _ in range(reps):
+        for axis in (0, 1):
+            pad = [(0, 0)] * out.ndim
+            pad[axis] = (radius + 1, radius)
+            c = np.cumsum(np.pad(out, pad, mode="edge"), axis=axis)
+            out = (np.take(c, np.arange(k, c.shape[axis]), axis=axis)
+                   - np.take(c, np.arange(c.shape[axis] - k), axis=axis)) / k
+    return out
+
+
+def make_photo_pair(h: int = 375, w: int = 450, max_disp: int = 59, seed: int = 0,
+                    noise_sigma: float = 2.5, name: str = "photo") -> StereoPair:
+    """A photographically textured pair of slanted planes (the JAX package's
+    ``make_photo_pair``): a slanted background and six foreground surfaces,
+    some of them box-blurred photo crops (weak texture), one a horizontally
+    periodic strip (period < max_disp), each rendered by
+    :func:`_render_slanted_scene` with sub-pixel inverse warping; sensor
+    noise on both views and a 3% red-channel gain on the right one."""
+    photos = _load_photos()
+    rng = np.random.default_rng(seed)
+    fmax = float(max_disp)
+
+    def crop(idx, blur=0, gain=1.0):
+        """[H, W, 3] float crop of photo ``idx`` (tiled only if needed)."""
+        img = photos[idx % len(photos)]
+        ih, iw = img.shape[:2]
+        big = np.tile(img, (-(-h // ih) + 1, -(-w // iw) + 1, 1)).astype(np.float32)
+        oy = int(rng.integers(0, ih))
+        ox = int(rng.integers(0, iw))
+        t = big[oy:oy + h, ox:ox + w] * gain
+        if blur:
+            t = _box_blur(t, blur)
+        return np.clip(t, 0, 255)
+
+    surfaces = [dict(u0=0.0, u1=float(w), v0=0.0, v1=float(h),
+                     d0=1.0, a=(0.25 * fmax - 1.0) / w, b=0.0)]
+    textures = [crop(0)]
+    recipes = [("blur", "a"), ("plain", "b"), ("periodic", None), ("blur", "b"),
+               ("plain", "a"), ("blur", None)]
+    for i, (kind, slant) in enumerate(recipes):
+        ow = float(rng.integers(w // 5, w // 2))
+        oh = float(rng.integers(h // 5, h // 2))
+        u0 = float(rng.integers(0, int(w - ow)))
+        v0 = float(rng.integers(0, int(h - oh)))
+        d0 = float(rng.uniform(0.4 * fmax, 0.9 * fmax))
+        a = float(rng.uniform(-0.12, 0.12)) if slant == "a" else 0.0
+        b = float(rng.uniform(-0.12, 0.12)) if slant == "b" else 0.0
+        lo = d0 + min(0.0, a * ow) + min(0.0, b * oh)
+        hi = d0 + max(0.0, a * ow) + max(0.0, b * oh)
+        if hi > fmax - 0.5:
+            d0 -= hi - (fmax - 0.5)
+        if lo < 1.0:
+            d0 += 1.0 - lo
+        surfaces.append(dict(u0=u0, u1=u0 + ow, v0=v0, v1=v0 + oh, d0=d0, a=a, b=b))
+        if kind == "blur":
+            textures.append(crop(i + 1, blur=int(rng.integers(3, 7))))
+        elif kind == "periodic":
+            period = int(rng.integers(max(6, max_disp // 6), max(8, max_disp // 2)))
+            t = crop(i + 1)
+            textures.append(np.tile(t[:, :period], (1, -(-w // period), 1))[:, :w])
+        else:
+            textures.append(crop(i + 1))
+
+    pair = _render_slanted_scene(h, w, surfaces, textures, rng, noise_sigma, name, max_disp)
+    r = pair.right.astype(np.float32)
+    r[..., 0] *= 1.03
+    right8 = np.clip(np.round(r), 0, 255).astype(np.uint8)
+    return StereoPair(name=pair.name, left=pair.left, right=right8, gt=pair.gt,
+                      max_disp=max_disp, masks=pair.masks)
+
+
+def _photo_file(name: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), f"{name}.npz")
+
+
+def save_photo_pair(name: str = "photo_small") -> str:
+    """Render photo scene ``name`` (``PHOTO_SCENES``) and write its left,
+    right, gt and nonocc mask to ``<name>.npz`` beside this module."""
+    pair = make_photo_pair(name=name, **PHOTO_SCENES[name])
+    path = _photo_file(name)
+    np.savez_compressed(path, left=pair.left, right=pair.right, gt=pair.gt,
+                        nonocc=pair.masks["nonocc"])
+    return path
+
+
+def load_photo_pair(name: str = "photo_small") -> StereoPair:
+    """Photo scene ``name`` as :func:`save_photo_pair` wrote it, without
+    matplotlib or pygame."""
+    with np.load(_photo_file(name)) as f:
+        masks = {"nonocc": f["nonocc"], "all": np.ones(f["gt"].shape, bool)}
+        return StereoPair(name=name, left=f["left"], right=f["right"], gt=f["gt"],
+                          max_disp=PHOTO_SCENES[name]["max_disp"], masks=masks)
 
 
 def make_synthetic_pair(
@@ -357,3 +512,7 @@ def _render_slanted_scene(h, w, surfaces, textures, rng, noise_sigma,
     masks = {"nonocc": visible, "all": np.ones((h, w), bool)}
     return StereoPair(name=name, left=left8, right=right8, gt=gt,
                       max_disp=max_disp, masks=masks)
+
+
+if __name__ == "__main__":
+    print(save_photo_pair())

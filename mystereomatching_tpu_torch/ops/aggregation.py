@@ -1,9 +1,12 @@
-"""Cost aggregation (L2): cross-based cost aggregation (CBCA) and the NL
-tree filter.
+"""Cost aggregation (L2): cross-based cost aggregation (CBCA), the box
+and guided filters, and the NL tree filter.
 
-Counterpart of the ``"cbca"`` and ``"nl"`` branches of
+Counterpart of the ``"cbca"``, ``"bf"``, ``"gf"`` and ``"nl"`` branches of
 ``mystereomatching_tpu/ops/aggregation.py``. :func:`nl` is
-``ops/nl.nl_aggregate`` on the view's tree. :func:`cbca` follows the JAX
+``ops/nl.nl_aggregate`` on the view's tree; :func:`box_filter_volume` the
+box mean, :func:`aggregate` the dispatcher of the volumes that are
+aggregated whole (``"bf"`` and ``"gf"``), neither with a kernel of its own,
+as in the JAX package. :func:`cbca` follows the JAX
 CPU branch: iteration i runs an H pass then a V pass when i is even, V
 then H when odd (cbca_core cpp:5605-5616). The first pass is an
 arm-bounded sum; the second sums the volume and the first pass's support
@@ -16,8 +19,10 @@ from __future__ import annotations
 
 import torch
 
+from mystereomatching_tpu_torch.ops import guided
 from mystereomatching_tpu_torch.ops import nl as nl_ops
 from mystereomatching_tpu_torch.ops.arms import arm_bounded_sum, arm_bounded_sum_area
+from mystereomatching_tpu_torch.ops.cost import _box_sum
 
 _H, _W = 1, 2  # axes of a [D, H, W] volume
 
@@ -47,3 +52,26 @@ def nl(vol: torch.Tensor, tree, cfg) -> torch.Tensor:
     if cfg.nl_filter_dtype != "float32":
         raise NotImplementedError(f"nl_filter_dtype {cfg.nl_filter_dtype!r} is not ported yet")
     return nl_ops.nl_aggregate(vol, tree, cfg.nl_sigma)
+
+
+def box_filter_volume(vol: torch.Tensor, radius: int = 6) -> torch.Tensor:
+    """BF aggregation (cpp:1023-1043): the mean over the in-image pixels of
+    a 2r x 2r window, [-(r-1), r] on each axis (cv::boxFilter 12x12), of
+    every disparity plane of a [D, H, W] volume."""
+    lo, hi = -(radius - 1), radius
+    s = _box_sum(vol, radius, radius, lo, hi, lo, hi)
+    ones = torch.ones(vol.shape[-2:], dtype=vol.dtype, device=vol.device)
+    return s / _box_sum(ones, radius, radius, lo, hi, lo, hi)
+
+
+def aggregate(vol: torch.Tensor, cfg, image: torch.Tensor, gray: torch.Tensor) -> torch.Tensor:
+    """The box (``"bf"``) or guided (``"gf"``) filter of a view's whole
+    [D, H, W] float32 volume; image/gray: that view's [H, W, 3] image and
+    its gray, the guided filter's guide (the image with
+    ``gf_color_guide``)."""
+    if cfg.aggregation == "bf":
+        return box_filter_volume(vol, cfg.bf_radius)
+    if cfg.aggregation == "gf":
+        guide = image if cfg.gf_color_guide else gray
+        return guided.guided_filter_volume(vol, guide, cfg.gf_radius, cfg.gf_eps)
+    raise NotImplementedError(f"aggregation {cfg.aggregation!r} is not aggregated whole here")

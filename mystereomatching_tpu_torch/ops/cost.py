@@ -1,17 +1,21 @@
 """Matching cost (L1): the [D, H, W] cost volumes of the ported costs.
 
 Counterpart of the ``census``, ``census_grad``, ``ad_grad``,
-``ad_census``, ``qx_ad_grad`` and ``qx_census`` branches of
+``ad_census``, ``zncc``, ``qx_ad_grad`` and ``qx_census`` branches of
 ``mystereomatching_tpu/ops/cost.py`` (``central_gradient``,
 ``grad_volume``, ``ad_volume``, ``exp_fuse2``, ``fix_weight_fuse``,
-``_qx_gray``, ``_qx_gradient``, ``qx_ad_grad_volume``,
-``_census_code_fn``, ``compute_cost_volume``, ``block_cost_builder``).
+``_box_sum``, ``zncc_volume``, ``_qx_gray``, ``_qx_gradient``,
+``qx_ad_grad_volume``, ``_census_code_fn``, ``compute_cost_volume``,
+``block_cost_builder``).
 Images are float32 in [0, 255]; off-image entries take each cost's
 default. A division by a constant divides by a 0-dim tensor on the data's
 device (:func:`_div`): a CUDA tensor divided by a Python number is
 multiplied by its reciprocal instead, which rounds otherwise than the
-CPU's division. The JAX package has no Pallas kernel here, so neither
-does this.
+CPU's division. The box sums of ZNCC, the box filter and the guided
+filter (:func:`_box_sum`) take their integral images in XLA-CPU's order
+of adds (:func:`cumsum_blocked`), never ``torch.cumsum``, whose order
+differs on the CPU and again on the card. The JAX package has no Pallas
+kernel here, so neither does this.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
 from mystereomatching_tpu_torch.ops import census as census_ops
 from mystereomatching_tpu_torch.ops.volume import shifted_stack, valid_mask
@@ -28,6 +33,115 @@ from mystereomatching_tpu_torch.ops.volume import shifted_stack, valid_mask
 def _div(x: torch.Tensor, c: float) -> torch.Tensor:
     """x / c rounded once, on every device (see the module's note)."""
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+CUMSUM_BLOCK = 16  # the block of XLA-CPU's rewrite of a cumulative sum
+
+
+def _scan_in_order(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive running sum along the last axis, one add after another."""
+    parts = [x[..., 0]]
+    for i in range(1, x.shape[-1]):
+        parts.append(parts[-1] + x[..., i])
+    return torch.stack(parts, -1)
+
+
+def cumsum_blocked(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive cumulative sum along ``dim`` in the order of adds of
+    ``jnp.cumsum`` on XLA-CPU, which lowers it to a ``reduce_window`` that it
+    rewrites into a blocked scan: the axis padded with zeros to a multiple
+    of 16, a running sum within each block of 16, the block totals scanned
+    the same way (recursively; an axis of 16 or fewer is one block), their
+    prefix shifted to exclusive and added to every element of its block.
+    Every add is a plain IEEE add, so a CUDA tensor gets the same bits."""
+    dim = dim % x.ndim
+    xt = x.movedim(dim, -1)
+    n = xt.shape[-1]
+    if n <= CUMSUM_BLOCK:
+        return _scan_in_order(xt).movedim(-1, dim)
+    nb = -(-n // CUMSUM_BLOCK)
+    xb = F.pad(xt, (0, nb * CUMSUM_BLOCK - n)).reshape(*xt.shape[:-1], nb, CUMSUM_BLOCK)
+    inner = _scan_in_order(xb)
+    prefix = cumsum_blocked(inner[..., -1], -1)
+    exclusive = F.pad(prefix[..., :-1], (1, 0))
+    out = (inner + exclusive[..., None]).reshape(*xt.shape[:-1], nb * CUMSUM_BLOCK)
+    return out[..., :n].movedim(-1, dim)
+
+
+def _box_sum(x: torch.Tensor, rv: int, ru: int, lo_v: Optional[int] = None,
+             hi_v: Optional[int] = None, lo_u: Optional[int] = None,
+             hi_u: Optional[int] = None) -> torch.Tensor:
+    """Windowed sum of x [..., H, W] over dv in [lo_v, hi_v], du in [lo_u,
+    hi_u] (the full +-r window by default), zero-padded: the four corners of
+    the integral image of the padded x, cumulated along W then H
+    (:func:`cumsum_blocked`), combined as the JAX package's ``_box_sum``
+    combines them."""
+    lo_v = -rv if lo_v is None else lo_v
+    hi_v = rv if hi_v is None else hi_v
+    lo_u = -ru if lo_u is None else lo_u
+    hi_u = ru if hi_u is None else hi_u
+    h, w = x.shape[-2:]
+    xp = F.pad(x, (max(0, -lo_u), max(0, hi_u), max(0, -lo_v), max(0, hi_v)))
+    cs = F.pad(cumsum_blocked(cumsum_blocked(xp, -1), -2), (1, 0, 1, 0))
+    a = hi_v - lo_v + 1
+    b = hi_u - lo_u + 1
+    return (cs[..., a:a + h, b:b + w] - cs[..., a:a + h, :w]
+            - cs[..., :h, b:b + w] + cs[..., :h, :w])
+
+
+def zncc_volume(gray_l: torch.Tensor, gray_r: torch.Tensor, num_disp: int, lor: int,
+                rv: int = 3, ru: int = 4) -> torch.Tensor:
+    """ZNCC cost (gen_NCC_vm cpp:2419-2464, transform_NCCVm2): 1 - NCC, and
+    1 where NCC < 0 or off the inner band, with the reference's window
+    quirks as the JAX package has them: the means and the deviations over
+    the full (2rv+1) x (2ru+1) window, the correlation over dv in [-rv, rv),
+    du in [-ru, ru), the deviation sqrt(sum of squared deviations) without
+    the area. Where rounding makes that sum negative (a flat window, or the
+    integral image's rounding on a large picture) the deviation is NaN, and
+    so is the cost there: the WTA takes the first NaN as the minimum, as
+    ``jnp.argmin`` does."""
+    gl = gray_l.to(torch.float32)
+    gr = gray_r.to(torch.float32)
+    area = (2 * rv + 1) * (2 * ru + 1)
+    sum_l, sum_r = _box_sum(gl, rv, ru), _box_sum(gr, rv, ru)
+    mean_l, mean_r = _div(sum_l, area), _div(sum_r, area)
+    std_l = _sqrt(_box_sum(gl * gl, rv, ru) - 2 * mean_l * sum_l + area * mean_l * mean_l)
+    std_r = _sqrt(_box_sum(gr * gr, rv, ru) - 2 * mean_r * sum_r + area * mean_r * mean_r)
+    ref, oth = (gl, gr) if lor == 0 else (gr, gl)
+    ref_mean, oth_mean = (mean_l, mean_r) if lor == 0 else (mean_r, mean_l)
+    ref_std, oth_std = (std_l, std_r) if lor == 0 else (std_r, std_l)
+    sh = shifted_stack(oth, num_disp, lor)
+    sh_mean = shifted_stack(oth_mean, num_disp, lor)
+    sh_std = shifted_stack(oth_std, num_disp, lor)
+
+    def asym(x):
+        return _box_sum(x, rv, ru, -rv, rv - 1, -ru, ru - 1)
+
+    s_rr = asym(ref[None] * sh)
+    s_r = asym(ref)[None]           # the same for every disparity
+    s_s = asym(sh)
+    a_area = (2 * rv) * (2 * ru)
+    numer = (s_rr - ref_mean[None] * s_s - sh_mean * s_r
+             + a_area * ref_mean[None] * sh_mean)
+    ncc = numer / torch.maximum(ref_std[None] * sh_std,
+                                torch.full((), 1e-12, device=numer.device))
+    h, w = gl.shape
+    dev = gl.device
+    u = torch.arange(w, device=dev)[None, None, :]
+    v = torch.arange(h, device=dev)[None, :, None]
+    d = torch.arange(num_disp, device=dev)[:, None, None]
+    inner = ((u - d >= ru) & (u < w - ru)) if lor == 0 else ((u + d < w - ru) & (u >= ru))
+    inner = inner & (v >= rv) & (v < h - rv)
+    ncc = torch.where(inner, ncc, -1.0)
+    return torch.where(ncc < 0, 1.0, 1.0 - ncc)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root, on every device: taken in
+    float64 and rounded once more, which cannot round otherwise (float64
+    holds more than twice float32's digits). torch's float32 sqrt on the
+    CPU is off by an ULP on about 0.6% of inputs."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
 
 
 def ad_volume(left: torch.Tensor, right: torch.Tensor, num_disp: int, lor: int,
@@ -169,7 +283,7 @@ def compute_cost_volume(left: torch.Tensor, right: torch.Tensor,
     the gradient volume), ``ad_grad`` (cpp:50-70, AD truncated at
     ``ad_trunc`` and the gradient truncated at 2, weighted 0.11 / 0.89),
     ``ad_census`` (cpp:5250-5277, exp fusion of census, lambda 30, and
-    untruncated AD, lambda 10), or
+    untruncated AD, lambda 10), ``zncc`` (:func:`zncc_volume`), or
     the NL flow's ``qx_ad_grad`` (left volume only, as in the JAX package)
     and ``qx_census`` (the 80-bit 9x9 census). ``grad_y_pair`` goes to
     :func:`grad_volume`."""
@@ -179,6 +293,8 @@ def compute_cost_volume(left: torch.Tensor, right: torch.Tensor,
                 "qx_ad_grad is left-volume only; the NL flow flips the left volume "
                 "(ops/nl.flip_corr_vol) as the reference does")
         return qx_ad_grad_volume(left, right, cfg.num_disp)
+    if cfg.cost == "zncc":
+        return zncc_volume(gray_l, gray_r, cfg.num_disp, lor, cfg.zncc_win_rv, cfg.zncc_win_ru)
     if cfg.cost == "qx_census":
         return census_ops.hamming_volume(census_ops.census_code_qx80(left),
                                          census_ops.census_code_qx80(right),

@@ -49,3 +49,22 @@ def flip_volume_lr(vol_left: torch.Tensor) -> torch.Tensor:
     nd, h, w = vol_left.shape
     idx = _disparity_index(w, nd, 1, vol_left.device) % w          # [D, W]
     return torch.gather(vol_left, 2, idx[:, None, :].expand(nd, h, w))
+
+
+def _reflect101_index(n: int, r: int, device) -> torch.Tensor:
+    """[n + 2r] indices of an axis of n padded by r on both sides with
+    reflect-101 (cv::BORDER_REFLECT_101, numpy's "reflect"), r >= n too:
+    the axis extended with period 2 (n - 1)."""
+    i = torch.arange(-r, n + r, device=device)
+    if n == 1:
+        return torch.zeros_like(i)
+    i = i.abs() % (2 * (n - 1))
+    return torch.where(i > n - 1, 2 * (n - 1) - i, i)
+
+
+def pad_reflect101(x: torch.Tensor, r: int) -> torch.Tensor:
+    """x [..., H, W] padded by r on both sides of its last two axes with
+    reflect-101 (``jnp.pad(mode="reflect")``), whatever r is against H, W."""
+    h, w = x.shape[-2:]
+    x = x.index_select(-2, _reflect101_index(h, r, x.device))
+    return x.index_select(-1, _reflect101_index(w, r, x.device))

@@ -395,7 +395,8 @@ def _match_pair_band(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
 def check_sharded_support(cfg: MatchConfig, n_disp: int = 1) -> None:
     """Raise NotImplementedError, naming the flag, for every configuration
     the band path would not run with the dense path's meaning: whatever the
-    dense port refuses (``pipeline.check_supported``), NL aggregation, any
+    dense port refuses (``pipeline.check_supported``), NL, box-filter and
+    guided-filter aggregation, double-window CBCA, the vmTop decision, any
     cost but census_grad and any optimization but SGM, ``d_stream_block``
     (a 'disp' axis splits the disparities instead, as in the JAX package)
     and bfloat16 volumes. The JAX band path never casts to ``vol_dtype``
@@ -408,6 +409,11 @@ def check_sharded_support(cfg: MatchConfig, n_disp: int = 1) -> None:
         raise NotImplementedError(
             f"sharded pipeline: aggregation {cfg.aggregation!r} (NL on row bands, the JAX "
             "nl_sharded.py, is not ported)")
+    for flag in ("cbca_double_win", "do_vmtop"):
+        if getattr(cfg, flag):
+            raise NotImplementedError(
+                f"sharded pipeline: {flag} (its band form, in the JAX parallel/sharded.py, is "
+                "not ported)")
     if cfg.cost != "census_grad" or cfg.optimization != "sgm":
         raise NotImplementedError(
             f"sharded pipeline: cost {cfg.cost!r}, optimization {cfg.optimization!r} (the band "

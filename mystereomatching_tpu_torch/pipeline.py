@@ -2,24 +2,26 @@
 
 Counterpart of ``mystereomatching_tpu/pipeline.py`` for the stages ported
 so far. Costs: the default censusGrad, ``census`` (any ``census_func``),
-``ad_census``, ``ad_grad`` and the NL flow's ``qx_ad_grad`` and
-``qx_census``. Aggregation: cross arms and CBCA, or none, in float32 or
-bfloat16 volumes, whole or streamed over blocks of ``d_stream_block``
-disparities; or the NL tree filter on the image's MST, built on the host.
-Optimization: 4- or 8-path SGM, or none, then WTA on the
-left and right volumes, or the cooperative WTA of the left volume alone,
-and the uniqueness check. Refinement: LR check (plain or classifying),
-region vote, proper interpolation, the background fill, and either the
-median or subpixel enhancement with its median, and the decision-time
-subpixel (``sub_ipol``). And the standalone qx NL flow
-(``nl_post_process``, ``ops/nl.nl_disparity``), which owns its decision and
-refinement. That covers the presets ``census_grad_cbca_sgm`` (with or
-without ``do_refine``), ``ad_census_wta``, ``census_wta``,
-``census_cbca_lrc``, ``sgm8_full``, ``fullres_occfill`` (with its
-bfloat16 cooperative variant and its disparity streaming),
-``nl_tree_filter``, ``nl_8nr``, ``nl_post`` and ``nl_census_post``. A
-configuration that needs any other stage raises ``NotImplementedError``
-naming it.
+``ad_census``, ``ad_grad``, ``zncc`` and the NL flow's ``qx_ad_grad`` and
+``qx_census``. Aggregation: cross arms and CBCA (at one arm scale, or at
+two merged by ``combine2Vm_2``, ``_3`` or ``_4``: ``cbca_double_win``),
+or none, in float32 or bfloat16 volumes, whole or streamed over blocks of
+``d_stream_block`` disparities; the box or the guided filter of a float32
+volume; or the NL tree filter on the image's MST, built on the host.
+Optimization: 4- or 8-path SGM, or none, then WTA on the left and right
+volumes, or the cooperative WTA of the left volume alone, and the
+uniqueness check; or the vmTop decision in place of WTA. Refinement: LR
+check (plain or classifying), region vote, proper interpolation, the
+background fill, and either the median or subpixel enhancement with its
+median, and the decision-time subpixel (``sub_ipol``). And the standalone
+qx NL flow (``nl_post_process``, ``ops/nl.nl_disparity``), which owns its
+decision and refinement. That covers the presets ``census_grad_cbca_sgm``
+(with or without ``do_refine``), ``ad_census_wta``, ``census_wta``,
+``census_cbca_lrc``, ``sgm8_full``, ``fullres_occfill`` (with its bfloat16
+cooperative variant and its disparity streaming), ``nl_tree_filter``,
+``nl_8nr``, ``nl_post``, ``nl_census_post``, ``census_cbca_vmtop``,
+``cbca_double``, ``ad_grad_gf`` and ``zncc_bf_wta``. A configuration that
+needs any other stage raises ``NotImplementedError`` naming it.
 
 PyTorch runs eagerly: :class:`StereoPipeline` validates the configuration,
 moves the inputs to its device and, for NL, builds the trees on the host
@@ -39,12 +41,14 @@ import torch
 from mystereomatching_tpu_torch.config import MatchConfig, as_port_config
 from mystereomatching_tpu_torch.ops import aggregation as agg_ops
 from mystereomatching_tpu_torch.ops import arms as arms_ops
+from mystereomatching_tpu_torch.ops import combine as combine_ops
 from mystereomatching_tpu_torch.ops import cost as cost_ops
 from mystereomatching_tpu_torch.ops import cuda_kernels as ck
 from mystereomatching_tpu_torch.ops import mst
 from mystereomatching_tpu_torch.ops import nl as nl_ops
 from mystereomatching_tpu_torch.ops import refine as refine_ops
 from mystereomatching_tpu_torch.ops import sgm as sgm_ops
+from mystereomatching_tpu_torch.ops import vmtop as vmtop_ops
 from mystereomatching_tpu_torch.ops import wta as wta_ops
 
 
@@ -57,14 +61,22 @@ def to_gray(img: torch.Tensor) -> torch.Tensor:
 
 
 VOL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-COSTS = ("census_grad", "ad_grad", "census", "ad_census", "qx_ad_grad", "qx_census")
+COSTS = ("census_grad", "ad_grad", "census", "ad_census", "zncc", "qx_ad_grad", "qx_census")
 # the costs of cost_ops.block_cost_builder, which CBCA and no aggregation build on
 BLOCK_COSTS = ("census_grad", "ad_grad", "census", "ad_census")
+# the aggregations of a whole float32 volume (agg_ops.aggregate), and their costs
+WHOLE_AGGREGATIONS = ("bf", "gf")
+WHOLE_COSTS = BLOCK_COSTS + ("zncc",)
 
 
 def _needs_arms_for_cost(cfg: MatchConfig) -> bool:
     return (cfg.cost in ("census_grad", "ad_grad") and cfg.grad_use_2dir
             and cfg.grad_fuse_adaptive)
+
+
+def _double_win(cfg: MatchConfig) -> bool:
+    """Double-window CBCA, which only CBCA reads the flag for."""
+    return cfg.aggregation == "cbca" and cfg.cbca_double_win
 
 
 def _nl_flow(cfg: MatchConfig) -> bool:
@@ -94,22 +106,33 @@ def check_supported(cfg: MatchConfig) -> None:
         (cfg.cost not in COSTS, f"cost {cfg.cost!r}"),
         (cfg.aggregation in ("cbca", "none") and cfg.cost not in BLOCK_COSTS,
          f"cost {cfg.cost!r} with aggregation {cfg.aggregation!r}"),
-        (cfg.aggregation == "nl" and cfg.cost in ("census", "ad_census"),
+        (cfg.aggregation == "nl" and cfg.cost in ("census", "ad_census", "zncc"),
          f"cost {cfg.cost!r} with NL aggregation"),
+        (cfg.aggregation in WHOLE_AGGREGATIONS and cfg.cost not in WHOLE_COSTS,
+         f"cost {cfg.cost!r} with aggregation {cfg.aggregation!r}"),
+        (cfg.aggregation in WHOLE_AGGREGATIONS and cfg.vol_dtype != "float32",
+         f"vol_dtype {cfg.vol_dtype!r} with aggregation {cfg.aggregation!r}"),
+        (cfg.aggregation in WHOLE_AGGREGATIONS and cfg.d_stream_block != 0,
+         f"d_stream_block with aggregation {cfg.aggregation!r} (no disparity-streaming form)"),
         (cfg.cost == "qx_ad_grad" and not _nl_flow(cfg) and _n_views(cfg) == 2,
          "qx_ad_grad right volume (left volume only)"),
-        (cfg.aggregation not in ("cbca", "none", "nl"), f"aggregation {cfg.aggregation!r}"),
+        (cfg.aggregation not in ("cbca", "none", "nl") + WHOLE_AGGREGATIONS,
+         f"aggregation {cfg.aggregation!r}"),
         (cfg.aggregation == "nl" and cfg.nl_filter_dtype != "float32",
          f"nl_filter_dtype {cfg.nl_filter_dtype!r}"),
         (cfg.aggregation == "nl" and cfg.vol_dtype != "float32",
          f"vol_dtype {cfg.vol_dtype!r} with NL aggregation"),
         (cfg.aggregation == "nl" and cfg.d_stream_block != 0,
          "d_stream_block with NL aggregation (no disparity-streaming form)"),
-        (cfg.cbca_double_win, "cbca_double_win"),
+        (_double_win(cfg) and cfg.cbca_combine == 1,
+         "cbca_combine=1 with cbca_double_win (combine2vm_pkr needs PKR)"),
+        (_double_win(cfg) and cfg.vol_dtype != "float32",
+         f"vol_dtype {cfg.vol_dtype!r} with cbca_double_win"),
         (cfg.optimization not in ("sgm", "wta"), f"optimization {cfg.optimization!r}"),
         (cfg.optimization == "sgm" and cfg.sgm_scan_num not in (4, 8),
          f"{cfg.sgm_scan_num}-path SGM"),
-        (cfg.do_vmtop, "do_vmtop"),
+        (cfg.do_vmtop and not _nl_flow(cfg) and cfg.vol_dtype != "float32",
+         f"vol_dtype {cfg.vol_dtype!r} with do_vmtop"),
         (cfg.d_stream_block != 0 and cfg.cbca_double_win,
          "d_stream_block with cbca_double_win (no disparity-streaming form)"),
         (cfg.pyramid_levels > 1, "pyramid_levels > 1"),
@@ -125,7 +148,7 @@ def kernels_launched(cfg: MatchConfig) -> List[str]:
     order of ``cuda_kernels.launches``."""
     cfg = as_port_config(cfg)
     refining = cfg.do_refine and not _nl_flow(cfg)
-    used = {"wta"}
+    used = set() if cfg.do_vmtop and not _nl_flow(cfg) else {"wta"}
     if cfg.aggregation == "cbca":
         used.add("arm_taps")
     if cfg.aggregation == "cbca" or _needs_arms_for_cost(cfg) or (
@@ -151,10 +174,13 @@ def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
     the cast after the cost on; arms_pair is the two images' [4, H, W]
     cross arms. CBCA and no aggregation (``"none"``): with
     ``d_stream_block`` each volume is built a block of disparities at a
-    time (:func:`_aggregated_volume`). NL: each view's cost volume filtered
-    on its image's tree, ``trees[lor]`` (:func:`nl_trees`, required). Both
-    of the images' arms are built for CBCA; otherwise only those that the
-    cost or the region vote reads (None for the others).
+    time (:func:`_aggregated_volume`); double-window CBCA also builds both
+    images' arms at ``cfg.window1()``. The box and guided filters
+    (``"bf"``, ``"gf"``): each view's whole cost volume filtered, guided by
+    that view's image. NL: each view's cost volume filtered on its image's
+    tree, ``trees[lor]`` (:func:`nl_trees`, required). Both of the images'
+    arms are built for CBCA; otherwise only those that the cost or the
+    region vote reads (None for the others).
     """
     gl, gr = to_gray(left), to_gray(right)
     n_imgs = _n_views(cfg)
@@ -165,8 +191,16 @@ def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
         if cfg.aggregation == "cbca" or (_needs_arms_for_cost(cfg) and lor < n_imgs)
         or (lor == 0 and region_vote) else None
         for lor in (0, 1))
+    if cfg.aggregation in WHOLE_AGGREGATIONS:
+        grays = (gl, gr)
+        vols = {lor: agg_ops.aggregate(
+            cost_ops.compute_cost_volume(left, right, gl, gr, cfg, lor, arms=arms_pair[lor]),
+            cfg, images[lor], grays[lor]) for lor in range(n_imgs)}
+        return vols, arms_pair
     if cfg.aggregation != "nl":
-        vols = {lor: _aggregated_volume(left, right, gl, gr, cfg, lor, arms_pair)
+        arms2_pair = (tuple(arms_ops.build_arms(img, cfg.window1()) for img in images)
+                      if _double_win(cfg) else None)
+        vols = {lor: _aggregated_volume(left, right, gl, gr, cfg, lor, arms_pair, arms2_pair)
                 for lor in range(n_imgs)}
         return vols, arms_pair
     if trees is None:
@@ -190,7 +224,7 @@ def nl_trees(left, right, cfg: MatchConfig) -> Dict[int, mst.RootedTree]:
 
 
 def _aggregated_volume(left, right, gl, gr, cfg: MatchConfig, lor: int,
-                       arms_pair) -> torch.Tensor:
+                       arms_pair, arms2_pair=None) -> torch.Tensor:
     """Cost and CBCA (none with ``aggregation="none"``) of view ``lor``:
     over all disparities at once, or, with ``d_stream_block``, a block of
     disparities at a time (the JAX package's ``pipeline._volume_dstream``).
@@ -201,7 +235,10 @@ def _aggregated_volume(left, right, gl, gr, cfg: MatchConfig, lor: int,
     each plane equal to the dense path's bit for bit. Only one block's
     cost, arms and CBCA temporaries are live at a time: the census stack
     and the intersected arms, the largest tensors of the dense path, shrink
-    by D / Db."""
+    by D / Db. With ``arms2_pair`` (double-window CBCA, never streamed) the
+    raw volume also takes a CBCA pass at the large window's arms and
+    ``max_arm``, run first as in the JAX package, and the two are merged by
+    ``cbca_combine``'s merge."""
     vdt = VOL_DTYPES[cfg.vol_dtype]
     block_fn = cost_ops.block_cost_builder(left, right, gl, gr, cfg, lor, arms=arms_pair[lor])
 
@@ -209,8 +246,17 @@ def _aggregated_volume(left, right, gl, gr, cfg: MatchConfig, lor: int,
         blk = block_fn(ds).to(vdt)
         if cfg.aggregation == "none":
             return blk
+        vol2 = None
+        if arms2_pair is not None:
+            arms2_int = arms_ops.intersect_arms_block(arms2_pair[0], arms2_pair[1], ds, lor)
+            vol2 = agg_ops.cbca(blk, arms2_int, cfg.cbca_iterations,
+                                max_arm=cfg.window1().arm_l_out)
+            del arms2_int
         arms_int = arms_ops.intersect_arms_block(arms_pair[0], arms_pair[1], ds, lor)
-        return agg_ops.cbca(blk, arms_int, cfg.cbca_iterations, max_arm=cfg.arm_l_out)
+        vol = agg_ops.cbca(blk, arms_int, cfg.cbca_iterations, max_arm=cfg.arm_l_out)
+        if vol2 is None:
+            return vol
+        return combine_ops.combine(vol, vol2, cfg.cbca_combine, arms_pair[lor], arms_pair[0])
 
     nd = cfg.num_disp
     db = cfg.d_stream_block or nd
@@ -227,7 +273,9 @@ def optimize(vols, left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
     ``"wta"``), then WTA on each (the cooperative WTA of the left volume
     alone when it is the only one and the LR check needs a right map) and,
     with ``uniq_check``, DISP_INV where the left map fails the uniqueness
-    test.
+    test. With ``do_vmtop`` the vmTop decision of each volume (its view's
+    image for method 2) replaces WTA and the uniqueness check, as in the
+    JAX package.
 
     Returns (d_left, d_right or None, vol_left after optimization)."""
     if cfg.optimization == "sgm":
@@ -238,6 +286,11 @@ def optimize(vols, left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
             num_directions=cfg.sgm_scan_num, p1=cfg.sgm_p1_eff, p2=cfg.sgm_p2_eff,
             cor_dif_thres=cfg.sgm_cor_dif_thres, redu_coeff=cfg.sgm_redu_coeff)
         vols = dict(zip(lors, out))
+    if cfg.do_vmtop:
+        dl = vmtop_ops.disp_from_top(vols[0], left, cfg, cfg.vmtop_method)
+        dr = (vmtop_ops.disp_from_top(vols[1], right, cfg, cfg.vmtop_method)
+              if 1 in vols else None)
+        return dl, dr, vols[0]
     if 1 in vols:
         dl = wta_ops.wta(vols[0], cfg.choose_small)
         dr = wta_ops.wta(vols[1], cfg.choose_small)
@@ -335,10 +388,10 @@ def apply_sub_ipol(d: torch.Tensor, dl_raw: torch.Tensor, vol0: torch.Tensor,
     """SubIpl (wta_Co cpp:2778-2784): the decision-time quadratic subpixel,
     quantised to 1/DISP_SCALE as the reference's fixed-point map. Pixels the
     refinement changed keep their value; pixels still holding the raw WTA
-    disparity take the subpixel one. ``do_subpixel`` supersedes it (the
-    identity then); the SO and vmTop decisions it also skips in the JAX
-    package are refused by :func:`check_supported`."""
-    if not cfg.sub_ipol or cfg.do_subpixel:
+    disparity take the subpixel one. ``do_subpixel`` supersedes it, and a
+    vmTop decision is not a WTA one (the identity then); the SO decision it
+    also skips in the JAX package is refused by :func:`check_supported`."""
+    if not cfg.sub_ipol or cfg.do_subpixel or cfg.do_vmtop:
         return d
     sub = wta_ops.subpixel_quadratic(vol0, dl_raw.clamp(min=0))
     subq = torch.round(sub * cfg.disp_scale) / cfg.disp_scale

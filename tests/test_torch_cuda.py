@@ -21,9 +21,9 @@ import torch
 import mystereomatching_tpu_torch as port
 from mystereomatching_tpu_torch.data import make_synthetic_pair
 from mystereomatching_tpu_torch.models import get_model
-from mystereomatching_tpu_torch.ops import arms, refine, sgm, wta
+from mystereomatching_tpu_torch.ops import aggregation, arms, refine, sgm, wta
 from mystereomatching_tpu_torch.ops import cuda_kernels as ck
-from mystereomatching_tpu_torch.pipeline import kernels_launched
+from mystereomatching_tpu_torch.pipeline import compute_volumes, kernels_launched
 
 pytestmark = pytest.mark.cuda
 
@@ -435,6 +435,23 @@ def test_sgm_diag_kernel_bf16(cuda, nd, shape, g):
 def test_wta_kernel(cuda, choose_small):
     vol = _t(np.random.default_rng(6).integers(0, 3, (11, 14, 15)).astype(np.float32), cuda)
     assert torch.equal(ck.wta(vol, choose_small), wta.wta_plain(vol, choose_small))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("choose_small", [True, False])
+def test_wta_kernel_takes_the_first_nan(cuda, dtype, choose_small):
+    """A NaN is the extreme: the first NaN along D wins, as in torch.argmin
+    and jnp.argmin (ZNCC's cost is NaN where a window's squared deviation
+    rounds below 0), at d = 0, in the middle and last, with ties before it."""
+    rng = np.random.default_rng(7)
+    vol = rng.integers(0, 3, (17, 13, 40)).astype(np.float32)
+    vol[:, :, 6:][rng.random((17, 13, 34)) < 0.05] = np.nan
+    for u, ds in enumerate(([0], [5], [16], [3, 9], [9, 3, 12], list(range(17)))):
+        vol[ds, :, u] = np.nan
+    vol = _t(vol, cuda).to(dtype)
+    got = ck.wta(vol, choose_small)
+    assert torch.equal(got, wta.wta_plain(vol, choose_small))
+    assert got[0, :6].tolist() == [0, 5, 16, 3, 3, 0]
 
 
 @pytest.mark.parametrize("shape", [(11, 14, 15), (256, 9, 33)])
@@ -913,6 +930,58 @@ def test_sgm_probe_refuses_more_shared_memory_than_a_block_has(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         ck.sgm_probe_g(vol, ps)
     assert ck.sgm_probe_rolled(vol, ps, "copy").shape == vol.shape  # copy keeps no carry
+
+
+@pytest.mark.parametrize("kernel", ["arms_grow", "arm_taps"])
+def test_window1_kernels(cuda, kernel):
+    """Kernels A and B at double-window CBCA's large window
+    (``cfg.window1()``: arms to 23 under thresholds 30 and 0, so max_arm
+    23), on a frame's arms and a CBCA pass of its cost volume, each equal
+    to its plain version."""
+    pair = make_synthetic_pair(h=60, w=90, max_disp=15, seed=4, noise_sigma=0.5)
+    cfg = get_model("cbca_double", max_disp=pair.max_disp)
+    w1 = cfg.window1()
+    assert w1.arm_l_out == 23 and cfg.arm_l_out == 34
+    left, right = (_t(img.astype(np.float32), cuda) for img in (pair.left, pair.right))
+    if kernel == "arms_grow":
+        for img in (left, right):
+            ck.reset_launches()
+            got = arms.build_arms(img, w1)
+            assert ck.launches["arms_grow"] == 1
+            with mock.patch.object(ck, "on_cuda", lambda t: False):
+                assert torch.equal(got, arms.build_arms(img, w1))
+        return
+    a_l, a_r = (arms.build_arms(img, w1) for img in (left, right))
+    with mock.patch.object(ck, "on_cuda", lambda t: False):
+        vol = compute_volumes(left, right, get_model(
+            "census_grad_cbca_sgm", max_disp=pair.max_disp, aggregation="none"))[0][0]
+    for lor in (0, 1):
+        arms_int = arms.intersect_arms(a_l, a_r, cfg.num_disp, lor)
+        ck.reset_launches()
+        got = aggregation.cbca(vol, arms_int, cfg.cbca_iterations, w1.arm_l_out)
+        assert ck.launches["arm_taps"] == 2 * cfg.cbca_iterations
+        with mock.patch.object(ck, "on_cuda", lambda t: False):
+            want = aggregation.cbca(vol, arms_int, cfg.cbca_iterations, w1.arm_l_out)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("preset", ["census_cbca_vmtop", "cbca_double", "ad_grad_gf",
+                                    "zncc_bf_wta"])
+def test_preset_on_cuda_equals_plain_path(cuda, preset):
+    """The four presets of the box filters, the guided filter, vmTop and
+    double-window CBCA: exactly the kernels of ``kernels_launched``, and the
+    maps equal to the plain path's on the card."""
+    pair = make_synthetic_pair(h=48, w=64, max_disp=15, seed=5, noise_sigma=0.5)
+    cfg = get_model(preset, max_disp=pair.max_disp)
+    pipe = port.StereoPipeline(cfg, device=cuda)
+    ck.reset_launches()
+    gpu = pipe(pair.left, pair.right)
+    assert [k for k, n in ck.launches.items() if n] == kernels_launched(cfg)
+    with mock.patch.object(ck, "on_cuda", lambda t: False):
+        plain = pipe(pair.left, pair.right)
+    assert set(gpu) == set(plain)
+    for key in gpu:
+        assert torch.equal(gpu[key], plain[key]), key
 
 
 @pytest.mark.parametrize("preset", ["ad_census_wta", "census_wta", "census_cbca_lrc"])

@@ -38,17 +38,21 @@ GOLDEN = os.path.join(ROOT, "tests", "golden")
 MODULES = [
     "mystereomatching_tpu_torch",
     "mystereomatching_tpu_torch.data",
+    "mystereomatching_tpu_torch.entry",
     "mystereomatching_tpu_torch.models",
     "mystereomatching_tpu_torch.ops.aggregation",
     "mystereomatching_tpu_torch.ops.arms",
     "mystereomatching_tpu_torch.ops.bandwidth",
     "mystereomatching_tpu_torch.ops.census",
+    "mystereomatching_tpu_torch.ops.combine",
     "mystereomatching_tpu_torch.ops.cost",
     "mystereomatching_tpu_torch.ops.cuda_kernels",
+    "mystereomatching_tpu_torch.ops.guided",
     "mystereomatching_tpu_torch.ops.median",
     "mystereomatching_tpu_torch.ops.refine",
     "mystereomatching_tpu_torch.ops.sgm",
     "mystereomatching_tpu_torch.ops.volume",
+    "mystereomatching_tpu_torch.ops.vmtop",
     "mystereomatching_tpu_torch.ops.wta",
     "mystereomatching_tpu_torch.parallel",
     "mystereomatching_tpu_torch.parallel._harness",
@@ -131,7 +135,14 @@ PORTED_FROM_THIS_LIST = [dict(do_refine=True, lrc_classify=True),
                          dict(do_refine=True, do_bg_ipol=True),
                          dict(do_refine=True, compute_both_volumes=False),
                          dict(vol_dtype="bfloat16"),
-                         dict(optimization="wta"), dict(aggregation="nl")]
+                         dict(optimization="wta"), dict(aggregation="nl"),
+                         dict(aggregation="bf"), dict(do_vmtop=True),
+                         dict(cbca_double_win=True), dict(aggregation="gf"),
+                         dict(aggregation="gf", gf_color_guide=False),
+                         dict(cost="zncc", aggregation="bf"),
+                         dict(cbca_double_win=True, cbca_combine=2),
+                         dict(cbca_double_win=True, cbca_combine=3),
+                         dict(do_vmtop=True, vmtop_method=1), dict(do_vmtop=True, vmtop_method=2)]
 
 
 @pytest.mark.parametrize("overrides", [
@@ -149,6 +160,17 @@ PORTED_FROM_THIS_LIST = [dict(do_refine=True, lrc_classify=True),
     dict(cbca_arm_mode="multilevel"), dict(vol_dtype="bfloat16"),
     dict(do_refine=True, do_bg_ipol=True, bg_ipol_kitti=True), dict(vol_dtype="float16"),
     dict(cost="census_from2", d_stream_block=4),
+    dict(aggregation="gf"), dict(aggregation="gf", gf_color_guide=False),
+    dict(cost="zncc", aggregation="bf"),
+    dict(cbca_double_win=True, cbca_combine=2), dict(cbca_double_win=True, cbca_combine=3),
+    dict(do_vmtop=True, vmtop_method=1), dict(do_vmtop=True, vmtop_method=2),
+    dict(cbca_double_win=True, cbca_combine=1),
+    dict(cbca_double_win=True, cbca_combine=1, do_refine=True),
+    dict(cbca_double_win=True, vol_dtype="bfloat16"), dict(do_vmtop=True, vol_dtype="bfloat16"),
+    dict(aggregation="bf", d_stream_block=4), dict(aggregation="gf", vol_dtype="bfloat16"),
+    dict(cost="zncc", aggregation="nl"), dict(cost="zncc", aggregation="none"),
+    dict(cost="trunc_ad"), dict(cost="trunc_ad", aggregation="bf"), dict(aggregation="aws"),
+    dict(aggregation="fif"), dict(aggregation="gfnl"), dict(cost="bt", aggregation="gf"),
 ])
 def test_unported_stage_raises(overrides):
     """A stage the port does not run raises NotImplementedError. The
@@ -159,7 +181,12 @@ def test_unported_stage_raises(overrides):
     Disparity streaming (``d_stream_block``) is ported too: its cases pair
     it with what it still cannot run with. The census costs ``census`` and
     ``ad_census`` run too: their three cases name costs still refused
-    instead (``bt``, ``zncc``, ``census_from2``)."""
+    instead (``bt``, ``zncc``, ``census_from2``). The box and guided
+    filters, ZNCC, vmTop and double-window CBCA run too: their cases are
+    in the list with what they still cannot run with (PKR's merge
+    ``cbca_combine=1``, streaming, bfloat16, ZNCC under CBCA, NL or no
+    aggregation) beside the costs and aggregations still refused (``bt``,
+    ``trunc_ad``, AWS, FIF, GFNL)."""
     cfg = port.default_config(max_disp=7, **{"do_refine": False, **overrides})
 
     def run():
@@ -172,6 +199,20 @@ def test_unported_stage_raises(overrides):
         return
     with pytest.raises(NotImplementedError):
         run()
+
+
+@pytest.mark.parametrize("name", ["bt_so", "census_fif_sgm", "aws_wta", "gfnl_wta"])
+def test_unported_preset_raises(name):
+    """The four presets still to port (ROADMAP §1 items 3.5-3.8)."""
+    with pytest.raises(NotImplementedError):
+        port_presets.build(name, max_disp=7, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["census_cbca_vmtop", "cbca_double", "ad_grad_gf",
+                                  "zncc_bf_wta"])
+def test_ported_preset_accepted(name):
+    check_supported(port_presets.get_model(name))
+    assert port_presets.build(name, max_disp=7, device="cpu").device == torch.device("cpu")
 
 
 def test_cuda_pipeline_without_cuda_raises(monkeypatch):

@@ -273,6 +273,9 @@ REFUSED = [
     dict(do_da=True),
     dict(do_fill_surrounding=True),
     dict(do_rv_whole_image=True),
+    dict(cost="zncc", aggregation="bf"),
+    dict(cbca_double_win=True, cbca_combine=2),
+    dict(do_vmtop=True, vmtop_method=1),
 ]
 
 
