@@ -171,16 +171,21 @@ Phases, each of which raises (exit code 1) on failure:
    design), and each instance's registers and spills;
 15. presets: ``census_cbca_vmtop`` (vmTop in place of WTA),
    ``cbca_double`` (CBCA at two arm scales, merged by combine2Vm_4),
-   ``ad_grad_gf`` (the guided filter) and ``zncc_bf_wta`` (ZNCC and the
-   box filter), and the default preset beside them, each on
-   ``make_synthetic_pair(seed=0)`` at 375x450, D=60, with the launch counts
-   set to 0 just before its frame: exactly the kernels of
-   ``kernels_launched``, each as many times a frame as ``PRESET_FRAMES``
-   says (A and B twice the default frame's on cbca_double, D never on
-   census_cbca_vmtop), the maps equal to the same pipeline's with every
-   kernel replaced by its plain version, the median ms/frame of 3 frames
-   on both paths, the peak device memory and, for ad_grad_gf and
-   zncc_bf_wta, the pixels differing from the CPU port. Then the default
+   ``ad_grad_gf`` (the guided filter), ``zncc_bf_wta`` (ZNCC and the box
+   filter), ``aws_wta`` (truncated AD and AWS), ``census_fif_sgm`` (FIF),
+   ``bt_so`` (the BT cost and scanline optimisation) and ``gfnl_wta``
+   (GFNL), at their own widths (``aws_win=17``), and the default preset
+   beside them, each on ``make_synthetic_pair(seed=0)`` at 375x450, D=60,
+   with the launch counts set to 0 just before its frame: exactly the
+   kernels of ``kernels_launched``, each as many times a frame as
+   ``PRESET_FRAMES`` says (A and B twice the default frame's on
+   cbca_double, D never on census_cbca_vmtop or bt_so, A once on
+   aws_wta), the maps equal to the same pipeline's with every kernel
+   replaced by its plain version, the median ms/frame of 3 frames on both
+   paths, the peak device memory and, for ``PRESETS_ON_CPU``, the pixels
+   differing from the CPU port (0 required for bt_so and gfnl_wta;
+   aws_wta's on a 96x128 crop, its whole frame taking minutes on the
+   host). Then the default
    preset on the committed ``photo_small`` pair
    (``data.load_photo_pair``): 0/0 px off the reference binary's goldens
    (tests/golden/photo_small_{wta,final}.bin), bad-1.0 at least 0.01.
@@ -381,11 +386,13 @@ CENSUS_PROFILE_FRAMES = 3
 # kernels line rows at census_cbca_lrc's shapes -> the kernel
 CENSUS_ROWS = {f"{name}_census": name
                for name in ("arms_grow", "arm_taps", "wta", "region_vote")}
-# the presets of the box and guided filters, vmTop and double-window CBCA at
-# Teddy size (375x450, D=60) beside the default preset, and each one's
-# launches a frame: the default's, with cbca_double's second arm build and
-# CBCA pass doubling A and B, vmTop in place of D, and the filters without
-# B or C
+# the presets of the box and guided filters, vmTop, double-window CBCA,
+# AWS, FIF, SO and GFNL at Teddy size (375x450, D=60) beside the default
+# preset, and each one's launches a frame: the default's, with
+# cbca_double's second arm build and CBCA pass doubling A and B, vmTop in
+# place of D, the filters, AWS and GFNL without B or C (and AWS's cost
+# without arms: A once, for region vote), FIF without B, and SO in place of
+# C and D
 PRESET_REPS = 3
 DEFAULT_FRAME = {"arms_grow": 2, "arm_taps": 8, "sgm_scan": 4, "wta": 2, "region_vote": 2,
                  "pi_scan": 2}
@@ -395,8 +402,22 @@ PRESET_FRAMES = {
     "cbca_double": dict(DEFAULT_FRAME, arms_grow=4, arm_taps=16),
     "ad_grad_gf": {"arms_grow": 2, "wta": 2, "region_vote": 2, "pi_scan": 2},
     "zncc_bf_wta": {"wta": 1},
+    "aws_wta": {"arms_grow": 1, "wta": 2, "region_vote": 2, "pi_scan": 2},
+    "census_fif_sgm": {"arms_grow": 2, "sgm_scan": 4, "wta": 2, "region_vote": 2, "pi_scan": 2},
+    "bt_so": {"arms_grow": 2, "arm_taps": 8, "region_vote": 2, "pi_scan": 2},
+    "gfnl_wta": {"arms_grow": 2, "wta": 2, "region_vote": 2, "pi_scan": 2},
 }
-PRESETS_ON_CPU = ("ad_grad_gf", "zncc_bf_wta")  # also held against the CPU port
+# the presets also held against the CPU port: True where the card must give
+# its maps to the pixel (no float32 exp on the card that the CPU takes
+# otherwise; NL's weight table is built on the CPU), False where the
+# differing pixels are printed only (census_fif_sgm's censusGrad and the
+# filters' costs take torch's float32 exp, which rounds otherwise on the card)
+PRESETS_ON_CPU = {"ad_grad_gf": False, "zncc_bf_wta": False, "aws_wta": False,
+                  "census_fif_sgm": False, "bt_so": True, "gfnl_wta": True}
+# presets held against the CPU port on the frame's top-left crop (H, W), the
+# card running the crop too: aws_wta's whole frame takes minutes on the host
+# (float64 passes over [60, 375, 450] at each of 1,225 offsets a view)
+CPU_CROPS = {"aws_wta": (96, 128)}
 
 ROW_BANDS_CHUNKS = 8
 ROW_BANDS_SGM8 = 3       # ranks: 250-row bands of the 750-row frame
@@ -2314,8 +2335,9 @@ def preset_frame(name: str, left, right, dev, card_line: str) -> dict:
     """One frame of preset ``name`` at Teddy size with the launch counts set
     to 0 just before it: exactly the kernels of ``kernels_launched``, each
     as many times as ``PRESET_FRAMES`` says; its maps equal to the plain
-    path's on the card (and, for ``PRESETS_ON_CPU``, the differing pixels
-    of the CPU port's printed); the median ms of ``PRESET_REPS`` frames on
+    path's on the card (and, for ``PRESETS_ON_CPU``, the pixels differing
+    from the CPU port's maps printed, and required to be none where it says
+    so, with the CPU frame's host seconds); the median ms of ``PRESET_REPS`` frames on
     both paths, and the kernel path's peak device memory above what was
     held before the frame (earlier phases leave tensors alive). Returns its
     launches."""
@@ -2342,9 +2364,20 @@ def preset_frame(name: str, left, right, dev, card_line: str) -> dict:
         equal_maps(label, out, pipe(left, right), "the plain path on the card")
     cpu = ""
     if name in PRESETS_ON_CPU:
-        ref = StereoPipeline(cfg, device="cpu")(left.cpu(), right.cpu())
-        cpu = (f"; pixels differing from the CPU port "
-               f"{json.dumps({k: int((out[k].cpu() != ref[k]).sum()) for k in ref})}")
+        crop = CPU_CROPS.get(name)
+        l_cpu, r_cpu, got = left.cpu(), right.cpu(), out
+        if crop:
+            l_cpu, r_cpu = l_cpu[:crop[0], :crop[1]], r_cpu[:crop[0], :crop[1]]
+            got = pipe(l_cpu, r_cpu)
+        t0 = time.perf_counter()
+        ref = StereoPipeline(cfg, device="cpu")(l_cpu, r_cpu)
+        off = {k: int((got[k].cpu() != ref[k]).sum()) for k in ref}
+        where = f" on the top-left {crop[0]}x{crop[1]} crop" if crop else ""
+        cpu = (f"; pixels differing from the CPU port{where} {json.dumps(off)}"
+               f"{' (0 required)' if PRESETS_ON_CPU[name] else ''}, its frame "
+               f"{time.perf_counter() - t0:.1f} s on the host")
+        if PRESETS_ON_CPU[name] and any(off.values()):
+            raise AssertionError(f"{label}: the card's maps differ from the CPU port's: {off}")
     times = {}
     for path, ctx in (("kernel", contextlib.nullcontext), ("plain", plain_path)):
         with ctx():
@@ -2383,9 +2416,10 @@ def window1_arm_taps(left, right, card_line: str) -> None:
 
 
 def phase_presets(dev, card_line: str) -> None:
-    """The presets of the box and guided filters, vmTop and double-window
-    CBCA (``census_cbca_vmtop``, ``cbca_double``, ``ad_grad_gf``,
-    ``zncc_bf_wta``) beside the default one, each a :func:`preset_frame` on
+    """The presets of the box and guided filters, vmTop, double-window CBCA,
+    AWS, FIF, SO and GFNL (``census_cbca_vmtop``, ``cbca_double``,
+    ``ad_grad_gf``, ``zncc_bf_wta``, ``aws_wta``, ``census_fif_sgm``,
+    ``bt_so``, ``gfnl_wta``) beside the default one, each a :func:`preset_frame` on
     ``make_synthetic_pair(seed=0)`` at 375x450, D=60; then the default
     preset on the committed ``photo_small`` pair against the reference
     binary's goldens at 0/0 px; then kernel B at both of cbca_double's
@@ -2396,7 +2430,8 @@ def phase_presets(dev, card_line: str) -> None:
     counts = {name: preset_frame(name, left, right, dev, card_line) for name in PRESET_FRAMES}
     base = counts["census_grad_cbca_sgm"]
     if any(counts["cbca_double"].get(k) != 2 * base.get(k, -1) for k in ("arms_grow", "arm_taps")) \
-            or "wta" in counts["census_cbca_vmtop"]:
+            or "wta" in counts["census_cbca_vmtop"] or "wta" in counts["bt_so"] \
+            or "sgm_scan" in counts["bt_so"]:
         raise AssertionError(f"launches against the default frame's: {json.dumps(counts)}")
     photo = load_photo_pair("photo_small")
     cfg = get_model("census_grad_cbca_sgm", max_disp=photo.max_disp)

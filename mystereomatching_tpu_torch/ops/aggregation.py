@@ -1,12 +1,12 @@
 """Cost aggregation (L2): cross-based cost aggregation (CBCA), the box
-and guided filters, and the NL tree filter.
+and guided filters, FIF, AWS, JBF, GFNL and the NL tree filter.
 
-Counterpart of the ``"cbca"``, ``"bf"``, ``"gf"`` and ``"nl"`` branches of
-``mystereomatching_tpu/ops/aggregation.py``. :func:`nl` is
+Counterpart of ``mystereomatching_tpu/ops/aggregation.py``. :func:`nl` is
 ``ops/nl.nl_aggregate`` on the view's tree; :func:`box_filter_volume` the
 box mean, :func:`aggregate` the dispatcher of the volumes that are
-aggregated whole (``"bf"`` and ``"gf"``), neither with a kernel of its own,
-as in the JAX package. :func:`cbca` follows the JAX
+aggregated whole (``"bf"``, ``"gf"``, ``"fif"``, ``"aws"``, ``"jbf"`` and
+``"gfnl"``), none with a kernel of its own, as in the JAX package.
+:func:`cbca` follows the JAX
 CPU branch: iteration i runs an H pass then a V pass when i is even, V
 then H when odd (cbca_core cpp:5605-5616). The first pass is an
 arm-bounded sum; the second sums the volume and the first pass's support
@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from mystereomatching_tpu_torch.ops import guided
+from mystereomatching_tpu_torch.ops import aws, fif, guided
 from mystereomatching_tpu_torch.ops import nl as nl_ops
 from mystereomatching_tpu_torch.ops.arms import arm_bounded_sum, arm_bounded_sum_area
 from mystereomatching_tpu_torch.ops.cost import _box_sum
@@ -64,14 +64,31 @@ def box_filter_volume(vol: torch.Tensor, radius: int = 6) -> torch.Tensor:
     return s / _box_sum(ones, radius, radius, lo, hi, lo, hi)
 
 
-def aggregate(vol: torch.Tensor, cfg, image: torch.Tensor, gray: torch.Tensor) -> torch.Tensor:
-    """The box (``"bf"``) or guided (``"gf"``) filter of a view's whole
-    [D, H, W] float32 volume; image/gray: that view's [H, W, 3] image and
-    its gray, the guided filter's guide (the image with
-    ``gf_color_guide``)."""
+def aggregate(vol: torch.Tensor, cfg, image: torch.Tensor, gray: torch.Tensor,
+              other_image=None, lor: int = 0, tree=None) -> torch.Tensor:
+    """A whole [D, H, W] float32 volume of view ``lor`` aggregated by
+    ``cfg.aggregation``: the box filter (``"bf"``), the guided filter
+    (``"gf"``, guided by ``image`` with ``gf_color_guide``, else by
+    ``gray``), FIF (``"fif"``, FIF_Improve with ``fif_improve``), AWS
+    (``"aws"``, joint weights of ``image`` and ``other_image``, the
+    opposite view's image), JBF (``"jbf"``) or GFNL (``"gfnl"``, on
+    ``tree``, the MST of ``image``); image/gray: the view's [H, W, 3] image
+    and its gray."""
     if cfg.aggregation == "bf":
         return box_filter_volume(vol, cfg.bf_radius)
     if cfg.aggregation == "gf":
         guide = image if cfg.gf_color_guide else gray
         return guided.guided_filter_volume(vol, guide, cfg.gf_radius, cfg.gf_eps)
+    if cfg.aggregation == "fif":
+        fn = fif.fif_improve if cfg.fif_improve else fif.fif
+        return fn(vol, image, sigma=cfg.fif_sigma, pn=cfg.fif_pn)
+    if cfg.aggregation == "aws":
+        left_img, right_img = (image, other_image) if lor == 0 else (other_image, image)
+        return aws.aws_aggregate(vol, left_img, cfg, right_img, lor=lor)
+    if cfg.aggregation == "jbf":
+        return aws.jbf_volume(vol, image, cfg.jbf_radius, cfg.jbf_sigma_c, cfg.jbf_sigma_s)
+    if cfg.aggregation == "gfnl":
+        if tree is None:
+            raise ValueError("aggregate: GFNL needs the view's tree (pipeline.nl_trees)")
+        return nl_ops.gfnl_aggregate(vol, image, gray, tree, cfg)
     raise NotImplementedError(f"aggregation {cfg.aggregation!r} is not aggregated whole here")

@@ -1,12 +1,13 @@
 """Matching cost (L1): the [D, H, W] cost volumes of the ported costs.
 
 Counterpart of the ``census``, ``census_grad``, ``ad_grad``,
-``ad_census``, ``zncc``, ``qx_ad_grad`` and ``qx_census`` branches of
-``mystereomatching_tpu/ops/cost.py`` (``central_gradient``,
-``grad_volume``, ``ad_volume``, ``exp_fuse2``, ``fix_weight_fuse``,
-``_box_sum``, ``zncc_volume``, ``_qx_gray``, ``_qx_gradient``,
-``qx_ad_grad_volume``, ``_census_code_fn``, ``compute_cost_volume``,
-``block_cost_builder``).
+``ad_census``, ``zncc``, ``trunc_ad``, ``bt``, ``qx_ad_grad`` and
+``qx_census`` branches of ``mystereomatching_tpu/ops/cost.py``
+(``central_gradient``, ``grad_volume``, ``ad_volume``,
+``trunc_ad_volume``, ``_nei_max_min``, ``bt_volume``, ``exp_fuse2``,
+``fix_weight_fuse``, ``_box_sum``, ``zncc_volume``, ``_qx_gray``,
+``_qx_gradient``, ``qx_ad_grad_volume``, ``_census_code_fn``,
+``compute_cost_volume``, ``block_cost_builder``).
 Images are float32 in [0, 255]; off-image entries take each cost's
 default. A division by a constant divides by a 0-dim tensor on the data's
 device (:func:`_div`): a CUDA tensor divided by a Python number is
@@ -16,6 +17,12 @@ filter (:func:`_box_sum`) take their integral images in XLA-CPU's order
 of adds (:func:`cumsum_blocked`), never ``torch.cumsum``, whose order
 differs on the CPU and again on the card. The JAX package has no Pallas
 kernel here, so neither does this.
+
+Three helpers round as jitted XLA-CPU does, on every device:
+:func:`fma32` (XLA contracts ``c + a * b`` into one fused multiply-add,
+also inside ``lax.scan`` bodies), :func:`exp32` (float32 ``exp`` taken in
+float64, subnormal results flushed to zero as XLA-CPU flushes them) and
+:func:`_sqrt`.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -144,6 +152,40 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.to(torch.float64)).to(x.dtype)
 
 
+def _f64(x):
+    """x as a float64 operand: a tensor widened, a number rounded to float32
+    first (the constant XLA sees) and then widened."""
+    return x.to(torch.float64) if isinstance(x, torch.Tensor) else float(np.float32(x))
+
+
+def fma32(a, b, c) -> torch.Tensor:
+    """a * b + c rounded once to float32: XLA-CPU's contraction of ``c + a *
+    b`` into one fused multiply-add. The product of two float32 values is
+    exact in float64, so only the sum rounds there, then once more to
+    float32. Numbers are float32 constants; at least one operand is a
+    tensor."""
+    a64, b64, c64 = _f64(a), _f64(b), _f64(c)
+    if all(isinstance(x, torch.Tensor) for x in (a64, b64, c64)):
+        return torch.addcmul(c64, a64, b64).to(torch.float32)
+    return (a64 * b64 + c64).to(torch.float32)
+
+
+FLT_MIN = float(np.finfo(np.float32).tiny)
+
+
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """x with its float32 subnormals set to 0, as XLA-CPU flushes them."""
+    return torch.where(x.abs() < FLT_MIN, torch.zeros((), dtype=x.dtype, device=x.device), x)
+
+
+def exp32(x: torch.Tensor) -> torch.Tensor:
+    """float32 exp of float32 x: taken in float64 and rounded once, so the
+    card and the CPU give the same bits (their float32 ``exp`` differ), a
+    subnormal result flushed to 0 (:func:`flush_subnormal`). XLA's own
+    float32 ``exp`` is within one ULP of it."""
+    return flush_subnormal(torch.exp(x.to(torch.float64)).to(torch.float32))
+
+
 def ad_volume(left: torch.Tensor, right: torch.Tensor, num_disp: int, lor: int,
               trunc: float = 1e9, disps=None) -> torch.Tensor:
     """Mean over the channels of |dI|, truncated at ``trunc`` (gen_ad_sd_vm
@@ -160,6 +202,71 @@ def ad_volume(left: torch.Tensor, right: torch.Tensor, num_disp: int, lor: int,
     vol = torch.clamp(total * (1.0 / diff.shape[1]), max=trunc)
     valid = valid_mask(left.shape[1], num_disp, lor, vol.device, disps)
     return torch.where(valid, vol, trunc)
+
+
+def trunc_ad_volume(left: torch.Tensor, right: torch.Tensor, num_disp: int, lor: int,
+                    trunc: float = 60.0) -> torch.Tensor:
+    """Truncated AD (gen_truncAD_vm cpp:2511-2551): the sum, not the mean,
+    of the channels' |dI|, truncated at ``trunc``; off-image entries take
+    ``trunc``. left/right: [H, W, C]."""
+    lc = left.to(torch.float32).permute(2, 0, 1)
+    rc = right.to(torch.float32).permute(2, 0, 1)
+    ref, oth = (lc, rc) if lor == 0 else (rc, lc)
+    diff = torch.abs(ref[None] - shifted_stack(oth, num_disp, lor))   # [D, C, H, W]
+    total = diff[:, 0]
+    for c in range(1, diff.shape[1]):
+        total = total + diff[:, c]
+    valid = valid_mask(left.shape[1], num_disp, lor, total.device)
+    return torch.where(valid, torch.clamp(total, max=trunc), trunc)
+
+
+def _nei_max_min(img: torch.Tensor):
+    """(min, max) at each pixel of [..., W] over {I, (I + I_left) / 2,
+    (I + I_right) / 2} with the reference's border quirks (calNeiMaxMin
+    cpp:196-233): {I_0, avg(I_0, I_1)} at u = 0 and {avg(I_W-2, I_W-1),
+    I_W-1} at u = W-1."""
+    g = img.to(torch.float32)
+    il = 0.5 * (torch.roll(g, 1, -1) + g)
+    ir = 0.5 * (torch.roll(g, -1, -1) + g)
+    mn = torch.minimum(g, torch.minimum(il, ir))
+    mx = torch.maximum(g, torch.maximum(il, ir))
+    first = 0.5 * (g[..., 0] + g[..., 1])
+    last = 0.5 * (g[..., -2] + g[..., -1])
+    mn[..., 0] = torch.minimum(g[..., 0], first)
+    mx[..., 0] = torch.maximum(g[..., 0], first)
+    mn[..., -1] = torch.minimum(last, g[..., -1])
+    mx[..., -1] = torch.maximum(last, g[..., -1])
+    return mn, mx
+
+
+def bt_volume(left: torch.Tensor, right: torch.Tensor, num_disp: int, lor: int,
+              trunc: float = 20.0) -> torch.Tensor:
+    """Birchfield-Tomasi cost (calCostForBT cpp:142-194): the channel mean
+    of min(d(L->R), d(R->L)) against the other image's neighbour min/max,
+    truncated at ``trunc``; off-image entries take ``trunc``. left/right:
+    [H, W] gray (the pipeline's) or [H, W, C]."""
+    if left.ndim == 2:
+        left, right = left[..., None], right[..., None]
+    lc = left.to(torch.float32).permute(2, 0, 1)       # [C, H, W]
+    rc = right.to(torch.float32).permute(2, 0, 1)
+    (lmin, lmax), (rmin, rmax) = _nei_max_min(lc), _nei_max_min(rc)
+    ref, oth = (lc, rc) if lor == 0 else (rc, lc)
+    ref_min, ref_max = (lmin, lmax) if lor == 0 else (rmin, rmax)
+    oth_min, oth_max = (rmin, rmax) if lor == 0 else (lmin, lmax)
+    sh = shifted_stack(oth, num_disp, lor)              # [D, C, H, W]
+    sh_min = shifted_stack(oth_min, num_disp, lor)
+    sh_max = shifted_stack(oth_max, num_disp, lor)
+    zero = torch.zeros((), device=sh.device)
+    v0 = torch.maximum(zero, torch.maximum(sh_min - ref[None], ref[None] - sh_max))
+    v1 = torch.maximum(zero, torch.maximum(ref_min[None] - sh, sh - ref_max[None]))
+    m = torch.minimum(v0, v1)
+    total = m[:, 0]
+    for c in range(1, m.shape[1]):
+        total = total + m[:, c]
+    # jnp.mean's division by the count, which is 1 for the pipeline's gray
+    cost = torch.clamp(total * (1.0 / m.shape[1]), max=trunc)
+    valid = valid_mask(left.shape[1], num_disp, lor, cost.device)
+    return torch.where(valid, cost, trunc)
 
 
 def central_gradient(img: torch.Tensor, axis: int) -> torch.Tensor:
@@ -283,7 +390,9 @@ def compute_cost_volume(left: torch.Tensor, right: torch.Tensor,
     the gradient volume), ``ad_grad`` (cpp:50-70, AD truncated at
     ``ad_trunc`` and the gradient truncated at 2, weighted 0.11 / 0.89),
     ``ad_census`` (cpp:5250-5277, exp fusion of census, lambda 30, and
-    untruncated AD, lambda 10), ``zncc`` (:func:`zncc_volume`), or
+    untruncated AD, lambda 10), ``zncc`` (:func:`zncc_volume`),
+    ``trunc_ad`` (:func:`trunc_ad_volume`), ``bt`` (:func:`bt_volume` on the
+    gray images, truncated at ``bt_trunc``), or
     the NL flow's ``qx_ad_grad`` (left volume only, as in the JAX package)
     and ``qx_census`` (the 80-bit 9x9 census). ``grad_y_pair`` goes to
     :func:`grad_volume`."""
@@ -295,6 +404,10 @@ def compute_cost_volume(left: torch.Tensor, right: torch.Tensor,
         return qx_ad_grad_volume(left, right, cfg.num_disp)
     if cfg.cost == "zncc":
         return zncc_volume(gray_l, gray_r, cfg.num_disp, lor, cfg.zncc_win_rv, cfg.zncc_win_ru)
+    if cfg.cost == "trunc_ad":
+        return trunc_ad_volume(left, right, cfg.num_disp, lor)
+    if cfg.cost == "bt":
+        return bt_volume(gray_l, gray_r, cfg.num_disp, lor, cfg.bt_trunc)
     if cfg.cost == "qx_census":
         return census_ops.hamming_volume(census_ops.census_code_qx80(left),
                                          census_ops.census_code_qx80(right),

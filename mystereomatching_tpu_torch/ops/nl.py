@@ -1,9 +1,10 @@
-"""NL: non-local cost aggregation on the image's MST, and the standalone
-qx NL disparity flow.
+"""NL: non-local cost aggregation on the image's MST, its GFNL blend with
+the guided filter, and the standalone qx NL disparity flow.
 
-Counterpart of ``nl_aggregate``, ``flip_corr_vol``, ``detect_occlusion_lr``
-and ``nl_disparity`` in ``mystereomatching_tpu/ops/nl.py`` (NL()
-stereoMatching.cpp:4892-4917, qx_nonlocal_cost_aggregation.cpp:72-109).
+Counterpart of ``nl_aggregate``, ``gfnl_aggregate``, ``flip_corr_vol``,
+``detect_occlusion_lr`` and ``nl_disparity`` in
+``mystereomatching_tpu/ops/nl.py`` (NL() stereoMatching.cpp:4892-4917,
+GFNL cpp:4421-4490, qx_nonlocal_cost_aggregation.cpp:72-109).
 The trees come from the host build (``ops/mst.build_tree``, which
 ``pipeline.nl_trees`` calls for a frame); the filter is
 ``ops/mst.filter_rows``. The JAX flow filters the left and right trees as
@@ -16,9 +17,11 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
-from mystereomatching_tpu_torch.ops import mst
+from mystereomatching_tpu_torch.ops import guided, mst
+from mystereomatching_tpu_torch.ops.cost import _box_sum, fma32
 from mystereomatching_tpu_torch.ops import wta as wta_ops
 from mystereomatching_tpu_torch.ops.median import median_small
 from mystereomatching_tpu_torch.ops.volume import flip_volume_lr
@@ -44,6 +47,32 @@ def nl_aggregate(vol: torch.Tensor, tree: mst.RootedTree, sigma: float = 0.1) ->
     by the filter of an all-ones volume as the reference's caller does
     (cpp:4899-4910)."""
     return filter_volume(tree, vol, sigma, normalize=True)
+
+
+def gfnl_blend(gf_vol: torch.Tensor, nl_vol: torch.Tensor, gray: torch.Tensor) -> torch.Tensor:
+    """GFNL's blend of a GF and an NL [D, H, W] volume by the 3x3 variance
+    of the [H, W] gray image: pure NL where it is below 400, else half and
+    half. The variance rounds as jitted XLA-CPU computes it: the box sums
+    times the float32 reciprocal of 9, and box(g^2) / 9 - mean^2 one fused
+    multiply-add of box(g^2) and that reciprocal."""
+    g = gray.to(torch.float32)
+    ninth = float(np.float32(1.0) / np.float32(9.0))
+    mean = _box_sum(g, 1, 1) * ninth
+    var = fma32(_box_sum(g * g, 1, 1), ninth, -(mean * mean))
+    blend = torch.where(var < 400.0, 1.0, 0.5)[None]
+    return blend * nl_vol + (1.0 - blend) * gf_vol
+
+
+def gfnl_aggregate(vol: torch.Tensor, image: torch.Tensor, gray: torch.Tensor,
+                   tree: mst.RootedTree, cfg) -> torch.Tensor:
+    """GFNL (cpp:4421-4490): the guided filter (``guided.guided_filter_volume``,
+    guided by the image with ``gf_color_guide``, else the gray) and the
+    NL aggregation on ``tree`` (float32, as the JAX package calls it,
+    whatever ``nl_filter_dtype``) of a [D, H, W] volume, blended by
+    :func:`gfnl_blend`."""
+    gf_vol = guided.guided_filter_volume(vol, image if cfg.gf_color_guide else gray,
+                                         cfg.gf_radius, cfg.gf_eps)
+    return gfnl_blend(gf_vol, nl_aggregate(vol, tree, cfg.nl_sigma), gray)
 
 
 def flip_corr_vol(vol: torch.Tensor) -> torch.Tensor:

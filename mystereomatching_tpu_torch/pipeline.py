@@ -2,15 +2,18 @@
 
 Counterpart of ``mystereomatching_tpu/pipeline.py`` for the stages ported
 so far. Costs: the default censusGrad, ``census`` (any ``census_func``),
-``ad_census``, ``ad_grad``, ``zncc`` and the NL flow's ``qx_ad_grad`` and
+``ad_census``, ``ad_grad``, ``zncc``, truncated AD (``trunc_ad``),
+Birchfield-Tomasi (``bt``) and the NL flow's ``qx_ad_grad`` and
 ``qx_census``. Aggregation: cross arms and CBCA (at one arm scale, or at
 two merged by ``combine2Vm_2``, ``_3`` or ``_4``: ``cbca_double_win``),
 or none, in float32 or bfloat16 volumes, whole or streamed over blocks of
-``d_stream_block`` disparities; the box or the guided filter of a float32
-volume; or the NL tree filter on the image's MST, built on the host.
-Optimization: 4- or 8-path SGM, or none, then WTA on the left and right
-volumes, or the cooperative WTA of the left volume alone, and the
-uniqueness check; or the vmTop decision in place of WTA. Refinement: LR
+``d_stream_block`` disparities (``trunc_ad`` and ``bt`` whole and in
+float32 only); the box or the guided filter, FIF, AWS, JBF or GFNL of a
+float32 volume; or the NL tree filter on the image's MST, built on the
+host. Optimization: 4- or 8-path SGM, or none, then WTA on the left and
+right volumes, or the cooperative WTA of the left volume alone, and the
+uniqueness check; or the vmTop decision in place of WTA; or scanline
+optimisation (``"so"``), which decides each volume itself. Refinement: LR
 check (plain or classifying), region vote, proper interpolation, the
 background fill, and either the median or subpixel enhancement with its
 median, and the decision-time subpixel (``sub_ipol``). And the standalone
@@ -20,12 +23,14 @@ decision and refinement. That covers the presets ``census_grad_cbca_sgm``
 ``census_cbca_lrc``, ``sgm8_full``, ``fullres_occfill`` (with its bfloat16
 cooperative variant and its disparity streaming), ``nl_tree_filter``,
 ``nl_8nr``, ``nl_post``, ``nl_census_post``, ``census_cbca_vmtop``,
-``cbca_double``, ``ad_grad_gf`` and ``zncc_bf_wta``. A configuration that
-needs any other stage raises ``NotImplementedError`` naming it.
+``cbca_double``, ``ad_grad_gf``, ``zncc_bf_wta``, ``aws_wta``,
+``census_fif_sgm``, ``bt_so`` and ``gfnl_wta``: every preset of the
+registry. A configuration that needs any other stage raises
+``NotImplementedError`` naming it.
 
 PyTorch runs eagerly: :class:`StereoPipeline` validates the configuration,
-moves the inputs to its device and, for NL, builds the trees on the host
-first (timed apart). On a CUDA device the kernel-backed ops launch their
+moves the inputs to its device and, for NL and GFNL, builds the trees on
+the host first (timed apart). On a CUDA device the kernel-backed ops launch their
 CUDA kernels (:func:`kernels_launched` names those of a configuration); on
 the CPU they run their plain torch versions.
 """
@@ -48,6 +53,7 @@ from mystereomatching_tpu_torch.ops import mst
 from mystereomatching_tpu_torch.ops import nl as nl_ops
 from mystereomatching_tpu_torch.ops import refine as refine_ops
 from mystereomatching_tpu_torch.ops import sgm as sgm_ops
+from mystereomatching_tpu_torch.ops import so as so_ops
 from mystereomatching_tpu_torch.ops import vmtop as vmtop_ops
 from mystereomatching_tpu_torch.ops import wta as wta_ops
 
@@ -61,12 +67,18 @@ def to_gray(img: torch.Tensor) -> torch.Tensor:
 
 
 VOL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-COSTS = ("census_grad", "ad_grad", "census", "ad_census", "zncc", "qx_ad_grad", "qx_census")
+COSTS = ("census_grad", "ad_grad", "census", "ad_census", "zncc", "trunc_ad", "bt",
+         "qx_ad_grad", "qx_census")
 # the costs of cost_ops.block_cost_builder, which CBCA and no aggregation build on
 BLOCK_COSTS = ("census_grad", "ad_grad", "census", "ad_census")
+# the costs without a block form, which CBCA and no aggregation take whole
+# (as the JAX package's dense path does), in float32, never streamed
+UNBLOCKED_COSTS = ("trunc_ad", "bt")
 # the aggregations of a whole float32 volume (agg_ops.aggregate), and their costs
-WHOLE_AGGREGATIONS = ("bf", "gf")
-WHOLE_COSTS = BLOCK_COSTS + ("zncc",)
+WHOLE_AGGREGATIONS = ("bf", "gf", "fif", "aws", "jbf", "gfnl")
+WHOLE_COSTS = BLOCK_COSTS + ("zncc",) + UNBLOCKED_COSTS
+# the aggregations filtering on the image's tree, which nl_trees builds
+TREE_AGGREGATIONS = ("nl", "gfnl")
 
 
 def _needs_arms_for_cost(cfg: MatchConfig) -> bool:
@@ -82,6 +94,13 @@ def _double_win(cfg: MatchConfig) -> bool:
 def _nl_flow(cfg: MatchConfig) -> bool:
     """The standalone qx NL flow, which owns its decision and refinement."""
     return cfg.aggregation == "nl" and cfg.nl_post_process
+
+
+def _so(cfg: MatchConfig) -> bool:
+    """Scanline optimisation, which decides each volume itself: no WTA,
+    uniqueness check, vmTop or sub_ipol after it (the qx NL flow owns its
+    decision instead)."""
+    return cfg.optimization == "so" and not _nl_flow(cfg)
 
 
 def _n_views(cfg: MatchConfig) -> int:
@@ -104,9 +123,13 @@ def check_supported(cfg: MatchConfig) -> None:
         (refining and cfg.do_da, "do_da"),
         (refining and cfg.do_rv_whole_image, "do_rv_whole_image"),
         (cfg.cost not in COSTS, f"cost {cfg.cost!r}"),
-        (cfg.aggregation in ("cbca", "none") and cfg.cost not in BLOCK_COSTS,
+        (cfg.aggregation in ("cbca", "none") and cfg.cost not in BLOCK_COSTS + UNBLOCKED_COSTS,
          f"cost {cfg.cost!r} with aggregation {cfg.aggregation!r}"),
-        (cfg.aggregation == "nl" and cfg.cost in ("census", "ad_census", "zncc"),
+        (cfg.cost in UNBLOCKED_COSTS and cfg.vol_dtype != "float32",
+         f"vol_dtype {cfg.vol_dtype!r} with cost {cfg.cost!r}"),
+        (cfg.cost in UNBLOCKED_COSTS and cfg.d_stream_block != 0,
+         f"d_stream_block with cost {cfg.cost!r} (no disparity-streaming form)"),
+        (cfg.aggregation == "nl" and cfg.cost in ("census", "ad_census", "zncc") + UNBLOCKED_COSTS,
          f"cost {cfg.cost!r} with NL aggregation"),
         (cfg.aggregation in WHOLE_AGGREGATIONS and cfg.cost not in WHOLE_COSTS,
          f"cost {cfg.cost!r} with aggregation {cfg.aggregation!r}"),
@@ -124,11 +147,17 @@ def check_supported(cfg: MatchConfig) -> None:
          f"vol_dtype {cfg.vol_dtype!r} with NL aggregation"),
         (cfg.aggregation == "nl" and cfg.d_stream_block != 0,
          "d_stream_block with NL aggregation (no disparity-streaming form)"),
+        (cfg.aggregation == "gfnl" and cfg.nl_neighbors != 4,
+         f"nl_neighbors={cfg.nl_neighbors} with GFNL aggregation (the JAX package filters "
+         "its tree with 4-neighbour slots)"),
         (_double_win(cfg) and cfg.cbca_combine == 1,
          "cbca_combine=1 with cbca_double_win (combine2vm_pkr needs PKR)"),
         (_double_win(cfg) and cfg.vol_dtype != "float32",
          f"vol_dtype {cfg.vol_dtype!r} with cbca_double_win"),
-        (cfg.optimization not in ("sgm", "wta"), f"optimization {cfg.optimization!r}"),
+        (cfg.optimization not in ("sgm", "wta", "so"), f"optimization {cfg.optimization!r}"),
+        (_so(cfg) and cfg.vol_dtype != "float32", f"vol_dtype {cfg.vol_dtype!r} with SO"),
+        (_so(cfg) and cfg.d_stream_block != 0,
+         "d_stream_block with SO (no disparity-streaming form)"),
         (cfg.optimization == "sgm" and cfg.sgm_scan_num not in (4, 8),
          f"{cfg.sgm_scan_num}-path SGM"),
         (cfg.do_vmtop and not _nl_flow(cfg) and cfg.vol_dtype != "float32",
@@ -148,7 +177,7 @@ def kernels_launched(cfg: MatchConfig) -> List[str]:
     order of ``cuda_kernels.launches``."""
     cfg = as_port_config(cfg)
     refining = cfg.do_refine and not _nl_flow(cfg)
-    used = set() if cfg.do_vmtop and not _nl_flow(cfg) else {"wta"}
+    used = set() if (cfg.do_vmtop and not _nl_flow(cfg)) or _so(cfg) else {"wta"}
     if cfg.aggregation == "cbca":
         used.add("arm_taps")
     if cfg.aggregation == "cbca" or _needs_arms_for_cost(cfg) or (
@@ -175,10 +204,12 @@ def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
     cross arms. CBCA and no aggregation (``"none"``): with
     ``d_stream_block`` each volume is built a block of disparities at a
     time (:func:`_aggregated_volume`); double-window CBCA also builds both
-    images' arms at ``cfg.window1()``. The box and guided filters
-    (``"bf"``, ``"gf"``): each view's whole cost volume filtered, guided by
-    that view's image. NL: each view's cost volume filtered on its image's
-    tree, ``trees[lor]`` (:func:`nl_trees`, required). Both of the images'
+    images' arms at ``cfg.window1()``. The box and guided filters, FIF,
+    AWS, JBF and GFNL (``WHOLE_AGGREGATIONS``): each view's whole cost
+    volume aggregated by ``agg_ops.aggregate``, guided by that view's
+    image (and, for AWS, the other view's; for GFNL, its tree). NL: each
+    view's cost volume filtered on its image's tree. NL and GFNL need
+    ``trees[lor]`` (:func:`nl_trees`). Both of the images'
     arms are built for CBCA; otherwise only those that the cost or the
     region vote reads (None for the others).
     """
@@ -191,11 +222,17 @@ def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
         if cfg.aggregation == "cbca" or (_needs_arms_for_cost(cfg) and lor < n_imgs)
         or (lor == 0 and region_vote) else None
         for lor in (0, 1))
+    if cfg.aggregation in TREE_AGGREGATIONS and trees is None:
+        raise ValueError(f"compute_volumes: {cfg.aggregation!r} aggregation needs the frame's "
+                         "trees (nl_trees)")
     if cfg.aggregation in WHOLE_AGGREGATIONS:
         grays = (gl, gr)
+        # contiguous for the kernels after it (FIF's passes end transposed)
         vols = {lor: agg_ops.aggregate(
             cost_ops.compute_cost_volume(left, right, gl, gr, cfg, lor, arms=arms_pair[lor]),
-            cfg, images[lor], grays[lor]) for lor in range(n_imgs)}
+            cfg, images[lor], grays[lor], other_image=images[1 - lor], lor=lor,
+            tree=trees[lor] if trees is not None else None).contiguous()
+            for lor in range(n_imgs)}
         return vols, arms_pair
     if cfg.aggregation != "nl":
         arms2_pair = (tuple(arms_ops.build_arms(img, cfg.window1()) for img in images)
@@ -203,8 +240,6 @@ def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
         vols = {lor: _aggregated_volume(left, right, gl, gr, cfg, lor, arms_pair, arms2_pair)
                 for lor in range(n_imgs)}
         return vols, arms_pair
-    if trees is None:
-        raise ValueError("compute_volumes: NL aggregation needs the frame's trees (nl_trees)")
     vols = {lor: agg_ops.nl(cost_ops.compute_cost_volume(left, right, gl, gr, cfg, lor,
                                                          arms=arms_pair[lor]),
                             trees[lor], cfg)
@@ -213,7 +248,7 @@ def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
 
 
 def nl_trees(left, right, cfg: MatchConfig) -> Dict[int, mst.RootedTree]:
-    """The NL trees a frame of ``cfg`` filters on, built on the host from
+    """The NL or GFNL trees a frame of ``cfg`` filters on, built on the host from
     the median-prefiltered images: {0: left, 1: right} for the views it
     filters (both in the qx NL flow), on the images' device. The only tree
     builder: :func:`match_pair` calls it when given no trees, and
@@ -240,7 +275,15 @@ def _aggregated_volume(left, right, gl, gr, cfg: MatchConfig, lor: int,
     ``max_arm``, run first as in the JAX package, and the two are merged by
     ``cbca_combine``'s merge."""
     vdt = VOL_DTYPES[cfg.vol_dtype]
-    block_fn = cost_ops.block_cost_builder(left, right, gl, gr, cfg, lor, arms=arms_pair[lor])
+    if cfg.cost in BLOCK_COSTS:
+        block_fn = cost_ops.block_cost_builder(left, right, gl, gr, cfg, lor,
+                                               arms=arms_pair[lor])
+    else:
+        # UNBLOCKED_COSTS: the whole volume, never streamed (check_supported),
+        # contiguous for the kernels after it
+        def block_fn(ds):
+            return cost_ops.compute_cost_volume(left, right, gl, gr, cfg, lor,
+                                                arms=arms_pair[lor]).contiguous()
 
     def aggregated(ds: torch.Tensor) -> torch.Tensor:
         blk = block_fn(ds).to(vdt)
@@ -275,9 +318,13 @@ def optimize(vols, left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
     with ``uniq_check``, DISP_INV where the left map fails the uniqueness
     test. With ``do_vmtop`` the vmTop decision of each volume (its view's
     image for method 2) replaces WTA and the uniqueness check, as in the
-    JAX package.
+    JAX package. Scanline optimisation (``"so"``) decides each volume, left
+    to right guided by its view's image, and returns before all of that.
 
     Returns (d_left, d_right or None, vol_left after optimization)."""
+    if _so(cfg):
+        d1 = so_ops.scanline_optimize(vols[1], right, cfg) if 1 in vols else None
+        return so_ops.scanline_optimize(vols[0], left, cfg), d1, vols[0]
     if cfg.optimization == "sgm":
         images = {0: left, 1: right}
         lors = sorted(vols)
@@ -349,17 +396,17 @@ def match_pair(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
     Returns 'disparity' (float32 [H, W], negatives are sentinel codes) and
     'disp_left_raw' / 'disp_right_raw' (int32 WTA maps before refinement,
     the left one with DISP_INV where the uniqueness check failed; the right
-    one when the LR check is on). Without refinement 'disparity' is the
-    left WTA map, with ``sub_ipol``'s subpixel offsets. The qx NL flow
-    (``nl_post_process``) returns 'disparity' and its stage-1 map as
-    'disp_left_raw'. ``trees``: NL aggregation's trees (:func:`nl_trees`),
-    None to build them here.
+    one when the LR check is on; the SO maps with SO). Without refinement
+    'disparity' is the left WTA map, with ``sub_ipol``'s subpixel offsets.
+    The qx NL flow (``nl_post_process``) returns 'disparity' and its
+    stage-1 map as 'disp_left_raw'. ``trees``: NL or GFNL aggregation's
+    trees (:func:`nl_trees`), None to build them here.
     """
     cfg = as_port_config(cfg).validate()
     check_supported(cfg)
     left = left.to(torch.float32)
     right = right.to(torch.float32)
-    if cfg.aggregation == "nl" and trees is None:
+    if cfg.aggregation in TREE_AGGREGATIONS and trees is None:
         trees = nl_trees(left, right, cfg)
     if _nl_flow(cfg):
         return _match_pair_nl_flow(left, right, cfg, trees)
@@ -389,9 +436,8 @@ def apply_sub_ipol(d: torch.Tensor, dl_raw: torch.Tensor, vol0: torch.Tensor,
     quantised to 1/DISP_SCALE as the reference's fixed-point map. Pixels the
     refinement changed keep their value; pixels still holding the raw WTA
     disparity take the subpixel one. ``do_subpixel`` supersedes it, and a
-    vmTop decision is not a WTA one (the identity then); the SO decision it
-    also skips in the JAX package is refused by :func:`check_supported`."""
-    if not cfg.sub_ipol or cfg.do_subpixel or cfg.do_vmtop:
+    vmTop or SO decision is not a WTA one (the identity then)."""
+    if not cfg.sub_ipol or cfg.do_subpixel or cfg.do_vmtop or cfg.optimization == "so":
         return d
     sub = wta_ops.subpixel_quadratic(vol0, dl_raw.clamp(min=0))
     subq = torch.round(sub * cfg.disp_scale) / cfg.disp_scale
@@ -404,9 +450,9 @@ class StereoPipeline:
 
     It runs on the card (``device="cuda"``) unless the caller asks for
     ``device="cpu"``, and raises when CUDA is not available; inputs (numpy
-    arrays or tensors) are moved to the device. With NL aggregation each
-    call first builds the frame's trees on the host (:func:`nl_trees`) and
-    keeps that build's host-clock ms in ``tree_ms``.
+    arrays or tensors) are moved to the device. With NL or GFNL aggregation
+    each call first builds the frame's trees on the host (:func:`nl_trees`)
+    and keeps that build's host-clock ms in ``tree_ms``.
     """
 
     def __init__(self, cfg: MatchConfig, device="cuda"):
@@ -428,7 +474,7 @@ class StereoPipeline:
     def __call__(self, left, right) -> Dict[str, torch.Tensor]:
         left, right = self._tensor(left), self._tensor(right)
         trees = None
-        if self.cfg.aggregation == "nl":
+        if self.cfg.aggregation in TREE_AGGREGATIONS:
             t0 = time.perf_counter()
             trees = nl_trees(left, right, self.cfg)
             self.tree_ms = (time.perf_counter() - t0) * 1e3

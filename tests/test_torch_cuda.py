@@ -21,7 +21,7 @@ import torch
 import mystereomatching_tpu_torch as port
 from mystereomatching_tpu_torch.data import make_synthetic_pair
 from mystereomatching_tpu_torch.models import get_model
-from mystereomatching_tpu_torch.ops import aggregation, arms, refine, sgm, wta
+from mystereomatching_tpu_torch.ops import aggregation, arms, cost, refine, sgm, wta
 from mystereomatching_tpu_torch.ops import cuda_kernels as ck
 from mystereomatching_tpu_torch.pipeline import compute_volumes, kernels_launched
 
@@ -982,6 +982,42 @@ def test_preset_on_cuda_equals_plain_path(cuda, preset):
     assert set(gpu) == set(plain)
     for key in gpu:
         assert torch.equal(gpu[key], plain[key]), key
+
+
+def test_fma32_and_exp32_on_cuda_equal_cpu(cuda):
+    """``cost.fma32`` on 200,000 seeded float32 triples, and ``cost.exp32``
+    on 200,000 arguments reaching the subnormal range: the card's bits are
+    the CPU's (both take the operation in float64 and round once)."""
+    rng = np.random.default_rng(0)
+    a, b, c = (torch.from_numpy(rng.standard_normal(200_000).astype(np.float32))
+               for _ in range(3))
+    want = cost.fma32(a, b, c)
+    assert torch.equal(cost.fma32(a.to(cuda), b.to(cuda), c.to(cuda)).cpu(), want)
+    x = torch.from_numpy(rng.uniform(-110.0, 5.0, 200_000).astype(np.float32))
+    want = cost.exp32(x)
+    assert (want == 0).any()
+    assert torch.equal(cost.exp32(x.to(cuda)).cpu(), want)
+
+
+@pytest.mark.parametrize("preset", ["aws_wta", "census_fif_sgm", "bt_so", "gfnl_wta"])
+def test_last_presets_on_cuda_equal_plain_path_and_cpu(cuda, preset):
+    """The presets of AWS, FIF, SO and GFNL: exactly the kernels of
+    ``kernels_launched`` (no WTA for SO), the maps equal to the plain path's
+    on the card and to the CPU port's (every operation of their new stages
+    rounds alike on both: ``fma32``, ``exp32``, float64 cbrt and pow)."""
+    pair = make_synthetic_pair(h=48, w=64, max_disp=15, seed=5, noise_sigma=0.5)
+    cfg = get_model(preset, max_disp=pair.max_disp)
+    pipe = port.StereoPipeline(cfg, device=cuda)
+    ck.reset_launches()
+    gpu = pipe(pair.left, pair.right)
+    assert [k for k, n in ck.launches.items() if n] == kernels_launched(cfg)
+    with mock.patch.object(ck, "on_cuda", lambda t: False):
+        plain = pipe(pair.left, pair.right)
+    cpu = port.StereoPipeline(cfg, device="cpu")(pair.left, pair.right)
+    assert set(gpu) == set(plain) == set(cpu)
+    for key in gpu:
+        assert torch.equal(gpu[key], plain[key]), key
+        assert torch.equal(gpu[key].cpu(), cpu[key]), key
 
 
 @pytest.mark.parametrize("preset", ["ad_census_wta", "census_wta", "census_cbca_lrc"])

@@ -287,7 +287,7 @@ def test_nl_presets_are_supported():
 
 
 @pytest.mark.parametrize("bad", [dict(nl_filter_dtype="bfloat16"), dict(vol_dtype="bfloat16"),
-                                 dict(d_stream_block=4), dict(aggregation="gfnl"),
+                                 dict(d_stream_block=4), dict(aggregation="gfnl", nl_neighbors=8),
                                  dict(cost="qx_ad_grad", compute_both_volumes=True),
                                  dict(cost="census")])
 def test_nl_refusals(bad):

@@ -25,6 +25,7 @@ import torch
 from mystereomatching_tpu import config as jax_config
 from mystereomatching_tpu import pipeline as jax_pipeline
 from mystereomatching_tpu.models.presets import MODEL_REGISTRY as JAX_REGISTRY
+from mystereomatching_tpu.models.presets import list_models as jax_list_models
 
 import mystereomatching_tpu_torch as port
 from mystereomatching_tpu_torch import data as port_data
@@ -42,15 +43,18 @@ MODULES = [
     "mystereomatching_tpu_torch.models",
     "mystereomatching_tpu_torch.ops.aggregation",
     "mystereomatching_tpu_torch.ops.arms",
+    "mystereomatching_tpu_torch.ops.aws",
     "mystereomatching_tpu_torch.ops.bandwidth",
     "mystereomatching_tpu_torch.ops.census",
     "mystereomatching_tpu_torch.ops.combine",
     "mystereomatching_tpu_torch.ops.cost",
     "mystereomatching_tpu_torch.ops.cuda_kernels",
+    "mystereomatching_tpu_torch.ops.fif",
     "mystereomatching_tpu_torch.ops.guided",
     "mystereomatching_tpu_torch.ops.median",
     "mystereomatching_tpu_torch.ops.refine",
     "mystereomatching_tpu_torch.ops.sgm",
+    "mystereomatching_tpu_torch.ops.so",
     "mystereomatching_tpu_torch.ops.volume",
     "mystereomatching_tpu_torch.ops.vmtop",
     "mystereomatching_tpu_torch.ops.wta",
@@ -142,7 +146,11 @@ PORTED_FROM_THIS_LIST = [dict(do_refine=True, lrc_classify=True),
                          dict(cost="zncc", aggregation="bf"),
                          dict(cbca_double_win=True, cbca_combine=2),
                          dict(cbca_double_win=True, cbca_combine=3),
-                         dict(do_vmtop=True, vmtop_method=1), dict(do_vmtop=True, vmtop_method=2)]
+                         dict(do_vmtop=True, vmtop_method=1), dict(do_vmtop=True, vmtop_method=2),
+                         dict(cost="bt"), dict(optimization="so"), dict(cost="trunc_ad"),
+                         dict(cost="trunc_ad", aggregation="bf"), dict(aggregation="aws"),
+                         dict(aggregation="fif"), dict(aggregation="gfnl"),
+                         dict(cost="bt", aggregation="gf")]
 
 
 @pytest.mark.parametrize("overrides", [
@@ -171,6 +179,11 @@ PORTED_FROM_THIS_LIST = [dict(do_refine=True, lrc_classify=True),
     dict(cost="zncc", aggregation="nl"), dict(cost="zncc", aggregation="none"),
     dict(cost="trunc_ad"), dict(cost="trunc_ad", aggregation="bf"), dict(aggregation="aws"),
     dict(aggregation="fif"), dict(aggregation="gfnl"), dict(cost="bt", aggregation="gf"),
+    dict(cost="bt", d_stream_block=4), dict(cost="trunc_ad", vol_dtype="bfloat16"),
+    dict(optimization="so", vol_dtype="bfloat16"), dict(optimization="so", d_stream_block=4),
+    dict(aggregation="fif", d_stream_block=4), dict(aggregation="aws", vol_dtype="bfloat16"),
+    dict(aggregation="jbf", d_stream_block=4), dict(aggregation="gfnl", nl_neighbors=8),
+    dict(cost="bt", aggregation="nl"),
 ])
 def test_unported_stage_raises(overrides):
     """A stage the port does not run raises NotImplementedError. The
@@ -185,8 +198,9 @@ def test_unported_stage_raises(overrides):
     filters, ZNCC, vmTop and double-window CBCA run too: their cases are
     in the list with what they still cannot run with (PKR's merge
     ``cbca_combine=1``, streaming, bfloat16, ZNCC under CBCA, NL or no
-    aggregation) beside the costs and aggregations still refused (``bt``,
-    ``trunc_ad``, AWS, FIF, GFNL)."""
+    aggregation). So do the BT and truncated-AD costs, SO, AWS, FIF and
+    GFNL: their cases run, and the list gains what they cannot run with
+    (streaming, bfloat16, GFNL on an 8-neighbour tree, BT under NL)."""
     cfg = port.default_config(max_disp=7, **{"do_refine": False, **overrides})
 
     def run():
@@ -201,15 +215,50 @@ def test_unported_stage_raises(overrides):
         run()
 
 
+NEW_STAGES = {"bt_so": ("cost 'bt'", "SO"), "census_fif_sgm": ("aggregation 'fif'",),
+              "aws_wta": ("cost 'trunc_ad'", "aggregation 'aws'"),
+              "gfnl_wta": ("aggregation 'gfnl'",)}
+
+
 @pytest.mark.parametrize("name", ["bt_so", "census_fif_sgm", "aws_wta", "gfnl_wta"])
 def test_unported_preset_raises(name):
-    """The four presets still to port (ROADMAP §1 items 3.5-3.8)."""
-    with pytest.raises(NotImplementedError):
-        port_presets.build(name, max_disp=7, device="cpu")
+    """The last four presets ported (ROADMAP §1 items 3.5-3.8) run in
+    float32 and dense only: in bfloat16 volumes, or streamed over blocks of
+    disparities, each is refused, the message naming each of its new
+    stages."""
+    for bad in (dict(vol_dtype="bfloat16"), dict(d_stream_block=4)):
+        with pytest.raises(NotImplementedError) as err:
+            port_presets.build(name, max_disp=7, device="cpu", **bad)
+        for stage in NEW_STAGES[name]:
+            assert stage in str(err.value), (stage, str(err.value))
+
+
+@pytest.mark.parametrize("name", jax_list_models())
+def test_every_jax_preset_is_supported(name):
+    """Every preset of the JAX registry, at its default arguments, runs in
+    the port, whose registry names the same presets."""
+    assert port_presets.list_models() == jax_list_models()
+    check_supported(port_presets.get_model(name))
+
+
+@pytest.mark.parametrize("name", ["aws_wta", "census_fif_sgm", "bt_so", "gfnl_wta"])
+def test_entry_runs_the_preset_on_the_cpu(name):
+    """``entry(device, preset)`` builds the named preset at max_disp 31; its
+    pipeline runs on a 24x40 crop of the example pair."""
+    from mystereomatching_tpu_torch.entry import MAX_DISP, entry
+
+    fn, (left, right) = entry("cpu", name)
+    assert dataclasses.asdict(fn.cfg) == dataclasses.asdict(
+        port_presets.get_model(name, max_disp=MAX_DISP))
+    out = fn(left[:24, :40], right[:24, :40])
+    assert sorted(out) == ["disp_left_raw", "disp_right_raw", "disparity"]
+    assert tuple(out["disparity"].shape) == (24, 40)
+    assert bool(torch.isfinite(out["disparity"]).all())
 
 
 @pytest.mark.parametrize("name", ["census_cbca_vmtop", "cbca_double", "ad_grad_gf",
-                                  "zncc_bf_wta"])
+                                  "zncc_bf_wta", "aws_wta", "census_fif_sgm", "bt_so",
+                                  "gfnl_wta"])
 def test_ported_preset_accepted(name):
     check_supported(port_presets.get_model(name))
     assert port_presets.build(name, max_disp=7, device="cpu").device == torch.device("cpu")
