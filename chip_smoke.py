@@ -114,12 +114,13 @@ Phases, each of which raises (exit code 1) on failure:
    in * 1.0001) against its plain version, its rate in each tiling and on
    a 4 GiB buffer beside ``Tensor.copy_``'s and ``torch.mul``'s;
 10. NL: ``get_model("nl_tree_filter", max_disp=59)`` on the Teddy-sized
-   pair (375x450, D=60; the trees built on the host, the filter level by
-   level on the card), with the launch counts set to 0 just before its
-   frame: kernels A, D, ``region_vote`` and ``pi_scan`` must launch, and its
-   three maps must equal a second kernel frame's, the card's plain path's
-   and the CPU port's, and two tree filter runs the same bits; its frame
-   time, host tree build, tree height, peak device memory, and a profile
+   pair (375x450, D=60; the trees built on the card, the JAX package's
+   default, the filter level by level on the card), with the launch counts
+   set to 0 just before its frame: kernels A, D, ``region_vote`` and
+   ``pi_scan`` must launch, and its three maps must equal a second kernel
+   frame's, the card's plain path's and the CPU port's, and two tree filter
+   runs the same bits; its frame time, tree build, tree height, peak
+   device memory, and a profile
    (device time, idle share, launches a frame); then A, D, ``arm_reduce``,
    ``region_vote`` and ``pi_scan`` at its shapes on its inputs against their plain
    versions. ``nl_post`` and ``nl_census_post`` on the golden scenes
@@ -128,7 +129,18 @@ Phases, each of which raises (exit code 1) on failure:
    budgets of the reference binary's maps
    (tests/golden/*_{adgrad,census}_nl_*.bin; ``nl_post`` 10, 6 and 142 px,
    ``nl_census_post`` 0 px). ``nl_8nr``
-   once at Teddy size, equal to the plain path and the CPU port;
+   once at Teddy size, equal to the plain path and the CPU port. Then, for
+   4 and 8 neighbours, the device-built tree equal to the host-built one
+   (parent, weight, BFS order, layout), both builds' ms and the device
+   build's launches, and nl_tree_filter's and nl_8nr's frames on host trees
+   (``nl_tree_host=True``) equal to theirs on device trees, nl_tree_filter's
+   ms/frame on both in turns; the batched path
+   ``match_pair_nl_batch`` on 8 Teddy-sized pairs (seeds 0-7), each frame
+   equal to ``match_pair``'s, its ms/frame beside the frames' one by one;
+   the bfloat16 filter's frame, equal to the CPU port's, its share of
+   disparities off the float32 frame's (at most 2%) and its ms/frame; and
+   ``entry.entry("cuda", "nl_tree_filter")``, every kernel of its path
+   launched, its maps equal to ``entry("cpu", ...)``'s;
 11. plane probes: ``tools/micro4.py``'s gathers and cumsums
    (``csrc/plane_probes.cu``) on micro4.py's [375, 450] plane and on the
    NL filter's [168750, 61] rows, each against its plain version (the
@@ -252,7 +264,7 @@ from unittest import mock
 import numpy as np
 import torch
 
-from mystereomatching_tpu_torch import StereoPipeline, default_config
+from mystereomatching_tpu_torch import StereoPipeline, default_config, match_pair_nl_batch
 from mystereomatching_tpu_torch.data import (load_photo_pair, make_adversarial_pair,
                                              make_synthetic_pair)
 from mystereomatching_tpu_torch.models import get_model
@@ -261,6 +273,7 @@ from mystereomatching_tpu_torch.ops import arms as arms_ops
 from mystereomatching_tpu_torch.ops import bandwidth
 from mystereomatching_tpu_torch.ops import cost as cost_ops
 from mystereomatching_tpu_torch.ops import cuda_kernels as ck
+from mystereomatching_tpu_torch.ops import mst
 from mystereomatching_tpu_torch.ops import nl as nl_ops
 from mystereomatching_tpu_torch.ops import refine as refine_ops
 from mystereomatching_tpu_torch.ops import sgm as sgm_ops
@@ -271,8 +284,8 @@ from mystereomatching_tpu_torch.parallel.launch import band_pipeline
 from mystereomatching_tpu_torch.parallel.mesh import RowMesh
 from mystereomatching_tpu_torch.parallel.sharded import (BAND_ORDERS, _band_scan, _cost_halo,
                                                          sgm_band_direction)
-from mystereomatching_tpu_torch.pipeline import (compute_volumes, kernels_launched, nl_trees,
-                                                 refine, to_gray)
+from mystereomatching_tpu_torch.pipeline import (compute_volumes, kernels_launched, match_pair,
+                                                 nl_trees, refine, to_gray)
 from mystereomatching_tpu_torch.utils.metrics import bad_pixel_rate
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -363,6 +376,9 @@ NL_GOLDEN = {
 }
 NL_REPS = 3
 NL_PROFILE_FRAMES = 2
+NL_BUILD_REPS = 5   # device and host tree builds timed, in turns
+NL_BATCH = 8        # match_pair_nl_batch's frames: Teddy-sized pairs of seeds 0-7
+NL_FLIP_SHARE = 0.02  # the bfloat16 filter's bound on flipped pixels (tests/test_mst.py:233)
 # kernels line rows at the nl_tree_filter frame's shapes -> the kernel
 NL_ROWS = {f"{name}_nl": name
            for name in ("arms_grow", "wta", "arm_reduce", "region_vote", "pi_scan")}
@@ -1628,13 +1644,140 @@ def nl_kernel_rows(left, right, out, cfg, label: str, card_line: str) -> dict:
             for row, (what, case, library) in cases.items()}
 
 
+def launches_of(fn) -> int:
+    """The kernel launches of one call of fn (torch.profiler's launch events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.name in ("cudaLaunchKernel", "cuLaunchKernel"))
+
+
+def nl_tree_builds(left, right, frames: dict, dev, card_line: str) -> None:
+    """For 4 and 8 neighbours on the Teddy-sized left image: the device tree
+    (mst.build_tree) equal to the host tree (mst.build_tree_host) in parent,
+    weight, BFS order and layout; both builds' host-clock ms (synchronised,
+    in turns) and the device build's launches; and the frame of ``frames``
+    (preset -> (cfg, its maps on device trees)) equal to the same frame on
+    host trees (``nl_tree_host=True``) on every map, and for 4 neighbours
+    both frames' ms in turns."""
+    for neighbors, (name, (cfg, out)) in zip((4, 8), frames.items()):
+        host = mst.build_tree_host(left, neighbors)
+        tree = mst.build_tree(left, neighbors)
+        for field in ("parent", "weight", "order", "child_idx"):
+            if not torch.equal(getattr(tree, field), getattr(host, field)):
+                raise AssertionError(f"{neighbors}-neighbour device tree: {field} differs from "
+                                     "the host tree's")
+        if (tree.starts, tree.child_k) != (host.starts, host.child_k):
+            raise AssertionError(f"{neighbors}-neighbour device tree: levels differ")
+        times = {"device": [], "host": []}
+        for _ in range(NL_BUILD_REPS):
+            for kind, build in (("device", mst.build_tree), ("host", mst.build_tree_host)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                build(left, neighbors)
+                torch.cuda.synchronize()
+                times[kind].append((time.perf_counter() - t0) * 1e3)
+        launches = launches_of(lambda: mst.build_tree(left, neighbors))
+        dev_ms, host_ms = (float(np.median(times[k])) for k in ("device", "host"))
+        print(f"NL trees, {neighbors} neighbours, {tuple(left.shape[:2])}: device tree = host "
+              f"tree (parent, weight, order, layout; height {tree.height}); device build "
+              f"median {dev_ms:.3f} ms ({min(times['device']):.3f}-{max(times['device']):.3f}, "
+              f"n={NL_BUILD_REPS}), {launches} launches; host build median {host_ms:.3f} ms "
+              f"({min(times['host']):.3f}-{max(times['host']):.3f}) [{card_line}]")
+        pipes = {"device": StereoPipeline(cfg, device=dev),
+                 "host": StereoPipeline(cfg.replace(nl_tree_host=True), device=dev)}
+        equal_maps(f"{name} on host trees", pipes["host"](left, right), out,
+                   "the frame on device trees")
+        line = f"{name}: the frame on device trees = the frame on host trees, every map"
+        if neighbors == 4:
+            frame = {"device": [], "host": []}
+            for kind in ("device", "host", "host", "device"):
+                frame[kind].append(frame_ms(pipes[kind], left, right, NL_REPS)[1])
+            line += (f"; median ms/frame on device trees {frame['device'][0]:.3f}, "
+                     f"{frame['device'][1]:.3f}, on host trees {frame['host'][0]:.3f}, "
+                     f"{frame['host'][1]:.3f} (n={NL_REPS} each, in turns: device, host, host, "
+                     f"device) [{card_line}]")
+        print(line)
+
+
+def nl_batch(cfg, dev, card_line: str) -> None:
+    """match_pair_nl_batch on NL_BATCH Teddy-sized pairs (seeds 0-7): each
+    frame's maps equal to match_pair's on that frame, and the batch's
+    ms/frame beside the frames' one by one (host clock, synchronised, a
+    warm-up first)."""
+    pairs = [make_synthetic_pair(**dict(TEDDY, seed=s)) for s in range(NL_BATCH)]
+    lefts = torch.from_numpy(np.stack([p.left for p in pairs])).to(dev, torch.float32)
+    rights = torch.from_numpy(np.stack([p.right for p in pairs])).to(dev, torch.float32)
+    out = match_pair_nl_batch(lefts, rights, cfg)
+    for k in range(NL_BATCH):
+        equal_maps(f"match_pair_nl_batch frame {k}", {key: v[k] for key, v in out.items()},
+                   match_pair(lefts[k], rights[k], cfg), "match_pair on that frame")
+    ms = {}
+    for kind in ("batch", "frames", "frames", "batch"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "batch":
+            match_pair_nl_batch(lefts, rights, cfg)
+        else:
+            for k in range(NL_BATCH):
+                match_pair(lefts[k], rights[k], cfg)
+        torch.cuda.synchronize()
+        ms.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3 / NL_BATCH)
+    print(f"match_pair_nl_batch, {NL_BATCH} frames {TEDDY['h']}x{TEDDY['w']} D={cfg.num_disp}: "
+          f"every frame equal to match_pair's; {ms['batch'][0]:.3f}, {ms['batch'][1]:.3f} "
+          f"ms/frame batched against {ms['frames'][0]:.3f}, {ms['frames'][1]:.3f} one frame at "
+          f"a time (runs in turns: batch, frames, frames, batch) [{card_line}]")
+
+
+def nl_bf16(cfg, left, right, out, dev, card_line: str) -> None:
+    """The bfloat16 filter (``nl_filter_dtype``) at Teddy size: its frame
+    equal to the CPU port's, its share of disparities off the float32
+    frame's ``out`` (at most NL_FLIP_SHARE), its ms/frame."""
+    cfg16 = cfg.replace(nl_filter_dtype="bfloat16")
+    pipe = StereoPipeline(cfg16, device=dev)
+    got = pipe(left, right)
+    equal_maps("nl_tree_filter bfloat16 filter", got,
+               StereoPipeline(cfg16, device="cpu")(left.cpu(), right.cpu()), "the CPU port")
+    share = float((got["disparity"] != out["disparity"]).float().mean())
+    q1, med, q3 = frame_ms(pipe, left, right, NL_REPS)
+    print(f"nl_tree_filter, bfloat16 filter: {share:.6f} of the disparities differ from the "
+          f"float32 filter's (bound {NL_FLIP_SHARE}); equal to the CPU port; median {med:.3f} "
+          f"ms/frame (quartiles {q1:.3f}-{q3:.3f}, n={NL_REPS}) [{card_line}]")
+    if not share <= NL_FLIP_SHARE:
+        raise AssertionError(f"bfloat16 filter: {share:.4f} of the disparities flipped")
+
+
+def nl_entry(dev) -> None:
+    """``entry.entry("cuda", "nl_tree_filter")``, the user's entry point,
+    with the launch counts set to 0 just before it: every kernel of the
+    path launches, and the maps equal the CPU entry's."""
+    from mystereomatching_tpu_torch.entry import entry
+
+    fn, args = entry(str(dev), "nl_tree_filter")
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    check_launches("entry('cuda', 'nl_tree_filter')", dict(ck.launches), fn.cfg)
+    cpu_fn, cpu_args = entry("cpu", "nl_tree_filter")
+    equal_maps("entry('cuda', 'nl_tree_filter')", out, cpu_fn(*cpu_args), "entry('cpu')")
+    print(f"entry('cuda', 'nl_tree_filter'): {tuple(out['disparity'].shape)}, device trees in "
+          f"{fn.tree_ms:.3f} ms, equal to entry('cpu')")
+
+
 def phase_nl(dev, card_line: str):
     """The NL presets: nl_tree_filter at Teddy size (its frame timed, with its
-    tree build, tree height, device time, idle share, launches and peak
-    memory, then its kernels at its shapes), the qx flows nl_post and
-    nl_census_post on the golden scenes against the reference binary's maps,
-    and nl_8nr once. Returns (the kernels line's rows, nl_tree_filter's
-    launches)."""
+    tree build on the device, tree height, device time, idle share, launches
+    and peak memory, then its kernels at its shapes), the qx flows nl_post
+    and nl_census_post on the golden scenes against the reference binary's
+    maps, and nl_8nr once, all on device-built trees; then the device trees
+    against the host trees (:func:`nl_tree_builds`), the batched path
+    (:func:`nl_batch`), the bfloat16 filter (:func:`nl_bf16`) and the
+    entry point (:func:`nl_entry`). Returns (the kernels line's rows,
+    nl_tree_filter's launches)."""
     pair = make_synthetic_pair(**TEDDY)
     left = torch.from_numpy(pair.left).to(dev, torch.float32)
     right = torch.from_numpy(pair.right).to(dev, torch.float32)
@@ -1660,7 +1803,7 @@ def phase_nl(dev, card_line: str):
     peak = torch.cuda.max_memory_allocated(dev)
     mp_disp = shape[0] * shape[1] * cfg.num_disp / 1e6
     print(f"timing {label}, kernel path: median {med:.3f} ms/frame (quartiles {q1:.3f}-{q3:.3f}, "
-          f"n={NL_REPS}), {mp_disp / med * 1e3:.3f} MP*disp/s; host tree build "
+          f"n={NL_REPS}), {mp_disp / med * 1e3:.3f} MP*disp/s; device tree build "
           f"{pipe.tree_ms:.3f} ms of the last frame; tree height {tree.height} ({tree.n} nodes, "
           f"{len(tree.starts) - 1} levels); peak device memory {peak / 2**20:.1f} MiB "
           f"[{card_line}]")
@@ -1684,7 +1827,7 @@ def phase_nl(dev, card_line: str):
             print(f"{plabel}: differs from the reference binary at {n_raw} px before and {n_post} "
                   f"px after post-processing (budget {budget}); equal to the plain path and the "
                   f"CPU port; launches {json.dumps({k: v for k, v in pcounts.items() if v})}; "
-                  f"{ms:.3f} ms a frame (the second), tree build {ppipe.tree_ms:.3f} ms "
+                  f"{ms:.3f} ms a frame (the second), device tree builds {ppipe.tree_ms:.3f} ms "
                   f"[{card_line}]")
             if n_raw > budget or n_post > budget:
                 raise AssertionError(f"{plabel}: differs from the reference binary at {n_raw}/"
@@ -1696,8 +1839,13 @@ def phase_nl(dev, card_line: str):
     tree8 = nl_trees(left, right, cfg8)[0]
     print(f"{label8}: equal to the plain path and the CPU port; launches "
           f"{json.dumps({k: v for k, v in counts8.items() if v})}; {ms8:.3f} ms a frame (the "
-          f"second); tree height {tree8.height}; host tree build {pipe8.tree_ms:.3f} ms "
+          f"second); tree height {tree8.height}; device tree build {pipe8.tree_ms:.3f} ms "
           f"[{card_line}]")
+    nl_tree_builds(left, right, {"nl_tree_filter": (cfg, out), "nl_8nr": (cfg8, out8)}, dev,
+                   card_line)
+    nl_batch(cfg, dev, card_line)
+    nl_bf16(cfg, left, right, out, dev, card_line)
+    nl_entry(dev)
     return rows, counts
 
 

@@ -14,8 +14,11 @@ fill), in float32 or with bfloat16 volumes and the cooperative WTA. The
 three presets also run split into row bands over several processes and
 cards (``parallel.run_row_bands``, float32 volumes). The NL presets
 ``nl_tree_filter``, ``nl_8nr``, ``nl_post`` and ``nl_census_post`` run
-with the image's MST built on the host (``native/``, a C++ runtime built
-at first use) and the tree filter on the device. BASELINE configs 1-2,
+with the image's MST built on the device (Borůvka and Euler tours in
+torch, the JAX default) or, with ``nl_tree_host``, on the host
+(``native/``, a C++ runtime built at first use), and the tree filter on
+the device; ``match_pair_nl_batch`` runs a batch of NL frames on one
+forest. BASELINE configs 1-2,
 ``ad_census_wta`` and ``census_cbca_lrc``, and ``census_wta`` run the
 census cost family (any ``census_func``) with no aggregation or CBCA.
 ``census_cbca_vmtop`` (the vmTop decision), ``cbca_double`` (CBCA at two
@@ -27,7 +30,7 @@ pipeline and an example pair.
 """
 
 from mystereomatching_tpu_torch.config import MatchConfig, default_config
-from mystereomatching_tpu_torch.pipeline import StereoPipeline, match_pair
+from mystereomatching_tpu_torch.pipeline import StereoPipeline, match_pair, match_pair_nl_batch
 
 __version__ = "0.1.0"
 
@@ -36,4 +39,5 @@ __all__ = [
     "default_config",
     "StereoPipeline",
     "match_pair",
+    "match_pair_nl_batch",
 ]

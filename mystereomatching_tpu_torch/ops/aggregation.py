@@ -46,12 +46,10 @@ def cbca(vol: torch.Tensor, arms_int: torch.Tensor, iterations: int = 2,
 
 
 def nl(vol: torch.Tensor, tree, cfg) -> torch.Tensor:
-    """NL aggregation (the JAX ``aggregate``'s ``"nl"`` branch) of a float32
-    [D, H, W] volume on ``tree``, its image's MST (``ops/mst.RootedTree``).
-    Only the float32 filter is ported (``nl_filter_dtype``)."""
-    if cfg.nl_filter_dtype != "float32":
-        raise NotImplementedError(f"nl_filter_dtype {cfg.nl_filter_dtype!r} is not ported yet")
-    return nl_ops.nl_aggregate(vol, tree, cfg.nl_sigma)
+    """NL aggregation (the JAX ``aggregate``'s ``"nl"`` branch) of a
+    [D, H, W] volume, float32 or bfloat16, on ``tree``, its image's MST
+    (``ops/mst.RootedTree``), filtered in ``nl_filter_dtype``; float32."""
+    return nl_ops.nl_aggregate(vol, tree, cfg.nl_sigma, compute_dtype=cfg.nl_filter_dtype)
 
 
 def box_filter_volume(vol: torch.Tensor, radius: int = 6) -> torch.Tensor:

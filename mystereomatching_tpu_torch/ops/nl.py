@@ -1,14 +1,15 @@
 """NL: non-local cost aggregation on the image's MST, its GFNL blend with
 the guided filter, and the standalone qx NL disparity flow.
 
-Counterpart of ``nl_aggregate``, ``gfnl_aggregate``, ``flip_corr_vol``,
-``detect_occlusion_lr`` and ``nl_disparity`` in
+Counterpart of ``nl_aggregate``, ``nl_aggregate_batch``, ``gfnl_aggregate``,
+``flip_corr_vol``, ``detect_occlusion_lr`` and ``nl_disparity`` in
 ``mystereomatching_tpu/ops/nl.py`` (NL() stereoMatching.cpp:4892-4917,
 GFNL cpp:4421-4490, qx_nonlocal_cost_aggregation.cpp:72-109).
-The trees come from the host build (``ops/mst.build_tree``, which
-``pipeline.nl_trees`` calls for a frame); the filter is
-``ops/mst.filter_rows``. The JAX flow filters the left and right trees as
-one forest (a speed device of its own); here each tree is filtered alone,
+The trees come from ``pipeline.nl_trees``: built on the device
+(``ops/mst.build_tree``, the JAX default) or, with ``nl_tree_host``, on the
+host (``ops/mst.build_tree_host``); a batch's from
+``ops/mst.build_tree_batch``. The filter is ``ops/mst.filter_rows``. The
+JAX flow filters the left and right trees as one forest (a speed device of its own); here each tree is filtered alone,
 which gives each node the same sums. WTA is kernel D (``ops/wta.wta``) on a
 CUDA tensor; the rest is plain torch: the JAX package has no TPU kernel here.
 """
@@ -27,26 +28,52 @@ from mystereomatching_tpu_torch.ops.median import median_small
 from mystereomatching_tpu_torch.ops.volume import flip_volume_lr
 
 
+def _filter_cols(tree: mst.RootedTree, cols: torch.Tensor, sigma: float, normalize: bool,
+                 bf16_peels: bool) -> torch.Tensor:
+    """Tree filter of [C, N] node-order columns, float32 [C, N]; with
+    ``normalize`` divided by the filter of an all-ones column, at least
+    1e-12, which rides as one more column of the same filter (a bfloat16
+    volume joins float32 there, as the JAX concatenation promotes it)."""
+    c = cols.shape[0]
+    if normalize:
+        cols = torch.cat([cols.to(torch.float32), cols.new_ones((1, cols.shape[1]),
+                                                               dtype=torch.float32)])
+    f = mst.from_rows(tree, mst.filter_rows(tree, mst.to_rows(tree, cols), sigma, bf16_peels))
+    if normalize:
+        f = f[:c] / torch.clamp(f[c:], min=1e-12)
+    return f
+
+
 def filter_volume(tree: mst.RootedTree, vol: torch.Tensor, sigma: float,
-                  normalize: bool = False) -> torch.Tensor:
+                  normalize: bool = False, compute_dtype=None) -> torch.Tensor:
     """Tree filter of each [H, W] plane of a [D, H, W] volume, float32 [D,
-    H, W]; with ``normalize`` divided by the filter of an all-ones plane,
-    at least 1e-12, which rides as one more column of the same filter."""
+    H, W] (:func:`_filter_cols`); ``compute_dtype`` "bfloat16" rounds as
+    the JAX filter's bfloat16 mode where it applies (``mst.filter_rows``)."""
     d = vol.shape[0]
-    cols = vol.reshape(d, -1)
-    if normalize:
-        cols = torch.cat([cols, torch.ones_like(cols[:1])])
-    f = mst.from_rows(tree, mst.filter_rows(tree, mst.to_rows(tree, cols), sigma))
-    if normalize:
-        f = f[:d] / torch.clamp(f[d:], min=1e-12)
-    return f.reshape(vol.shape)
+    bf16 = mst.peels_in_bfloat16(compute_dtype, vol.shape[1] * vol.shape[2])
+    return _filter_cols(tree, vol.reshape(d, -1), sigma, normalize, bf16).reshape(vol.shape)
 
 
-def nl_aggregate(vol: torch.Tensor, tree: mst.RootedTree, sigma: float = 0.1) -> torch.Tensor:
-    """NL aggregation of a [D, H, W] volume on its image's MST, normalised
-    by the filter of an all-ones volume as the reference's caller does
-    (cpp:4899-4910)."""
-    return filter_volume(tree, vol, sigma, normalize=True)
+def nl_aggregate(vol: torch.Tensor, tree: mst.RootedTree, sigma: float = 0.1,
+                 compute_dtype=None) -> torch.Tensor:
+    """NL aggregation of a [D, H, W] volume (float32 or bfloat16) on its
+    image's MST, normalised by the filter of an all-ones volume as the
+    reference's caller does (cpp:4899-4910), float32. ``compute_dtype``:
+    ``nl_filter_dtype`` (:func:`filter_volume`)."""
+    return filter_volume(tree, vol, sigma, normalize=True, compute_dtype=compute_dtype)
+
+
+def nl_aggregate_batch(vols: torch.Tensor, forest: mst.RootedTree, sigma: float = 0.1,
+                       compute_dtype=None) -> torch.Tensor:
+    """NL aggregation of B [D, H, W] volumes ([B, D, H, W]) on the forest of
+    their images' MSTs (``mst.build_tree_batch``) in one filter, float32
+    [B, D, H, W]: each frame's equal to :func:`nl_aggregate` on its own
+    tree, bit for bit, ``compute_dtype`` applying as it does to one frame
+    (the JAX ``nl_aggregate_batch``, nl.py:82, filters in float32)."""
+    b, d, h, w = vols.shape
+    bf16 = mst.peels_in_bfloat16(compute_dtype, h * w)
+    f = _filter_cols(forest, vols.transpose(0, 1).reshape(d, b * h * w), sigma, True, bf16)
+    return f.view(d, b, h, w).transpose(0, 1)
 
 
 def gfnl_blend(gf_vol: torch.Tensor, nl_vol: torch.Tensor, gray: torch.Tensor) -> torch.Tensor:

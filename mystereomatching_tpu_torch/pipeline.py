@@ -9,9 +9,11 @@ two merged by ``combine2Vm_2``, ``_3`` or ``_4``: ``cbca_double_win``),
 or none, in float32 or bfloat16 volumes, whole or streamed over blocks of
 ``d_stream_block`` disparities (``trunc_ad`` and ``bt`` whole and in
 float32 only); the box or the guided filter, FIF, AWS, JBF or GFNL of a
-float32 volume; or the NL tree filter on the image's MST, built on the
-host. Optimization: 4- or 8-path SGM, or none, then WTA on the left and
-right volumes, or the cooperative WTA of the left volume alone, and the
+float32 volume; or the NL tree filter on the image's MST (any of these
+costs, float32 or bfloat16 volumes, the filter in float32 or in the JAX
+package's bfloat16 mode), the tree built on the device or, with
+``nl_tree_host``, on the host. Optimization: 4- or 8-path SGM, or none,
+then WTA on the left and right volumes, or the cooperative WTA of the left volume alone, and the
 uniqueness check; or the vmTop decision in place of WTA; or scanline
 optimisation (``"so"``), which decides each volume itself. Refinement: LR
 check (plain or classifying), region vote, proper interpolation, the
@@ -25,12 +27,13 @@ cooperative variant and its disparity streaming), ``nl_tree_filter``,
 ``nl_8nr``, ``nl_post``, ``nl_census_post``, ``census_cbca_vmtop``,
 ``cbca_double``, ``ad_grad_gf``, ``zncc_bf_wta``, ``aws_wta``,
 ``census_fif_sgm``, ``bt_so`` and ``gfnl_wta``: every preset of the
-registry. A configuration that needs any other stage raises
+registry. :func:`match_pair_nl_batch` runs a batch of NL frames on one
+forest of trees. A configuration that needs any other stage raises
 ``NotImplementedError`` naming it.
 
 PyTorch runs eagerly: :class:`StereoPipeline` validates the configuration,
-moves the inputs to its device and, for NL and GFNL, builds the trees on
-the host first (timed apart). On a CUDA device the kernel-backed ops launch their
+moves the inputs to its device and, for NL and GFNL, builds the trees
+first (:func:`nl_trees`, timed apart). On a CUDA device the kernel-backed ops launch their
 CUDA kernels (:func:`kernels_launched` names those of a configuration); on
 the CPU they run their plain torch versions.
 """
@@ -125,12 +128,10 @@ def check_supported(cfg: MatchConfig) -> None:
         (cfg.cost not in COSTS, f"cost {cfg.cost!r}"),
         (cfg.aggregation in ("cbca", "none") and cfg.cost not in BLOCK_COSTS + UNBLOCKED_COSTS,
          f"cost {cfg.cost!r} with aggregation {cfg.aggregation!r}"),
-        (cfg.cost in UNBLOCKED_COSTS and cfg.vol_dtype != "float32",
+        (cfg.cost in UNBLOCKED_COSTS and cfg.vol_dtype != "float32" and cfg.aggregation != "nl",
          f"vol_dtype {cfg.vol_dtype!r} with cost {cfg.cost!r}"),
         (cfg.cost in UNBLOCKED_COSTS and cfg.d_stream_block != 0,
          f"d_stream_block with cost {cfg.cost!r} (no disparity-streaming form)"),
-        (cfg.aggregation == "nl" and cfg.cost in ("census", "ad_census", "zncc") + UNBLOCKED_COSTS,
-         f"cost {cfg.cost!r} with NL aggregation"),
         (cfg.aggregation in WHOLE_AGGREGATIONS and cfg.cost not in WHOLE_COSTS,
          f"cost {cfg.cost!r} with aggregation {cfg.aggregation!r}"),
         (cfg.aggregation in WHOLE_AGGREGATIONS and cfg.vol_dtype != "float32",
@@ -141,10 +142,6 @@ def check_supported(cfg: MatchConfig) -> None:
          "qx_ad_grad right volume (left volume only)"),
         (cfg.aggregation not in ("cbca", "none", "nl") + WHOLE_AGGREGATIONS,
          f"aggregation {cfg.aggregation!r}"),
-        (cfg.aggregation == "nl" and cfg.nl_filter_dtype != "float32",
-         f"nl_filter_dtype {cfg.nl_filter_dtype!r}"),
-        (cfg.aggregation == "nl" and cfg.vol_dtype != "float32",
-         f"vol_dtype {cfg.vol_dtype!r} with NL aggregation"),
         (cfg.aggregation == "nl" and cfg.d_stream_block != 0,
          "d_stream_block with NL aggregation (no disparity-streaming form)"),
         (cfg.aggregation == "gfnl" and cfg.nl_neighbors != 4,
@@ -208,8 +205,8 @@ def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
     AWS, JBF and GFNL (``WHOLE_AGGREGATIONS``): each view's whole cost
     volume aggregated by ``agg_ops.aggregate``, guided by that view's
     image (and, for AWS, the other view's; for GFNL, its tree). NL: each
-    view's cost volume filtered on its image's tree. NL and GFNL need
-    ``trees[lor]`` (:func:`nl_trees`). Both of the images'
+    view's cost volume, cast to ``vol_dtype``, filtered on its image's
+    tree. NL and GFNL need ``trees[lor]`` (:func:`nl_trees`). Both of the images'
     arms are built for CBCA; otherwise only those that the cost or the
     region vote reads (None for the others).
     """
@@ -240,21 +237,26 @@ def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
         vols = {lor: _aggregated_volume(left, right, gl, gr, cfg, lor, arms_pair, arms2_pair)
                 for lor in range(n_imgs)}
         return vols, arms_pair
+    vdt = VOL_DTYPES[cfg.vol_dtype]
     vols = {lor: agg_ops.nl(cost_ops.compute_cost_volume(left, right, gl, gr, cfg, lor,
-                                                         arms=arms_pair[lor]),
+                                                         arms=arms_pair[lor]).to(vdt),
                             trees[lor], cfg)
             for lor in range(n_imgs)}
     return vols, arms_pair
 
 
 def nl_trees(left, right, cfg: MatchConfig) -> Dict[int, mst.RootedTree]:
-    """The NL or GFNL trees a frame of ``cfg`` filters on, built on the host from
-    the median-prefiltered images: {0: left, 1: right} for the views it
-    filters (both in the qx NL flow), on the images' device. The only tree
-    builder: :func:`match_pair` calls it when given no trees, and
-    :class:`StereoPipeline` to time the build apart."""
+    """The NL or GFNL trees a frame of ``cfg`` filters on, from the
+    median-prefiltered images: {0: left, 1: right} for the views it filters
+    (both in the qx NL flow), on the images' device. Built there
+    (``mst.build_tree``, the JAX package's default) or, with
+    ``nl_tree_host``, on the host by the native runtime
+    (``mst.build_tree_host``); the two give the same trees, and neither
+    falls back to the other. :func:`match_pair` calls it when given no
+    trees, and :class:`StereoPipeline` to time the build apart."""
     views = 2 if _nl_flow(cfg) else _n_views(cfg)
-    return {lor: mst.build_tree(img, cfg.nl_neighbors)
+    build = mst.build_tree_host if cfg.nl_tree_host else mst.build_tree
+    return {lor: build(img, cfg.nl_neighbors)
             for lor, img in enumerate((left, right)[:views])}
 
 
@@ -445,14 +447,63 @@ def apply_sub_ipol(d: torch.Tensor, dl_raw: torch.Tensor, vol0: torch.Tensor,
     return torch.where(keep, subq, d.to(torch.float32))
 
 
+def match_pair_nl_batch(lefts: torch.Tensor, rights: torch.Tensor,
+                        cfg: MatchConfig) -> Dict[str, torch.Tensor]:
+    """The NL pipeline over B frames ([B, H, W, 3] RGB tensors on one
+    device; the JAX ``match_pair_nl_batch``, pipeline.py:371-412): each
+    frame's left cost volume (and the left image's arms where the cost or
+    the region vote reads them), one forest build of the left images'
+    trees on their device (``mst.build_tree_batch``, whatever
+    ``nl_tree_host``, as in the JAX package), one forest filter
+    (``nl.nl_aggregate_batch``), then each frame's decision and refinement.
+    Returns 'disparity', 'disp_left_raw' and, with the cooperative WTA,
+    'disp_right_raw', stacked [B, H, W]; each frame's equal to
+    :func:`match_pair`'s bit for bit. It refuses what the JAX function
+    refuses (another aggregation, the qx flow, ``d_stream_block``) and a
+    right volume (``compute_both_volumes`` with the LR check): the JAX
+    function builds the left one alone."""
+    cfg = as_port_config(cfg).validate()
+    check_supported(cfg)
+    if cfg.aggregation != "nl" or _nl_flow(cfg) or cfg.d_stream_block:
+        raise NotImplementedError("match_pair_nl_batch supports the single-volume NL preset")
+    if _n_views(cfg) == 2:
+        raise NotImplementedError("match_pair_nl_batch builds the left volume alone "
+                                  "(compute_both_volumes with the LR check)")
+    lefts = lefts.to(torch.float32)
+    rights = rights.to(torch.float32)
+    need_arms = _needs_arms_for_cost(cfg) or (cfg.do_refine and cfg.do_region_vote)
+    vdt = VOL_DTYPES[cfg.vol_dtype]
+    arms0, vols = [], []
+    for left, right in zip(lefts, rights):
+        arms = arms_ops.build_arms(left, cfg) if need_arms else None
+        arms0.append(arms)
+        vols.append(cost_ops.compute_cost_volume(left, right, to_gray(left), to_gray(right),
+                                                 cfg, 0, arms=arms).to(vdt))
+    forest = mst.build_tree_batch(lefts, cfg.nl_neighbors)
+    avols = nl_ops.nl_aggregate_batch(torch.stack(vols), forest, cfg.nl_sigma,
+                                      compute_dtype=cfg.nl_filter_dtype)
+    del vols
+    outs = []
+    for vol, left, right, arms in zip(avols, lefts, rights, arms0):
+        dl, dr, vol0 = optimize({0: vol}, left, right, cfg)
+        out = {"disp_left_raw": dl}
+        if dr is not None:
+            out["disp_right_raw"] = dr
+        d = refine(dl, dr, vol0, left, arms, cfg) if cfg.do_refine else dl
+        out["disparity"] = apply_sub_ipol(d, dl, vol0, cfg).to(torch.float32)
+        outs.append(out)
+    return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
+
+
 class StereoPipeline:
     """The pipeline bound to one configuration and one device.
 
     It runs on the card (``device="cuda"``) unless the caller asks for
     ``device="cpu"``, and raises when CUDA is not available; inputs (numpy
     arrays or tensors) are moved to the device. With NL or GFNL aggregation
-    each call first builds the frame's trees on the host (:func:`nl_trees`)
-    and keeps that build's host-clock ms in ``tree_ms``.
+    each call first builds the frame's trees (:func:`nl_trees`: on the
+    device, or on the host with ``nl_tree_host``) and keeps that build's
+    ms in ``tree_ms``, between two ``torch.cuda.synchronize()`` on the card.
     """
 
     def __init__(self, cfg: MatchConfig, device="cuda"):
@@ -466,6 +517,10 @@ class StereoPipeline:
             raise ValueError(f"StereoPipeline: unsupported device {self.device}")
         self.tree_ms = None
 
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def _tensor(self, img) -> torch.Tensor:
         if isinstance(img, np.ndarray):
             img = torch.from_numpy(np.ascontiguousarray(img))
@@ -475,7 +530,9 @@ class StereoPipeline:
         left, right = self._tensor(left), self._tensor(right)
         trees = None
         if self.cfg.aggregation in TREE_AGGREGATIONS:
+            self._sync()
             t0 = time.perf_counter()
             trees = nl_trees(left, right, self.cfg)
+            self._sync()
             self.tree_ms = (time.perf_counter() - t0) * 1e3
         return match_pair(left, right, self.cfg, trees)

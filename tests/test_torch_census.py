@@ -178,11 +178,14 @@ def test_presets_are_supported_with_their_kernels():
     assert kernels_launched(cfg) == ["arms_grow", "wta", "region_vote", "pi_scan"]
 
 
-@pytest.mark.parametrize("bad", [dict(aggregation="nl"), dict(cost="census_from2"),
-                                 dict(cost="qx_census"), dict(cost="ad_census_grad")])
+@pytest.mark.parametrize("bad", [dict(aggregation="nl", d_stream_block=4),
+                                 dict(cost="census_from2"), dict(cost="qx_census"),
+                                 dict(cost="ad_census_grad")])
 def test_census_refusals(bad):
-    """NL aggregation of the census costs, and costs with no block form
-    under aggregation "none", are refused."""
+    """NL aggregation of a census cost streamed over disparity blocks (the
+    JAX package has no streamed NL either; unstreamed, NL over the census
+    costs runs: tests/test_torch_nl.py::test_nl_accepts), and costs with no
+    block form under aggregation "none", are refused."""
     with pytest.raises(NotImplementedError):
         check_supported(get_model("census_wta").replace(**bad))
 

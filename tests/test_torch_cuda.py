@@ -847,14 +847,55 @@ def test_tree_filter_on_cuda_repeats_and_equals_cpu(cuda, neighbors):
     from mystereomatching_tpu_torch.ops import mst, nl
 
     pair = make_synthetic_pair(h=96, w=128, max_disp=15, seed=4)
-    tree_cpu = mst.build_tree(pair.left, neighbors=neighbors)
-    tree = mst.build_tree(pair.left, neighbors=neighbors, device=cuda)
+    tree_cpu = mst.build_tree_host(pair.left, neighbors=neighbors)
+    tree = mst.build_tree_host(pair.left, neighbors=neighbors, device=cuda)
     vol = torch.rand((16, 96, 128), generator=torch.Generator().manual_seed(1)) * 30
     for normalize in (False, True):
         a = nl.filter_volume(tree, vol.to(cuda), 0.1, normalize)
         b = nl.filter_volume(tree, vol.to(cuda), 0.1, normalize)
         assert torch.equal(a, b)
         assert torch.equal(a.cpu(), nl.filter_volume(tree_cpu, vol, 0.1, normalize))
+
+
+@pytest.mark.parametrize("neighbors", [4, 8])
+def test_device_tree_on_cuda_equals_host_tree(cuda, neighbors):
+    """The device build on the card: the host build's tree, field by field."""
+    from mystereomatching_tpu_torch.ops import mst
+
+    pair = make_synthetic_pair(h=96, w=128, max_disp=15, seed=4)
+    host = mst.build_tree_host(pair.left, neighbors)
+    tree = mst.build_tree(torch.from_numpy(pair.left).to(cuda), neighbors)
+    assert tree.parent.is_cuda and tree.child_idx.is_cuda
+    for field in ("parent", "weight", "order", "pos", "parent_pos", "child_idx"):
+        assert torch.equal(getattr(tree, field).cpu(), getattr(host, field)), field
+    assert (tree.starts, tree.child_off, tree.child_k) == (host.starts, host.child_off,
+                                                           host.child_k)
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+def test_nl_aggregate_batch_on_cuda_equals_cpu(cuda, dtype):
+    """The forest build and filter on the card give the CPU's bits, in
+    float32 and in the bfloat16 mode (136x128 frames, past its threshold)."""
+    from mystereomatching_tpu_torch.ops import mst, nl
+
+    lefts = torch.from_numpy(np.stack([make_synthetic_pair(h=136, w=128, max_disp=7, seed=s).left
+                                       for s in range(2)])).float()
+    vols = torch.rand((2, 4, 136, 128), generator=torch.Generator().manual_seed(2)) * 30
+    want = nl.nl_aggregate_batch(vols, mst.build_tree_batch(lefts), 0.1, dtype)
+    got = nl.nl_aggregate_batch(vols.to(cuda), mst.build_tree_batch(lefts.to(cuda)), 0.1, dtype)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_match_pair_nl_batch_on_cuda_equals_cpu(cuda):
+    pairs = [make_synthetic_pair(h=64, w=96, max_disp=15, seed=s) for s in range(3)]
+    lefts, rights = (torch.from_numpy(np.stack([getattr(p, side) for p in pairs])).float()
+                     for side in ("left", "right"))
+    cfg = get_model("nl_tree_filter", max_disp=15)
+    gpu = port.match_pair_nl_batch(lefts.to(cuda), rights.to(cuda), cfg)
+    cpu = port.match_pair_nl_batch(lefts, rights, cfg)
+    assert set(gpu) == set(cpu)
+    for key in cpu:
+        assert torch.equal(gpu[key].cpu(), cpu[key]), key
 
 
 @pytest.mark.parametrize("preset", ["nl_tree_filter", "nl_8nr", "nl_post", "nl_census_post"])

@@ -2,8 +2,9 @@
 the CPU.
 
 Exact: the host trees (the port's own runtime against the JAX package's:
-parent, weight and BFS order), the cost volumes ``ad``, ``ad_grad``,
-``qx_ad_grad`` and ``qx_census`` and the 80-bit census code, the flipped
+parent, weight and BFS order) and the device-built ones against them, the
+cost volumes ``ad``, ``ad_grad``, ``qx_ad_grad`` and ``qx_census`` and the
+80-bit census code, the flipped
 volume and the occlusion mask. Within a stated tolerance: the tree filter,
 which sums in another association than the JAX filter's (level by level
 against pointer doubling) and in float32 against the native float64
@@ -82,18 +83,20 @@ def jax_tree(pair):
 
 @pytest.mark.parametrize("neighbors", [4, 8])
 def test_trees_equal_the_jax_host_build(neighbors):
+    """Both of the port's builders, the host one and the device one."""
     img = _scene("small_scale").left
     img8 = np.asarray(np.clip(np.round(img), 0, 255), np.uint8)
     for ours, ref in zip(native.mst_grid(native.median3x3(img8), neighbors),
                          jax_native.mst_grid(jax_native.median3x3(img8), neighbors)):
         np.testing.assert_array_equal(ours, ref)
-    tree = mst.build_tree(torch.from_numpy(img), neighbors=neighbors)
     ref = jax_nl.build_tree_host(img, neighbors=neighbors)
-    np.testing.assert_array_equal(tree.parent.numpy(), np.asarray(ref.parent))
-    np.testing.assert_array_equal(tree.weight.numpy(), np.asarray(ref.weight))
     _, _, order = jax_native.mst_grid(jax_native.median3x3(img8), neighbors)
-    np.testing.assert_array_equal(tree.order.numpy(), order)
-    assert tree.shape == img.shape[:2]
+    for build in (mst.build_tree_host, mst.build_tree):
+        tree = build(torch.from_numpy(img), neighbors)
+        np.testing.assert_array_equal(tree.parent.numpy(), np.asarray(ref.parent))
+        np.testing.assert_array_equal(tree.weight.numpy(), np.asarray(ref.weight))
+        np.testing.assert_array_equal(tree.order.numpy(), order)
+        assert tree.shape == img.shape[:2]
 
 
 def test_tree_layout_is_level_by_level():
@@ -286,14 +289,51 @@ def test_nl_presets_are_supported():
     assert kernels_launched(get_model("nl_census_post")) == ["wta"]
 
 
-@pytest.mark.parametrize("bad", [dict(nl_filter_dtype="bfloat16"), dict(vol_dtype="bfloat16"),
-                                 dict(d_stream_block=4), dict(aggregation="gfnl", nl_neighbors=8),
-                                 dict(cost="qx_ad_grad", compute_both_volumes=True),
-                                 dict(cost="census")])
+@pytest.mark.parametrize("bad", [dict(d_stream_block=4), dict(d_stream_block=4, cost="census"),
+                                 dict(d_stream_block=4, vol_dtype="bfloat16"),
+                                 dict(aggregation="gfnl", nl_neighbors=8),
+                                 dict(aggregation="gfnl", nl_neighbors=8,
+                                      nl_filter_dtype="bfloat16"),
+                                 dict(cost="qx_ad_grad", compute_both_volumes=True)])
 def test_nl_refusals(bad):
+    """What the JAX package refuses too: NL streamed over disparity blocks
+    (JAX pipeline.py:160-162), GFNL on an 8-neighbour tree; and the qx
+    cost's right volume. The bfloat16 filter, bfloat16 volumes and the
+    census cost, once cases here, run (:func:`test_nl_accepts`)."""
     cfg = get_model("nl_tree_filter", max_disp=7).replace(**bad)
     with pytest.raises(NotImplementedError):
         check_supported(cfg)
+
+
+@pytest.mark.parametrize("good", [dict(nl_filter_dtype="bfloat16"), dict(vol_dtype="bfloat16"),
+                                  dict(cost="census"), dict(cost="ad_census"), dict(cost="zncc"),
+                                  dict(cost="trunc_ad"), dict(cost="bt"),
+                                  dict(cost="trunc_ad", vol_dtype="bfloat16",
+                                       nl_filter_dtype="bfloat16")])
+def test_nl_accepts(good):
+    cfg = get_model("nl_tree_filter", max_disp=7).replace(**good)
+    check_supported(cfg)
+    p = make_synthetic_pair(h=12, w=20, max_disp=7, seed=1)
+    out = match_pair(torch.from_numpy(p.left), torch.from_numpy(p.right), cfg)
+    assert tuple(out["disparity"].shape) == (12, 20)
+
+
+@pytest.mark.parametrize("neighbors", [4, 8])
+def test_nl_refuses_a_frame_past_the_key_limit(neighbors):
+    """The JAX device build keys an edge by weight << max(20, bit_length(E))
+    | index in an int32 and raises past 2^22 edges (mst.py:736-739): so
+    does the port's, before it builds anything."""
+    # the widest grid under the limit: E = W - 1 on one row; 5 W - 4 on two rows of 8 neighbours
+    h, w = (1, 1 << 22) if neighbors == 4 else (2, 838861)
+    mst.check_key_limit(h, w, neighbors)
+    with pytest.raises(ValueError, match="key limit"):
+        mst.check_key_limit(h, w + 1, neighbors)
+    big = torch.zeros((1500, 1400, 3), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="key limit"):
+        mst.build_tree(big, neighbors)
+    with pytest.raises(ValueError, match="key limit"):
+        StereoPipeline(get_model("nl_tree_filter", nl_neighbors=neighbors), device="cpu")(
+            big, big)
 
 
 @pytest.mark.parametrize("name", NL_PRESETS)

@@ -52,6 +52,8 @@ MODULES = [
     "mystereomatching_tpu_torch.ops.fif",
     "mystereomatching_tpu_torch.ops.guided",
     "mystereomatching_tpu_torch.ops.median",
+    "mystereomatching_tpu_torch.ops.mst",
+    "mystereomatching_tpu_torch.ops.nl",
     "mystereomatching_tpu_torch.ops.refine",
     "mystereomatching_tpu_torch.ops.sgm",
     "mystereomatching_tpu_torch.ops.so",
@@ -150,7 +152,8 @@ PORTED_FROM_THIS_LIST = [dict(do_refine=True, lrc_classify=True),
                          dict(cost="bt"), dict(optimization="so"), dict(cost="trunc_ad"),
                          dict(cost="trunc_ad", aggregation="bf"), dict(aggregation="aws"),
                          dict(aggregation="fif"), dict(aggregation="gfnl"),
-                         dict(cost="bt", aggregation="gf")]
+                         dict(cost="bt", aggregation="gf"),
+                         dict(cost="zncc", aggregation="nl"), dict(cost="bt", aggregation="nl")]
 
 
 @pytest.mark.parametrize("overrides", [
@@ -200,7 +203,9 @@ def test_unported_stage_raises(overrides):
     ``cbca_combine=1``, streaming, bfloat16, ZNCC under CBCA, NL or no
     aggregation). So do the BT and truncated-AD costs, SO, AWS, FIF and
     GFNL: their cases run, and the list gains what they cannot run with
-    (streaming, bfloat16, GFNL on an 8-neighbour tree, BT under NL)."""
+    (streaming, bfloat16, GFNL on an 8-neighbour tree, BT under NL). NL
+    over every cost runs too (ROADMAP §1 item 4): ZNCC and BT under NL are
+    accepted, and a frame must run."""
     cfg = port.default_config(max_disp=7, **{"do_refine": False, **overrides})
 
     def run():
