@@ -204,12 +204,33 @@ Phases, each of which raises (exit code 1) on failure:
    Then kernel B's four launch kinds of a CBCA pass on cbca_double's left
    raw volume at its large window (max_arm 23) and its small one (34),
    each against its plain version, in turns, and their ratio;
-16. timing: ms/frame and MP*disp/s of the kernel path and of the same
+16. costs, arm modes and the pyramid (ROADMAP §1 item 5): the default
+   preset on ``make_synthetic_pair(seed=0)`` at 375x450, D=60, as it is
+   and with each of the costs ``ad``, ``sd``, ``grad`` (two directions, arm-adaptive),
+   ``grad`` in one direction normalised, ``ssd``, ``census_from2`` (both
+   blends), ``ad_census_grad`` and ``ad_census_zncc``, with
+   ``cbca_arm_mode`` ``multilevel`` and ``adaptive``, with
+   ``pyramid_levels`` 2 and 3, and ``ad_census_grad`` streamed in blocks
+   of 15 disparities (16 does not divide 60), each with the launch counts
+   set to 0 just before its frame: exactly the kernels of
+   ``kernels_launched``, each as many times a frame as ``ITEM5_FRAMES``
+   says (A and B once a pyramid level, B once a streamed block), the maps
+   equal to the card's plain path's (0 px), the streamed frame's to the
+   dense frame's, and on the top-left 96x128 crop (the card running the
+   crop too) the pixels differing from the CPU port's printed, 0 required
+   where ``ITEM5`` says so (the costs without an ``exp``, and the arm
+   modes and the pyramid on censusGrad); the median ms/frame of 3 frames
+   and the peak device memory above what was held before the frame. Then
+   kernel A on the Teddy image and on a blocky 1988x2880 one under the
+   two-level, multilevel and adaptive schedules, each against its plain
+   version with its bound (bytes at 3.35 TB/s and at ``COPY_BYTES_PER_S``)
+   and the steps its walk takes;
+17. timing: ms/frame and MP*disp/s of the kernel path and of the same
    pipeline with every kernel replaced by its plain torch version, for the
    full default configuration and for ``do_refine=False``, in alternating
    rounds; the refine chain alone, kernel and plain; and the peak device
    memory of a frame;
-17. profile: ``torch.profiler`` over frames of the full default
+18. profile: ``torch.profiler`` over frames of the full default
    configuration: device time, idle share, launches per frame, the largest
    device kernels and each hand kernel's device time a launch; ``region_vote``
    must launch twice a frame and ``arm_reduce`` never, and the frame must make
@@ -244,7 +265,10 @@ same values as ``kernel_c_ms``; the taps probes ``taps_probe_*`` at the
 scripts' first listed parameters (the others are printed only), on no
 path, with the main path's launches, which must be 0, as must the census
 frame's, kernel B's time on the same values as ``kernel_b_ms`` and the
-largest difference to it as ``kernel_b_max_diff``; ``ms_from`` says
+largest difference to it as ``kernel_b_max_diff``; the rows
+``arms_grow_multilevel`` and ``arms_grow_adaptive`` of kernel A on the
+Teddy image under those schedules, with the launches of that arm mode's
+frame and the bound at ``COPY_BYTES_PER_S`` as ``bound_copy_ms``; ``ms_from`` says
 whether ``ms`` came from the profiler or from CUDA events); the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -847,13 +871,12 @@ def fullres_inputs(dev) -> dict:
 
 
 def arms_grow_case(img, arms, cfg):
-    """Kernel A on an [H, W, 3] float32 image whose arms are ``arms``, as
-    (kernel, plain, bytes, operations): the image read and the arms written
-    once; 18 operations a step walked (each arm's steps plus its failing
-    one, within the image and the schedule)."""
-    sched = [float(cfg.cbca_c_thresh if k <= cfg.cbca_cross_l else cfg.cbca_c_thresh_out)
-             for k in range(1, cfg.cbca_cross_l_out + 1)]
-    neigh, min_arm = float(cfg.cbca_c_thresh), cfg.cbca_min_arm
+    """Kernel A on an [H, W, 3] float32 image whose arms are ``arms``, under
+    ``cfg``'s arm schedule, as (kernel, plain, bytes, operations): the image
+    read and the arms written once; 18 operations a step walked (each arm's
+    steps plus its failing one, within the image and the schedule)."""
+    sched, neigh = arms_ops.arm_schedule(cfg)
+    min_arm = cfg.cbca_min_arm
     room = [torch.minimum(arms_ops.border_floor(*img.shape[:2], dv, du, 1 << 20, img.device),
                           torch.tensor(len(sched), device=img.device))
             for dv, du in arms_ops.DIRECTIONS]
@@ -2479,18 +2502,19 @@ def row_bands_disp(dev, card_line: str) -> None:
         raise AssertionError(f"{label}: the measured frames' map differs from run_row_bands'")
 
 
-def preset_frame(name: str, left, right, dev, card_line: str) -> dict:
-    """One frame of preset ``name`` at Teddy size with the launch counts set
-    to 0 just before it: exactly the kernels of ``kernels_launched``, each
-    as many times as ``PRESET_FRAMES`` says; its maps equal to the plain
-    path's on the card (and, for ``PRESETS_ON_CPU``, the pixels differing
-    from the CPU port's maps printed, and required to be none where it says
-    so, with the CPU frame's host seconds); the median ms of ``PRESET_REPS`` frames on
-    both paths, and the kernel path's peak device memory above what was
-    held before the frame (earlier phases leave tensors alive). Returns its
-    launches."""
-    cfg = get_model(name, max_disp=TEDDY["max_disp"])
-    label = f"{name} {TEDDY['h']}x{TEDDY['w']} D={cfg.num_disp}"
+def checked_frame(label: str, cfg, want: dict, left, right, dev, card_line: str,
+                  on_cpu=None, crop=None, time_plain: bool = True):
+    """One frame of ``cfg`` with the launch counts set to 0 just before it:
+    exactly the kernels of ``kernels_launched``, each as many times as
+    ``want`` says; its maps finite, of the frame's shape, and equal to the
+    plain path's on the card; with ``on_cpu`` not None the pixels differing
+    from the CPU port's maps printed (on the top-left ``crop``, the card
+    running the crop too, where given), and required to be none where
+    ``on_cpu`` is true, with the CPU frame's host seconds; the median ms of
+    ``PRESET_REPS`` frames on the kernel path (and the plain path with
+    ``time_plain``), and the kernel path's peak device memory above what was
+    held before the frame (earlier phases leave tensors alive). Returns (its
+    launches, its maps)."""
     pipe = StereoPipeline(cfg, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2500,19 +2524,17 @@ def preset_frame(name: str, left, right, dev, card_line: str) -> dict:
     torch.cuda.synchronize()
     counts = {k: n for k, n in ck.launches.items() if n}
     peak = torch.cuda.max_memory_allocated(dev) - held
-    if list(counts) != kernels_launched(cfg) or counts != PRESET_FRAMES[name]:
-        raise AssertionError(f"{label}: launched {counts}, not {PRESET_FRAMES[name]} "
+    if list(counts) != kernels_launched(cfg) or counts != want:
+        raise AssertionError(f"{label}: launched {counts}, not {want} "
                              f"(kernels_launched {kernels_launched(cfg)})")
-    shape = (TEDDY["h"], TEDDY["w"])
     for key, d in out.items():
         want_dtype = torch.float32 if key == "disparity" else torch.int32
-        if d.shape != shape or d.dtype != want_dtype or not bool(torch.isfinite(d).all()):
+        if d.shape != left.shape[:2] or d.dtype != want_dtype or not bool(torch.isfinite(d).all()):
             raise AssertionError(f"{label} {key}: {d.dtype}{tuple(d.shape)}, or not finite")
     with plain_path():
         equal_maps(label, out, pipe(left, right), "the plain path on the card")
     cpu = ""
-    if name in PRESETS_ON_CPU:
-        crop = CPU_CROPS.get(name)
+    if on_cpu is not None:
         l_cpu, r_cpu, got = left.cpu(), right.cpu(), out
         if crop:
             l_cpu, r_cpu = l_cpu[:crop[0], :crop[1]], r_cpu[:crop[0], :crop[1]]
@@ -2522,20 +2544,31 @@ def preset_frame(name: str, left, right, dev, card_line: str) -> dict:
         off = {k: int((got[k].cpu() != ref[k]).sum()) for k in ref}
         where = f" on the top-left {crop[0]}x{crop[1]} crop" if crop else ""
         cpu = (f"; pixels differing from the CPU port{where} {json.dumps(off)}"
-               f"{' (0 required)' if PRESETS_ON_CPU[name] else ''}, its frame "
+               f"{' (0 required)' if on_cpu else ''}, its frame "
                f"{time.perf_counter() - t0:.1f} s on the host")
-        if PRESETS_ON_CPU[name] and any(off.values()):
+        if on_cpu and any(off.values()):
             raise AssertionError(f"{label}: the card's maps differ from the CPU port's: {off}")
     times = {}
-    for path, ctx in (("kernel", contextlib.nullcontext), ("plain", plain_path)):
+    for path, ctx in (("kernel", contextlib.nullcontext), ("plain", plain_path))[:1 + time_plain]:
         with ctx():
             times[path] = frame_ms(pipe, left, right, PRESET_REPS, warm_up=False)[1]
-    print(f"preset {label}: launches a frame {json.dumps(counts)} (exactly kernels_launched); "
+    print(f"{label}: launches a frame {json.dumps(counts)} (exactly kernels_launched); "
           f"maps equal to the plain path on the card{cpu}; median of {PRESET_REPS} frames: "
-          f"kernel path {times['kernel']:.3f} ms/frame, plain path {times['plain']:.3f} "
-          f"ms/frame; peak device memory {peak / 2**20:.1f} MiB above the "
-          f"{held / 2**20:.1f} MiB held before the frame [{card_line}]")
-    return counts
+          + ", ".join(f"{path} path {ms:.3f} ms/frame" for path, ms in times.items())
+          + f"; peak device memory {peak / 2**20:.1f} MiB above the {held / 2**20:.1f} MiB "
+          f"held before the frame [{card_line}]")
+    return counts, out
+
+
+def preset_frame(name: str, left, right, dev, card_line: str) -> dict:
+    """One frame of preset ``name`` at Teddy size (:func:`checked_frame`):
+    its launches ``PRESET_FRAMES[name]``, held against the CPU port where
+    ``PRESETS_ON_CPU`` says, on the crop of ``CPU_CROPS``. Returns its
+    launches."""
+    cfg = get_model(name, max_disp=TEDDY["max_disp"])
+    return checked_frame(f"preset {name} {TEDDY['h']}x{TEDDY['w']} D={cfg.num_disp}", cfg,
+                         PRESET_FRAMES[name], left, right, dev, card_line,
+                         on_cpu=PRESETS_ON_CPU.get(name), crop=CPU_CROPS.get(name))[0]
 
 
 def window1_arm_taps(left, right, card_line: str) -> None:
@@ -2600,6 +2633,99 @@ def phase_presets(dev, card_line: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ROADMAP §1 item 5 on the default preset at Teddy size, the default frame
+# first for its times and memory in the same run: frame -> (overrides,
+# whether the card's maps on the CPU crop must equal the CPU port's: those
+# without an exp, and the arm modes and the pyramid on censusGrad, whose
+# only exp is the default's; the others' count of differing pixels is
+# printed)
+ITEM5 = {
+    "default": (dict(), True),
+    "ad": (dict(cost="ad"), True),
+    "sd": (dict(cost="sd"), True),
+    "grad": (dict(cost="grad"), True),
+    "grad_1dir_norm": (dict(cost="grad", grad_use_2dir=False, is_grad_norm=True), True),
+    "ssd": (dict(cost="ssd"), True),
+    "census_from2": (dict(cost="census_from2"), False),
+    "census_from2_first": (dict(cost="census_from2", census_from2_blend="first"), False),
+    "ad_census_grad": (dict(cost="ad_census_grad"), False),
+    "ad_census_zncc": (dict(cost="ad_census_zncc"), False),
+    "multilevel": (dict(cbca_arm_mode="multilevel"), True),
+    "adaptive": (dict(cbca_arm_mode="adaptive"), True),
+    "pyramid2": (dict(pyramid_levels=2), True),
+    "pyramid3": (dict(pyramid_levels=3), True),
+    # 15 divides D=60 (16 does not): four blocks
+    "ad_census_grad_streamed": (dict(cost="ad_census_grad", d_stream_block=15), False),
+}
+# each frame's launches: the default frame's, with A and B once a pyramid
+# level and B once a streamed block
+ITEM5_FRAMES = {name: dict(DEFAULT_FRAME) for name in ITEM5}
+for _levels in (2, 3):
+    ITEM5_FRAMES[f"pyramid{_levels}"].update(arms_grow=2 * _levels, arm_taps=8 * _levels)
+ITEM5_FRAMES["ad_census_grad_streamed"]["arm_taps"] = 8 * 4
+ITEM5_CROP = (96, 128)
+ARM_MODES = ("two_level", "multilevel", "adaptive")
+
+
+def item5_frame(name: str, left, right, dev, card_line: str):
+    """One frame of ``ITEM5[name]`` (:func:`checked_frame`, the kernel path
+    timed), held against the CPU port on the ``ITEM5_CROP`` crop. Returns
+    (its launches, its maps)."""
+    overrides, exact_on_cpu = ITEM5[name]
+    cfg = get_model("census_grad_cbca_sgm", max_disp=TEDDY["max_disp"], **overrides)
+    return checked_frame(f"item 5 {name} {TEDDY['h']}x{TEDDY['w']} D={cfg.num_disp}", cfg,
+                         ITEM5_FRAMES[name], left, right, dev, card_line, on_cpu=exact_on_cpu,
+                         crop=ITEM5_CROP, time_plain=False)
+
+
+def arm_mode_rows(left, card_line: str) -> dict:
+    """Kernel A under each schedule of ``ARM_MODES`` on the Teddy image and
+    on a blocky 1988x2880 one (24-px flat blocks: long arms), against its
+    plain version, with the steps its walk takes and its bound at
+    ``COPY_BYTES_PER_S`` too; returns the Teddy rows of the new schedules."""
+    from tools.sgm_layouts import COPY_BYTES_PER_S
+
+    images = {"teddy": (f"one {TEDDY['h']}x{TEDDY['w']} image", left),
+              "blocky": ("one blocky 1988x2880 image",
+                         torch.from_numpy(fullres_image(np.random.default_rng(1))).to(left.device))}
+    rows = {}
+    for where, (what, img) in images.items():
+        for mode in ARM_MODES:
+            cfg = default_config(cbca_arm_mode=mode)
+            arms = arms_ops.build_arms(img, cfg)
+            case = arms_grow_case(img, arms, cfg)
+            row = run_case("arms_grow", f"{what}, {mode} schedule ({cfg.arm_l_out} steps; mean "
+                           f"arm {float(arms.float().mean()):.3f}, {case[3] // 18:,} steps "
+                           "walked)", case, card_line)
+            row["bound_copy_ms"] = case[2] / COPY_BYTES_PER_S * 1e3
+            print(f"  bound at COPY_BYTES_PER_S {COPY_BYTES_PER_S / 1e12:.4f} TB/s: "
+                  f"{row['bound_copy_ms']:.4f} ms, {row['bound_copy_ms'] / row['ms']:.3f} of it")
+            if where == "teddy" and mode != "two_level":
+                rows[f"arms_grow_{mode}"] = row
+    return rows
+
+
+def phase_item5(dev, card_line: str):
+    """ROADMAP §1 item 5 (see the module's docstring, phase 16): each
+    ``ITEM5`` frame (:func:`item5_frame`), the streamed frame's maps equal
+    to the dense one's, then kernel A's schedules (:func:`arm_mode_rows`).
+    Returns (A's rows, each arm mode's frame launches)."""
+    pair = make_synthetic_pair(**TEDDY)
+    left = torch.from_numpy(pair.left).to(dev, torch.float32)
+    right = torch.from_numpy(pair.right).to(dev, torch.float32)
+    counts, maps = {}, {}
+    for name in ITEM5:
+        counts[name], maps[name] = item5_frame(name, left, right, dev, card_line)
+    equal_maps("ad_census_grad streamed in blocks of 15", maps["ad_census_grad_streamed"],
+               maps["ad_census_grad"], "its dense frame")
+    print("item 5: ad_census_grad streamed in blocks of 15 equals its dense frame")
+    del maps
+    rows = arm_mode_rows(left, card_line)
+    torch.cuda.empty_cache()
+    return rows, {f"arms_grow_{mode}": counts[mode]["arms_grow"]
+                  for mode in ARM_MODES if mode != "two_level"}
+
+
 def timed(phase, *args):
     t0 = time.perf_counter()
     result = phase(*args)
@@ -2631,6 +2757,7 @@ def main() -> int:
     layout_rows = timed(phase_sgm_layouts, dev, card_line, build_log)
     taps_rows = timed(phase_taps_probes, dev, card_line, build_log)
     timed(phase_presets, dev, card_line)
+    arm_rows, arm_counts = timed(phase_item5, dev, card_line)
     timed(phase_timing, dev, card_line)
     timed(phase_profile, dev, card_line)
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
@@ -2692,6 +2819,11 @@ def main() -> int:
             raise AssertionError(f"{entry} launched on the main path or the census frame")
         kernels.append(dict(name=name, route="cuda", source=TAPS_PROBES, replaces=tpu,
                             launches=counts[entry], **taps_rows[name]))
+    # kernel A on the multilevel and adaptive schedules, with the launches of
+    # that arm mode's Teddy frame
+    kernels += [dict(name=row, route="cuda", source=KERNELS["arms_grow"][0],
+                     replaces=KERNELS["arms_grow"][1], launches=arm_counts[row], **arm_rows[row])
+                for row in arm_rows]
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -86,6 +86,16 @@ constexpr int ring_depth =
         ? kMaxSmem / (4 * stage_words<T, kMasked>(32 * kSlots, kBox))
         : kMaxRing;
 
+// min(a, b), NaN when either is NaN: torch.minimum's and amin's rule (and
+// jnp.minimum's), which the plain versions follow. fminf would return the
+// other operand, so a NaN cost (ZNCC's, where rounding makes a window's
+// variance negative) would stop at the kernel and run on in the plain path.
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // The cost in box slot i: the float itself, or in bfloat16 the half of the
 // staged word that holds it (the upper one when its element index is odd).
 template <typename T>
@@ -123,10 +133,10 @@ __device__ __forceinline__ void sgm_steps(float* box, const float* scale, const 
     float min_l = kBig;
 #pragma unroll
     for (int k = 0; k < kSlots; ++k) {
-      if (k * 32 + lane < nd) min_l = fminf(min_l, prev[k]);
+      if (k * 32 + lane < nd) min_l = fmin_nan(min_l, prev[k]);
     }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) min_l = fminf(min_l, __shfl_xor_sync(kFullMask, min_l, o));
+    for (int o = 16; o > 0; o >>= 1) min_l = fmin_nan(min_l, __shfl_xor_sync(kFullMask, min_l, o));
     const float p1s = round_to<T>(__fmul_rn(p1, s));
     const float jump = round_to<T>(__fadd_rn(min_l, round_to<T>(__fmul_rn(p2, s))));
     const float m = kMasked ? mask[idx] : 1.0f;
@@ -147,7 +157,7 @@ __device__ __forceinline__ void sgm_steps(float* box, const float* scale, const 
       cur[k] = 0.0f;
       if (d < nd) {
         const float best =
-            fminf(fminf(prev[k], jump), round_to<T>(__fadd_rn(fminf(up, dn), p1s)));
+            fmin_nan(fmin_nan(prev[k], jump), round_to<T>(__fadd_rn(fmin_nan(up, dn), p1s)));
         cur[k] = round_to<T>(__fsub_rn(round_to<T>(__fadd_rn(c[k], best)), min_l));
         if constexpr (kMasked) cur[k] = round_to<T>(__fmul_rn(cur[k], m));
         box[d * kPitch + idx] = cur[k];

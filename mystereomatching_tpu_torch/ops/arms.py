@@ -1,7 +1,9 @@
 """Cross-based support arms and arm-bounded 1-D sums.
 
-Counterpart of ``mystereomatching_tpu/ops/arms.py``: ``cross_arms`` /
-``build_arms`` in ``two_level`` mode, ``_border_floor``, ``intersect_arms``
+Counterpart of ``mystereomatching_tpu/ops/arms.py``: ``cross_arms``,
+``cross_arms_multilevel``, ``cross_arms_adaptive`` and ``build_arms`` (the
+three ``cbca_arm_mode`` schedules, grown along the four axis directions;
+the tilted arms are not ported), ``_border_floor``, ``intersect_arms``
 and its disparity-block form ``intersect_arms_block``,
 the arm-bounded sums CBCA runs and the integer arm-bounded reductions
 (region vote's plain version runs them). Arm growth is CUDA kernel A
@@ -86,20 +88,77 @@ def grow_arms(img: torch.Tensor, sched: Sequence[float], neigh_thresh: float,
     return grow_arms_plain(img, sched, neigh_thresh, min_arm)
 
 
+def two_level_schedule(l_in: int = 17, l_out: int = 34, c_in: int = 20,
+                       c_out: int = 6) -> list:
+    """The anchor thresholds of calHorVerDis (cpp:2959): c_in up to l_in,
+    c_out beyond, to l_out steps."""
+    return [float(c_in if k <= l_in else c_out) for k in range(1, l_out + 1)]
+
+
+def multilevel_schedule(levels_l=(17, 23, 34), levels_t=(20, 30, 30)) -> list:
+    """The anchor thresholds of the vector overload of calHorVerDis
+    (cpp:3152-3253): threshold levels_t[n] while the step is at most
+    levels_l[n], to levels_l[-1] steps."""
+    sched = []
+    for k in range(1, levels_l[-1] + 1):
+        for ll, tt in zip(levels_l, levels_t):
+            if k <= ll:
+                sched.append(float(tt))
+                break
+    return sched
+
+
+def adaptive_schedule(l_in: int = 17, l_out: int = 34, c_in: int = 20,
+                      c_out: int = 6) -> list:
+    """The anchor thresholds of calHorVerDis2 (cpp:3255-3349): within l_in
+    the threshold decays with the step k, int(c_in - c_in / l_in * k + 10)
+    (the C++ float expression truncated, cpp:3305), and is c_out beyond."""
+    return [float(int(c_in - c_in / l_in * k + 10) if k <= l_in else c_out)
+            for k in range(1, l_out + 1)]
+
+
 def cross_arms(img: torch.Tensor, l_in: int = 17, l_out: int = 34,
                c_in: int = 20, c_out: int = 6, min_arm: int = 1) -> torch.Tensor:
     """Two-level arms: anchor threshold c_in up to l_in, c_out beyond."""
-    sched = [float(c_in if k <= l_in else c_out) for k in range(1, l_out + 1)]
-    return grow_arms(img, sched, float(c_in), min_arm)
+    return grow_arms(img, two_level_schedule(l_in, l_out, c_in, c_out), float(c_in), min_arm)
+
+
+def cross_arms_multilevel(img: torch.Tensor, levels_l=(17, 23, 34), levels_t=(20, 30, 30),
+                          neigh_thresh: int = 20, min_arm: int = 1) -> torch.Tensor:
+    """Multilevel arms (:func:`multilevel_schedule`), the neighbour
+    threshold ``neigh_thresh`` (the vector overload hard-codes 20,
+    cpp:3209)."""
+    return grow_arms(img, multilevel_schedule(levels_l, levels_t), float(neigh_thresh),
+                     min_arm)
+
+
+def cross_arms_adaptive(img: torch.Tensor, l_in: int = 17, l_out: int = 34,
+                        c_in: int = 20, c_out: int = 6, min_arm: int = 1) -> torch.Tensor:
+    """Adaptive arms (:func:`adaptive_schedule`), the neighbour threshold
+    c_in."""
+    return grow_arms(img, adaptive_schedule(l_in, l_out, c_in, c_out), float(c_in), min_arm)
+
+
+def arm_schedule(cfg):
+    """(anchor schedule, neighbour threshold) of ``cfg.cbca_arm_mode``:
+    ``"two_level"`` (calHorVerDis cpp:2959), ``"multilevel"`` (cpp:3152)
+    or ``"adaptive"`` (calHorVerDis2 cpp:3255). The schedule's length is
+    the longest arm, ``cfg.arm_l_out``."""
+    if cfg.cbca_arm_mode == "multilevel":
+        return (multilevel_schedule(cfg.cbca_cross_ls, cfg.cbca_c_threshes),
+                float(cfg.cbca_ml_neigh_thresh))
+    args = (cfg.cbca_cross_l, cfg.cbca_cross_l_out, cfg.cbca_c_thresh, cfg.cbca_c_thresh_out)
+    if cfg.cbca_arm_mode == "adaptive":
+        return adaptive_schedule(*args), float(cfg.cbca_c_thresh)
+    return two_level_schedule(*args), float(cfg.cbca_c_thresh)
 
 
 def build_arms(img: torch.Tensor, cfg) -> torch.Tensor:
-    """The calArms family; only the default ``two_level`` mode is ported."""
-    if cfg.cbca_arm_mode != "two_level":
-        raise NotImplementedError(
-            f"cbca_arm_mode {cfg.cbca_arm_mode!r} is not ported yet")
-    return cross_arms(img, cfg.cbca_cross_l, cfg.cbca_cross_l_out,
-                      cfg.cbca_c_thresh, cfg.cbca_c_thresh_out, cfg.cbca_min_arm)
+    """The calArms family (cpp:5354-5472): the cross arms of ``img`` under
+    ``cfg.cbca_arm_mode``'s schedule (:func:`arm_schedule`), through
+    kernel A on the card."""
+    sched, neigh = arm_schedule(cfg)
+    return grow_arms(img, sched, neigh, cfg.cbca_min_arm)
 
 
 def intersect_arms(arms_l: torch.Tensor, arms_r: torch.Tensor, num_disp: int,

@@ -1,13 +1,14 @@
 """Matching cost (L1): the [D, H, W] cost volumes of the ported costs.
 
-Counterpart of the ``census``, ``census_grad``, ``ad_grad``,
-``ad_census``, ``zncc``, ``trunc_ad``, ``bt``, ``qx_ad_grad`` and
-``qx_census`` branches of ``mystereomatching_tpu/ops/cost.py``
-(``central_gradient``, ``grad_volume``, ``ad_volume``,
-``trunc_ad_volume``, ``_nei_max_min``, ``bt_volume``, ``exp_fuse2``,
-``fix_weight_fuse``, ``_box_sum``, ``zncc_volume``, ``_qx_gray``,
-``_qx_gradient``, ``qx_ad_grad_volume``, ``_census_code_fn``,
-``compute_cost_volume``, ``block_cost_builder``).
+Counterpart of every branch of ``mystereomatching_tpu/ops/cost.py``
+(``central_gradient``, ``grad_volume`` in each of its modes, ``ad_volume``
+with ``squared`` and ``normalize``, ``trunc_ad_volume``, ``_nei_max_min``,
+``bt_volume``, ``exp_fuse2``, ``exp_fuse3``, ``fix_weight_fuse``,
+``_box_sum``, ``zncc_volume``, ``ssd_volume``, ``census_from2_volume``
+(:func:`census_from2_builder`),
+``_qx_gray``, ``_qx_gradient``, ``qx_ad_grad_volume``,
+``_census_code_fn``, ``compute_cost_volume``, ``block_cost_builder`` and
+``grad_mag_phase_volume``).
 Images are float32 in [0, 255]; off-image entries take each cost's
 default. A division by a constant divides by a 0-dim tensor on the data's
 device (:func:`_div`): a CUDA tensor divided by a Python number is
@@ -18,11 +19,16 @@ of adds (:func:`cumsum_blocked`), never ``torch.cumsum``, whose order
 differs on the CPU and again on the card. The JAX package has no Pallas
 kernel here, so neither does this.
 
-Three helpers round as jitted XLA-CPU does, on every device:
+Four helpers round as jitted XLA-CPU does, on every device:
 :func:`fma32` (XLA contracts ``c + a * b`` into one fused multiply-add,
-also inside ``lax.scan`` bodies), :func:`exp32` (float32 ``exp`` taken in
-float64, subnormal results flushed to zero as XLA-CPU flushes them) and
-:func:`_sqrt`.
+also inside ``lax.scan`` bodies), :func:`mul_rec` (XLA divides by a
+constant through the product with its float32 reciprocal),
+:func:`exp32` (float32 ``exp`` taken in float64, subnormal results
+flushed to zero as XLA-CPU flushes them) and :func:`_sqrt`. The costs
+that came before them (``zncc``, ``exp_fuse2``, the adaptive gradient's
+blend, the normalised census) round as the JAX functions do op by op;
+the costs added with them (the normalised AD and one-direction gradient,
+``census_from2``, ``exp_fuse3``) round as the jitted pipeline does.
 """
 
 from __future__ import annotations
@@ -41,6 +47,13 @@ from mystereomatching_tpu_torch.ops.volume import shifted_stack, valid_mask
 def _div(x: torch.Tensor, c: float) -> torch.Tensor:
     """x / c rounded once, on every device (see the module's note)."""
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def mul_rec(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c as jitted XLA-CPU computes a division by a constant: the
+    product with the float32 reciprocal of float32(c), on every device."""
+    rec = np.float32(1.0) / np.float32(c)
+    return x * torch.full((), float(rec), dtype=x.dtype, device=x.device)
 
 
 CUMSUM_BLOCK = 16  # the block of XLA-CPU's rewrite of a cumulative sum
@@ -187,13 +200,19 @@ def exp32(x: torch.Tensor) -> torch.Tensor:
 
 
 def ad_volume(left: torch.Tensor, right: torch.Tensor, num_disp: int, lor: int,
-              trunc: float = 1e9, disps=None) -> torch.Tensor:
-    """Mean over the channels of |dI|, truncated at ``trunc`` (gen_ad_sd_vm
-    cpp:2468-2509). left/right: [H, W, C]. Off-image entries take ``trunc``."""
+              trunc: float = 1e9, squared: bool = False, normalize: bool = False,
+              disps=None) -> torch.Tensor:
+    """Mean over the channels of |dI| (dI^2 with ``squared``), truncated at
+    ``trunc`` (gen_ad_sd_vm cpp:2468-2509). left/right: [H, W, C].
+    Off-image entries take ``trunc``; with ``normalize`` the volume is
+    divided by ``trunc`` (as the jitted JAX function divides: by the
+    reciprocal, :func:`mul_rec`) and off-image entries take 1."""
     lc = left.to(torch.float32).permute(2, 0, 1)
     rc = right.to(torch.float32).permute(2, 0, 1)
     ref, oth = (lc, rc) if lor == 0 else (rc, lc)
     diff = torch.abs(ref[None] - shifted_stack(oth, num_disp, lor, disps))  # [D, C, H, W]
+    if squared:
+        diff = diff * diff
     total = diff[:, 0]
     for c in range(1, diff.shape[1]):
         total = total + diff[:, c]
@@ -201,6 +220,8 @@ def ad_volume(left: torch.Tensor, right: torch.Tensor, num_disp: int, lor: int,
     # constant count into a product with the count's float32 reciprocal
     vol = torch.clamp(total * (1.0 / diff.shape[1]), max=trunc)
     valid = valid_mask(left.shape[1], num_disp, lor, vol.device, disps)
+    if normalize:
+        return torch.where(valid, mul_rec(vol, trunc), 1.0)
     return torch.where(valid, vol, trunc)
 
 
@@ -282,32 +303,49 @@ def central_gradient(img: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def grad_volume(gray_l: torch.Tensor, gray_r: torch.Tensor, num_disp: int,
-                lor: int, trunc: float, arms: torch.Tensor,
-                grad_y_pair=None, disps=None) -> torch.Tensor:
-    """Two-direction gradient cost with arm-adaptive weights (grad()
-    cpp:603-657 + calgradvm 388-466): a*min(|dGx|,T) + (1-a)*min(|dGy|,T),
-    a = shortestH / (shortestH + shortestV) from the reference image's
-    cross arms [4, H, W]. Off-image entries take sqrt(2 T^2). As in the JAX
-    package, ``is_grad_norm`` does not apply to this two-direction form.
+                lor: int, trunc: float, arms: Optional[torch.Tensor] = None,
+                grad_y_pair=None, disps=None, use_2dir: bool = True,
+                adaptive_weight: bool = True, normalize: bool = False) -> torch.Tensor:
+    """Gradient cost (grad() cpp:603-657 + calgradvm 388-466) of the
+    central-difference gradients of the gray images, each difference
+    truncated at ``trunc``. Two directions (``use_2dir``):
+    a*min(|dGx|,T) + (1-a)*min(|dGy|,T) with a = shortestH / (shortestH +
+    shortestV) from the reference image's cross arms [4, H, W]
+    (``adaptive_weight``), else the sum min(|dGx|,T) + min(|dGy|,T)
+    (cpp:455); off-image entries take sqrt(2 T^2), and, as in the JAX
+    package, ``normalize`` does not apply. One direction: min(|dGx|,T),
+    divided by T with ``normalize`` (by the reciprocal, as the jitted JAX
+    function divides: :func:`mul_rec`), off-image entries T (1 normalised).
+    ``arms`` is read by the adaptive form alone.
 
     ``grad_y_pair``: optional (gy_left, gy_right) y-gradients to use instead
     of the images' own: the row-band pipeline's, whose one-sided rows sit at
     the true picture borders, not at the band's edges. ``disps``: an int
     [Db] index of disparities, for a [Db, H, W] block of the volume."""
-    gx = (central_gradient(gray_l, 1), central_gradient(gray_r, 1))
-    gy = (grad_y_pair if grad_y_pair is not None
-          else (central_gradient(gray_l, 0), central_gradient(gray_r, 0)))
-    short_h = torch.clamp(torch.minimum(arms[0], arms[1]), min=1).to(torch.float32)
-    short_v = torch.clamp(torch.minimum(arms[2], arms[3]), min=1).to(torch.float32)
-    a = short_h / (short_h + short_v)
 
     def build(pair):
         ref, oth = (pair[0], pair[1]) if lor == 0 else (pair[1], pair[0])
         sh = shifted_stack(oth, num_disp, lor, disps)
         return torch.clamp(torch.abs(ref[None] - sh), max=trunc)
 
-    vol = a[None] * build(gx) + (1.0 - a)[None] * build(gy)
-    valid = valid_mask(gray_l.shape[-1], num_disp, lor, vol.device, disps)
+    valid = valid_mask(gray_l.shape[-1], num_disp, lor, gray_l.device, disps)
+    cx = build((central_gradient(gray_l, 1), central_gradient(gray_r, 1)))
+    if not use_2dir:
+        if normalize:
+            return torch.where(valid, mul_rec(cx, trunc), 1.0)
+        return torch.where(valid, cx, trunc)
+    gy = (grad_y_pair if grad_y_pair is not None
+          else (central_gradient(gray_l, 0), central_gradient(gray_r, 0)))
+    cy = build(gy)
+    if adaptive_weight:
+        if arms is None:
+            raise ValueError("grad_volume: the adaptive weight needs the cross arms")
+        short_h = torch.clamp(torch.minimum(arms[0], arms[1]), min=1).to(torch.float32)
+        short_v = torch.clamp(torch.minimum(arms[2], arms[3]), min=1).to(torch.float32)
+        a = short_h / (short_h + short_v)
+        vol = a[None] * cx + (1.0 - a)[None] * cy
+    else:
+        vol = cx + cy
     return torch.where(valid, vol, math.sqrt(2.0 * trunc * trunc))
 
 
@@ -363,6 +401,56 @@ def exp_fuse2(vm0: torch.Tensor, vm1: torch.Tensor, lam0: float,
     return 2.0 - torch.exp(-vm0 / lam0) - torch.exp(-vm1 / lam1)
 
 
+def exp_fuse3(vm0: torch.Tensor, vm1: torch.Tensor, vm2: torch.Tensor, lam0: float,
+              lam1: float, lam2: float) -> torch.Tensor:
+    """3 - exp(-vm0/lam0) - exp(-vm1/lam1) - exp(-vm2/lam2)
+    (gen_vm_from3vm_exp cpp:3592-3620), as the jitted JAX function rounds
+    it: each division a product with the float32 reciprocal
+    (:func:`mul_rec`), each ``exp`` :func:`exp32`, so the card and the CPU
+    give the same bits (XLA's own ``exp`` is within an ULP of it)."""
+    out = 3.0 - exp32(-mul_rec(vm0, lam0))
+    out = out - exp32(-mul_rec(vm1, lam1))
+    return out - exp32(-mul_rec(vm2, lam2))
+
+
+def ssd_volume(gray_l: torch.Tensor, gray_r: torch.Tensor, num_disp: int, lor: int,
+               rv: int = 3, ru: int = 4) -> torch.Tensor:
+    """SSD (gen_ssd_vm cpp:2589-2638): the squared gray difference,
+    truncated at 255^2 (off-image entries take it), summed over the
+    (2rv+1) x (2ru+1) window by :func:`_box_sum`, whose integral images add
+    in XLA-CPU's order."""
+    sd = ad_volume(gray_l[..., None], gray_r[..., None], num_disp, lor, trunc=255.0 ** 2,
+                   squared=True)
+    return _box_sum(sd, rv, ru)
+
+
+def grad_mag_phase_volume(gray_l: torch.Tensor, gray_r: torch.Tensor, num_disp: int,
+                          lor: int, trunc_mag: float = 2.0, trunc_phase: float = 0.3,
+                          w_phase: float = 0.5) -> torch.Tensor:
+    """Gradient magnitude and phase cost (calgradvm_mag_and_phase /
+    getAtanGrad, cpp:466-534): min(|mag_l - mag_r|, trunc_mag) + w_phase
+    min(|phase_l - phase_r| wrapped to [0, pi], trunc_phase), of the
+    central-difference gradients; off-image entries take trunc_mag +
+    w_phase trunc_phase. The gradients are halves of integers, so gx^2 +
+    gy^2 is exact and the magnitude is its correctly rounded root; the
+    phase is atan2 in float64, rounded once."""
+    def mag_phase(g):
+        gx, gy = central_gradient(g, 1), central_gradient(g, 0)
+        mag = _sqrt(gx * gx + gy * gy)
+        phase = torch.atan2(gy.to(torch.float64), gx.to(torch.float64)).to(torch.float32)
+        return mag, phase
+
+    (mag_l, ph_l), (mag_r, ph_r) = mag_phase(gray_l), mag_phase(gray_r)
+    ref_m, oth_m = (mag_l, mag_r) if lor == 0 else (mag_r, mag_l)
+    ref_p, oth_p = (ph_l, ph_r) if lor == 0 else (ph_r, ph_l)
+    dm = torch.clamp(torch.abs(ref_m[None] - shifted_stack(oth_m, num_disp, lor)),
+                     max=trunc_mag)
+    dp = torch.abs(ref_p[None] - shifted_stack(oth_p, num_disp, lor))
+    dp = torch.clamp(torch.minimum(dp, float(np.float32(2 * math.pi)) - dp), max=trunc_phase)
+    valid = valid_mask(gray_l.shape[-1], num_disp, lor, gray_l.device)
+    return torch.where(valid, dm + w_phase * dp, trunc_mag + w_phase * trunc_phase)
+
+
 def _census_code_fn(func: int, rv: int, ru: int):
     """censusFunc (h:244) -> (code builder, code length in bits): 0
     classic, 1 and 2 the neighbour walks, 3 classic + 8 surround pairs
@@ -380,38 +468,88 @@ def _census_code_fn(func: int, rv: int, ru: int):
     }[func]
 
 
+def _hamming_normalized(code_l: torch.Tensor, code_r: torch.Tensor, num_disp: int,
+                        lor: int, code_length: int, trunc_ratio: float, disps=None):
+    """The normalised Hamming volume as the jitted JAX ``hamming_volume``
+    rounds it: min(hamming, L) times the float32 reciprocal of L =
+    code_length * trunc_ratio (:func:`mul_rec`), 1 off-image.
+    ``census_ops.hamming_volume(normalize=True)`` divides, as the JAX
+    function does op by op."""
+    cost = census_ops.hamming_volume(code_l, code_r, num_disp, lor, code_length,
+                                     trunc_ratio, False, disps)
+    valid = valid_mask(code_l.shape[-1], num_disp, lor, cost.device, disps)
+    return torch.where(valid, mul_rec(cost, code_length * trunc_ratio), 1.0)
+
+
+def census_from2_builder(gray_l: torch.Tensor, gray_r: torch.Tensor, cfg,
+                         lor: int) -> Callable:
+    """The two-window census blend (gen_cenVM_XOR_From2Code(_tem),
+    h:983-1142) as ``block(ds) -> [Db, H, W]``, the codes built once, here.
+    ``census_from2_blend="first"``: the truncated, normalised Hamming cost
+    of the first window; ``"grad"``: (1 - a) c0 + a c1 of the two windows'
+    untruncated normalised costs, a = 1 - exp(-0.1 / (g + 1)) of the
+    reference image's x-gradient g, the blend one fused multiply-add as
+    jitted XLA-CPU computes it. Off-image entries take 1."""
+    nd = cfg.num_disp
+    fn0, n0 = _census_code_fn(cfg.census_func, cfg.census_rv, cfg.census_ru)
+    c0_codes = fn0(gray_l), fn0(gray_r)
+    if cfg.census_from2_blend == "first":
+        return lambda ds: _hamming_normalized(*c0_codes, nd, lor, n0, cfg.census_trunc_ratio, ds)
+    fn1, n1 = _census_code_fn(cfg.census_func, cfg.census_rv2, cfg.census_ru2)
+    c1_codes = fn1(gray_l), fn1(gray_r)
+    g = central_gradient(gray_l if lor == 0 else gray_r, 1)
+    a = 1.0 - exp32(-0.1 / (g + 1.0))
+
+    def blend(ds) -> torch.Tensor:
+        c0 = _hamming_normalized(*c0_codes, nd, lor, n0, 1.0, ds)
+        c1 = _hamming_normalized(*c1_codes, nd, lor, n1, 1.0, ds)
+        return fma32((1.0 - a)[None], c0, a[None] * c1)
+
+    return blend
+
+
+# the costs of block_cost_builder, which the disparity-streaming path builds on
+BLOCK_COSTS = ("census", "census_grad", "ad_grad", "ad_census", "ad", "sd", "grad",
+               "census_from2", "ad_census_grad")
+
+
 def compute_cost_volume(left: torch.Tensor, right: torch.Tensor,
                         gray_l: torch.Tensor, gray_r: torch.Tensor, cfg,
                         lor: int, arms: Optional[torch.Tensor] = None,
                         grad_y_pair=None) -> torch.Tensor:
-    """The cost volume of ``cfg.cost`` (costCalculate, cpp:945-1021):
-    ``census`` (the Hamming volume of the ``census_func`` code),
-    ``census_grad`` (cpp:25-48, exp fusion of the census Hamming volume and
-    the gradient volume), ``ad_grad`` (cpp:50-70, AD truncated at
-    ``ad_trunc`` and the gradient truncated at 2, weighted 0.11 / 0.89),
-    ``ad_census`` (cpp:5250-5277, exp fusion of census, lambda 30, and
-    untruncated AD, lambda 10), ``zncc`` (:func:`zncc_volume`),
-    ``trunc_ad`` (:func:`trunc_ad_volume`), ``bt`` (:func:`bt_volume` on the
-    gray images, truncated at ``bt_trunc``), or
+    """The cost volume of ``cfg.cost`` (costCalculate, cpp:945-1021): the
+    costs of :func:`block_cost_builder` (``BLOCK_COSTS``), ``zncc``
+    (:func:`zncc_volume`), ``ssd`` (:func:`ssd_volume`), ``ad_census_zncc``
+    (exp fusion of census, ZNCC and untruncated AD, lambdas ``lam_cen``, 1
+    and 10), ``trunc_ad`` (:func:`trunc_ad_volume`), ``bt``
+    (:func:`bt_volume` on the gray images, truncated at ``bt_trunc``), or
     the NL flow's ``qx_ad_grad`` (left volume only, as in the JAX package)
     and ``qx_census`` (the 80-bit 9x9 census). ``grad_y_pair`` goes to
     :func:`grad_volume`."""
+    nd = cfg.num_disp
     if cfg.cost == "qx_ad_grad":
         if lor != 0:
             raise NotImplementedError(
                 "qx_ad_grad is left-volume only; the NL flow flips the left volume "
                 "(ops/nl.flip_corr_vol) as the reference does")
-        return qx_ad_grad_volume(left, right, cfg.num_disp)
+        return qx_ad_grad_volume(left, right, nd)
     if cfg.cost == "zncc":
-        return zncc_volume(gray_l, gray_r, cfg.num_disp, lor, cfg.zncc_win_rv, cfg.zncc_win_ru)
+        return zncc_volume(gray_l, gray_r, nd, lor, cfg.zncc_win_rv, cfg.zncc_win_ru)
+    if cfg.cost == "ssd":
+        return ssd_volume(gray_l, gray_r, nd, lor, cfg.ssd_win_rv, cfg.ssd_win_ru)
+    if cfg.cost == "ad_census_zncc":
+        census = block_cost_builder(left, right, gray_l, gray_r, cfg.replace(cost="census"),
+                                    lor)(None)
+        zvm = zncc_volume(gray_l, gray_r, nd, lor, cfg.zncc_win_rv, cfg.zncc_win_ru)
+        return exp_fuse3(census, zvm, ad_volume(left, right, nd, lor, trunc=1e9),
+                         cfg.lam_cen, 1.0, 10.0)
     if cfg.cost == "trunc_ad":
-        return trunc_ad_volume(left, right, cfg.num_disp, lor)
+        return trunc_ad_volume(left, right, nd, lor)
     if cfg.cost == "bt":
-        return bt_volume(gray_l, gray_r, cfg.num_disp, lor, cfg.bt_trunc)
+        return bt_volume(gray_l, gray_r, nd, lor, cfg.bt_trunc)
     if cfg.cost == "qx_census":
         return census_ops.hamming_volume(census_ops.census_code_qx80(left),
-                                         census_ops.census_code_qx80(right),
-                                         cfg.num_disp, lor, 80)
+                                         census_ops.census_code_qx80(right), nd, lor, 80)
     return block_cost_builder(left, right, gray_l, gray_r, cfg, lor, arms,
                               grad_y_pair)(None)
 
@@ -423,24 +561,39 @@ def block_cost_builder(left: torch.Tensor, right: torch.Tensor,
     """The disparity-streaming form of :func:`compute_cost_volume`: returns
     ``block(ds) -> [Db, H, W]`` float32, the cost of the disparities in the
     int [Db] index ``ds`` (None: all of them), each plane the dense
-    volume's bit for bit, for ``census``, ``census_grad``, ``ad_grad`` and
-    ``ad_census``. The two census codes, which do not depend on the
-    disparity, are computed once, here. Every other cost raises
-    NotImplementedError naming it."""
-    if cfg.cost not in ("census", "census_grad", "ad_grad", "ad_census"):
-        raise NotImplementedError(f"cost {cfg.cost!r} has no block form in this package")
-    if cfg.cost in ("census_grad", "ad_grad") and not (
-            cfg.grad_use_2dir and cfg.grad_fuse_adaptive):
-        raise NotImplementedError(
-            "only the two-direction arm-adaptive gradient cost is ported")
+    volume's bit for bit, for the costs of ``BLOCK_COSTS``: ``ad`` and
+    ``sd`` (untruncated channel means of |dI| and dI^2), ``grad``
+    (:func:`grad_volume` at ``grad_trunc`` in the configured mode),
+    ``census`` (the Hamming volume of the ``census_func`` code),
+    ``census_from2`` (:func:`census_from2_builder`), ``census_grad``
+    (cpp:25-48, exp fusion of census and the gradient), ``ad_grad``
+    (cpp:50-70, AD truncated at ``ad_trunc`` and the gradient truncated at
+    2, not normalised, weighted 0.11 / 0.89), ``ad_census`` (cpp:5250-5277,
+    exp fusion of census, lambda 30, and untruncated AD, lambda 10) and
+    ``ad_census_grad`` (exp fusion of census, the gradient and untruncated
+    AD, lambdas ``lam_cen``, ``lam_g`` and 10). The census codes, which do
+    not depend on the disparity, are computed once, here. Every other cost
+    raises NotImplementedError naming it."""
+    method = cfg.cost
+    if method not in BLOCK_COSTS:
+        raise NotImplementedError(f"cost {method!r} has no block form in this package")
     nd = cfg.num_disp
-    if cfg.cost == "ad_grad":
-        def ad_grad_block(ds) -> torch.Tensor:
-            advm = ad_volume(left, right, nd, lor, trunc=cfg.ad_trunc, disps=ds)
-            gvm = grad_volume(gray_l, gray_r, nd, lor, 2.0, arms, grad_y_pair, ds)
-            return fix_weight_fuse(advm, 0.11, gvm, 0.89)
+    if method == "census_from2":
+        return census_from2_builder(gray_l, gray_r, cfg, lor)
 
-        return ad_grad_block
+    def ad(ds, trunc=1e9, squared=False):
+        return ad_volume(left, right, nd, lor, trunc=trunc, squared=squared, disps=ds)
+
+    def grad(ds, trunc, normalize):
+        return grad_volume(gray_l, gray_r, nd, lor, trunc, arms, grad_y_pair, ds,
+                           cfg.grad_use_2dir, cfg.grad_fuse_adaptive, normalize)
+
+    if method in ("ad", "sd"):
+        return lambda ds: ad(ds, squared=method == "sd")
+    if method == "grad":
+        return lambda ds: grad(ds, cfg.grad_trunc, cfg.is_grad_norm)
+    if method == "ad_grad":
+        return lambda ds: fix_weight_fuse(ad(ds, cfg.ad_trunc), 0.11, grad(ds, 2.0, False), 0.89)
     code_fn, n_bits = _census_code_fn(cfg.census_func, cfg.census_rv, cfg.census_ru)
     code_l, code_r = code_fn(gray_l), code_fn(gray_r)
 
@@ -448,17 +601,12 @@ def block_cost_builder(left: torch.Tensor, right: torch.Tensor,
         return census_ops.hamming_volume(code_l, code_r, nd, lor, n_bits,
                                          cfg.census_trunc_ratio, cfg.is_census_norm, ds)
 
-    if cfg.cost == "census":
+    if method == "census":
         return census
-    if cfg.cost == "ad_census":
-        def ad_census_block(ds) -> torch.Tensor:
-            return exp_fuse2(census(ds), ad_volume(left, right, nd, lor, trunc=1e9, disps=ds),
-                             30.0, 10.0)
-
-        return ad_census_block
-
-    def census_grad_block(ds) -> torch.Tensor:
-        grad = grad_volume(gray_l, gray_r, nd, lor, cfg.grad_trunc, arms, grad_y_pair, ds)
-        return exp_fuse2(census(ds), grad, cfg.lam_cen, cfg.lam_g)
-
-    return census_grad_block
+    if method == "ad_census":
+        return lambda ds: exp_fuse2(census(ds), ad(ds), 30.0, 10.0)
+    if method == "ad_census_grad":
+        return lambda ds: exp_fuse3(census(ds), grad(ds, cfg.grad_trunc, cfg.is_grad_norm),
+                                    ad(ds), cfg.lam_cen, cfg.lam_g, 10.0)
+    return lambda ds: exp_fuse2(census(ds), grad(ds, cfg.grad_trunc, cfg.is_grad_norm),
+                                cfg.lam_cen, cfg.lam_g)

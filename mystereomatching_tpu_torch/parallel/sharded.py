@@ -396,8 +396,9 @@ def check_sharded_support(cfg: MatchConfig, n_disp: int = 1) -> None:
     """Raise NotImplementedError, naming the flag, for every configuration
     the band path would not run with the dense path's meaning: whatever the
     dense port refuses (``pipeline.check_supported``), NL, box-filter and
-    guided-filter aggregation, double-window CBCA, the vmTop decision, any
-    cost but census_grad and any optimization but SGM, ``d_stream_block``
+    guided-filter aggregation, double-window CBCA, the vmTop decision, the
+    cross-scale pyramid, the multilevel and adaptive arms, any cost but
+    census_grad and any optimization but SGM, ``d_stream_block``
     (a 'disp' axis splits the disparities instead, as in the JAX package)
     and bfloat16 volumes. The JAX band path never casts to ``vol_dtype``
     (its ``_match_pair_band`` has no cast), so there a bfloat16
@@ -405,6 +406,14 @@ def check_sharded_support(cfg: MatchConfig, n_disp: int = 1) -> None:
     refuses it instead. ValueError where n_disp does not divide the
     disparities."""
     check_supported(cfg)
+    if cfg.pyramid_levels > 1:
+        raise NotImplementedError(
+            f"sharded pipeline: pyramid_levels={cfg.pyramid_levels} (the band form of the "
+            "cross-scale pyramid, in the JAX parallel/sharded.py, is not ported)")
+    if cfg.cbca_arm_mode != "two_level":
+        raise NotImplementedError(
+            f"sharded pipeline: cbca_arm_mode {cfg.cbca_arm_mode!r} (the band path grows "
+            "two-level arms only)")
     if cfg.aggregation != "cbca":
         raise NotImplementedError(
             f"sharded pipeline: aggregation {cfg.aggregation!r} (NL on row bands, the JAX "

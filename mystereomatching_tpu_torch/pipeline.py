@@ -1,18 +1,26 @@
 """End-to-end stereo pipeline: cost -> aggregation -> optimization -> refine.
 
 Counterpart of ``mystereomatching_tpu/pipeline.py`` for the stages ported
-so far. Costs: the default censusGrad, ``census`` (any ``census_func``),
-``ad_census``, ``ad_grad``, ``zncc``, truncated AD (``trunc_ad``),
+so far. Costs: every cost of the JAX package: the default censusGrad,
+``census`` (any ``census_func``), ``census_from2`` (both blends),
+``ad_census``, ``ad_census_grad``, ``ad_census_zncc``, ``ad_grad``,
+``ad``, ``sd``, ``grad`` (one or two directions, adaptive or summed,
+normalised or not), ``zncc``, ``ssd``, truncated AD (``trunc_ad``),
 Birchfield-Tomasi (``bt``) and the NL flow's ``qx_ad_grad`` and
-``qx_census``. Aggregation: cross arms and CBCA (at one arm scale, or at
-two merged by ``combine2Vm_2``, ``_3`` or ``_4``: ``cbca_double_win``),
-or none, in float32 or bfloat16 volumes, whole or streamed over blocks of
-``d_stream_block`` disparities (``trunc_ad`` and ``bt`` whole and in
-float32 only); the box or the guided filter, FIF, AWS, JBF or GFNL of a
+``qx_census``. Aggregation: cross arms (in any ``cbca_arm_mode``: two
+levels, multilevel or adaptive) and CBCA (at one arm scale, or at two
+merged by ``combine2Vm_2``, ``_3`` or ``_4``: ``cbca_double_win``), or
+none, in float32 or bfloat16 volumes, whole or, for the costs with a
+block form, streamed over blocks of ``d_stream_block`` disparities
+(``trunc_ad`` and ``bt`` whole and in float32 only; ``zncc``, ``ssd`` and
+``ad_census_zncc`` whole); the box or the guided filter, FIF, AWS, JBF or GFNL of a
 float32 volume; or the NL tree filter on the image's MST (any of these
 costs, float32 or bfloat16 volumes, the filter in float32 or in the JAX
 package's bfloat16 mode), the tree built on the device or, with
-``nl_tree_host``, on the host. Optimization: 4- or 8-path SGM, or none,
+``nl_tree_host``, on the host. Cross-scale aggregation
+(``pyramid_levels``): the volumes of each coarser level of the images'
+Gaussian pyramid fused into the finest by ``crossscale.solve_all``.
+Optimization: 4- or 8-path SGM, or none,
 then WTA on the left and right volumes, or the cooperative WTA of the left volume alone, and the
 uniqueness check; or the vmTop decision in place of WTA; or scanline
 optimisation (``"so"``), which decides each volume itself. Refinement: LR
@@ -40,6 +48,7 @@ the CPU they run their plain torch versions.
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Dict, List
 
@@ -51,6 +60,7 @@ from mystereomatching_tpu_torch.ops import aggregation as agg_ops
 from mystereomatching_tpu_torch.ops import arms as arms_ops
 from mystereomatching_tpu_torch.ops import combine as combine_ops
 from mystereomatching_tpu_torch.ops import cost as cost_ops
+from mystereomatching_tpu_torch.ops import crossscale
 from mystereomatching_tpu_torch.ops import cuda_kernels as ck
 from mystereomatching_tpu_torch.ops import mst
 from mystereomatching_tpu_torch.ops import nl as nl_ops
@@ -70,23 +80,29 @@ def to_gray(img: torch.Tensor) -> torch.Tensor:
 
 
 VOL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-COSTS = ("census_grad", "ad_grad", "census", "ad_census", "zncc", "trunc_ad", "bt",
-         "qx_ad_grad", "qx_census")
-# the costs of cost_ops.block_cost_builder, which CBCA and no aggregation build on
-BLOCK_COSTS = ("census_grad", "ad_grad", "census", "ad_census")
-# the costs without a block form, which CBCA and no aggregation take whole
-# (as the JAX package's dense path does), in float32, never streamed
+COSTS = ("census_grad", "ad_grad", "census", "ad_census", "ad", "sd", "grad", "census_from2",
+         "ad_census_grad", "zncc", "ssd", "ad_census_zncc", "trunc_ad", "bt", "qx_ad_grad",
+         "qx_census")
+# the costs of cost_ops.block_cost_builder, which CBCA and no aggregation build
+# on, whole or a block of disparities at a time
+BLOCK_COSTS = cost_ops.BLOCK_COSTS
+# the costs without a block form, which CBCA and no aggregation take whole, as
+# the JAX package's dense path does: in float32 or bfloat16, never streamed
+# (the JAX block builder refuses them too) ...
+DENSE_COSTS = ("zncc", "ssd", "ad_census_zncc")
+# ... and in float32 only
 UNBLOCKED_COSTS = ("trunc_ad", "bt")
 # the aggregations of a whole float32 volume (agg_ops.aggregate), and their costs
 WHOLE_AGGREGATIONS = ("bf", "gf", "fif", "aws", "jbf", "gfnl")
-WHOLE_COSTS = BLOCK_COSTS + ("zncc",) + UNBLOCKED_COSTS
+WHOLE_COSTS = BLOCK_COSTS + DENSE_COSTS + UNBLOCKED_COSTS
 # the aggregations filtering on the image's tree, which nl_trees builds
 TREE_AGGREGATIONS = ("nl", "gfnl")
 
 
 def _needs_arms_for_cost(cfg: MatchConfig) -> bool:
-    return (cfg.cost in ("census_grad", "ad_grad") and cfg.grad_use_2dir
-            and cfg.grad_fuse_adaptive)
+    """The gradient costs' arm-adaptive weight reads the reference image's arms."""
+    return (cfg.cost in ("grad", "census_grad", "ad_grad", "ad_census_grad")
+            and cfg.grad_use_2dir and cfg.grad_fuse_adaptive)
 
 
 def _double_win(cfg: MatchConfig) -> bool:
@@ -104,6 +120,16 @@ def _so(cfg: MatchConfig) -> bool:
     uniqueness check, vmTop or sub_ipol after it (the qx NL flow owns its
     decision instead)."""
     return cfg.optimization == "so" and not _nl_flow(cfg)
+
+
+def _level_disparities(cfg: MatchConfig) -> List[int]:
+    """The disparities of each pyramid level, finest first: max_disp
+    becomes max_disp // 2 + 1 at each coarser level (main_.cpp:152)."""
+    out, max_disp = [], cfg.max_disp
+    for _ in range(cfg.pyramid_levels):
+        out.append(max_disp + 1)
+        max_disp = max_disp // 2 + 1
+    return out
 
 
 def _n_views(cfg: MatchConfig) -> int:
@@ -126,11 +152,11 @@ def check_supported(cfg: MatchConfig) -> None:
         (refining and cfg.do_da, "do_da"),
         (refining and cfg.do_rv_whole_image, "do_rv_whole_image"),
         (cfg.cost not in COSTS, f"cost {cfg.cost!r}"),
-        (cfg.aggregation in ("cbca", "none") and cfg.cost not in BLOCK_COSTS + UNBLOCKED_COSTS,
+        (cfg.aggregation in ("cbca", "none") and cfg.cost not in WHOLE_COSTS,
          f"cost {cfg.cost!r} with aggregation {cfg.aggregation!r}"),
         (cfg.cost in UNBLOCKED_COSTS and cfg.vol_dtype != "float32" and cfg.aggregation != "nl",
          f"vol_dtype {cfg.vol_dtype!r} with cost {cfg.cost!r}"),
-        (cfg.cost in UNBLOCKED_COSTS and cfg.d_stream_block != 0,
+        (cfg.cost in UNBLOCKED_COSTS + DENSE_COSTS and cfg.d_stream_block != 0,
          f"d_stream_block with cost {cfg.cost!r} (no disparity-streaming form)"),
         (cfg.aggregation in WHOLE_AGGREGATIONS and cfg.cost not in WHOLE_COSTS,
          f"cost {cfg.cost!r} with aggregation {cfg.aggregation!r}"),
@@ -161,7 +187,11 @@ def check_supported(cfg: MatchConfig) -> None:
          f"vol_dtype {cfg.vol_dtype!r} with do_vmtop"),
         (cfg.d_stream_block != 0 and cfg.cbca_double_win,
          "d_stream_block with cbca_double_win (no disparity-streaming form)"),
-        (cfg.pyramid_levels > 1, "pyramid_levels > 1"),
+        (cfg.pyramid_levels > 1 and cfg.d_stream_block != 0 and any(
+            nd % cfg.d_stream_block for nd in _level_disparities(cfg)),
+         f"d_stream_block={cfg.d_stream_block} with pyramid_levels={cfg.pyramid_levels} (the "
+         f"levels' {_level_disparities(cfg)} disparities do not all divide into blocks; the JAX "
+         "package's streamed loop drops the remainder)"),
         (cfg.vol_dtype not in VOL_DTYPES, f"vol_dtype {cfg.vol_dtype!r}"),
     ]
     missing = [name for hit, name in unported if hit]
@@ -245,6 +275,37 @@ def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
     return vols, arms_pair
 
 
+def level_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
+    """:func:`compute_volumes` of one level of the cross-scale pyramid
+    ({lor: volume}), the NL or GFNL trees built here on the images' device
+    whatever ``nl_tree_host``: the JAX package's coarser levels call its
+    ``compute_volumes`` with no host trees, which builds them on the device.
+    No arms are built for region vote, which reads the finest level's."""
+    cfg = cfg.replace(do_refine=False)
+    trees = (nl_trees(left, right, cfg.replace(nl_tree_host=False))
+             if cfg.aggregation in TREE_AGGREGATIONS else None)
+    return compute_volumes(left, right, cfg, trees)[0]
+
+
+def cross_scale(vols, left: torch.Tensor, right: torch.Tensor,
+                cfg: MatchConfig) -> Dict[int, torch.Tensor]:
+    """Cross-scale aggregation (SolveAll, cpp:2142-2208; the JAX
+    ``match_pair``'s pyramid step): each coarser level's volumes of the
+    views in ``vols`` (:func:`level_volumes` on the images ``pyr_down``'ed
+    once more, max_disp // 2 + 1 disparities, main_.cpp:152), fused with the
+    finest ``vols`` by ``crossscale.solve_all``: float32 volumes.
+    ``crossscale.cross_scale_volume`` is the same for one view, its finest
+    level built too."""
+    per_level = {lor: [vols[lor]] for lor in vols}
+    coarser = itertools.islice(crossscale.levels(left, right, cfg, cfg.pyramid_levels), 1, None)
+    for lvl, rvl, c in coarser:
+        coarse = level_volumes(lvl, rvl, c)
+        for lor in vols:
+            per_level[lor].append(coarse[lor])
+        del coarse
+    return {lor: crossscale.solve_all(per_level[lor], cfg.reg_lambda) for lor in vols}
+
+
 def nl_trees(left, right, cfg: MatchConfig) -> Dict[int, mst.RootedTree]:
     """The NL or GFNL trees a frame of ``cfg`` filters on, from the
     median-prefiltered images: {0: left, 1: right} for the views it filters
@@ -281,14 +342,16 @@ def _aggregated_volume(left, right, gl, gr, cfg: MatchConfig, lor: int,
         block_fn = cost_ops.block_cost_builder(left, right, gl, gr, cfg, lor,
                                                arms=arms_pair[lor])
     else:
-        # UNBLOCKED_COSTS: the whole volume, never streamed (check_supported),
-        # contiguous for the kernels after it
+        # DENSE_COSTS and UNBLOCKED_COSTS: the whole volume, never streamed
+        # (check_supported)
         def block_fn(ds):
             return cost_ops.compute_cost_volume(left, right, gl, gr, cfg, lor,
-                                                arms=arms_pair[lor]).contiguous()
+                                                arms=arms_pair[lor])
 
     def aggregated(ds: torch.Tensor) -> torch.Tensor:
-        blk = block_fn(ds).to(vdt)
+        # contiguous for the kernels after it (AD's channel sum keeps the
+        # shifted stack's strides)
+        blk = block_fn(ds).to(vdt).contiguous()
         if cfg.aggregation == "none":
             return blk
         vol2 = None
@@ -413,6 +476,8 @@ def match_pair(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
     if _nl_flow(cfg):
         return _match_pair_nl_flow(left, right, cfg, trees)
     vols, arms_pair = compute_volumes(left, right, cfg, trees)
+    if cfg.pyramid_levels > 1:
+        vols = cross_scale(vols, left, right, cfg)
     dl, dr, vol0 = optimize(vols, left, right, cfg)
     out = {"disp_left_raw": dl}
     if dr is not None:
@@ -461,7 +526,9 @@ def match_pair_nl_batch(lefts: torch.Tensor, rights: torch.Tensor,
     :func:`match_pair`'s bit for bit. It refuses what the JAX function
     refuses (another aggregation, the qx flow, ``d_stream_block``) and a
     right volume (``compute_both_volumes`` with the LR check): the JAX
-    function builds the left one alone."""
+    function builds the left one alone. It refuses the cross-scale pyramid
+    too (``pyramid_levels > 1``): the JAX function skips it, so its frames
+    would differ from its ``match_pair``'s."""
     cfg = as_port_config(cfg).validate()
     check_supported(cfg)
     if cfg.aggregation != "nl" or _nl_flow(cfg) or cfg.d_stream_block:
@@ -469,6 +536,11 @@ def match_pair_nl_batch(lefts: torch.Tensor, rights: torch.Tensor,
     if _n_views(cfg) == 2:
         raise NotImplementedError("match_pair_nl_batch builds the left volume alone "
                                   "(compute_both_volumes with the LR check)")
+    if cfg.pyramid_levels > 1:
+        raise NotImplementedError(
+            f"match_pair_nl_batch: pyramid_levels={cfg.pyramid_levels} (the JAX "
+            "match_pair_nl_batch skips the cross-scale pyramid, so its frames would differ "
+            "from its match_pair's)")
     lefts = lefts.to(torch.float32)
     rights = rights.to(torch.float32)
     need_arms = _needs_arms_for_cost(cfg) or (cfg.do_refine and cfg.do_region_vote)

@@ -176,16 +176,27 @@ def test_presets_are_supported_with_their_kernels():
     cfg = get_model("ad_census_wta").replace(do_refine=True, do_lr_consis=True,
                                              do_region_vote=True)
     assert kernels_launched(cfg) == ["arms_grow", "wta", "region_vote", "pi_scan"]
+    # the census costs of ROADMAP §1 item 5 under census_wta: ad_census_grad
+    # reads the arms for its gradient's adaptive weight
+    assert kernels_launched(get_model("census_wta").replace(cost="census_from2")) == ["wta"]
+    assert kernels_launched(get_model("census_wta").replace(cost="ad_census_grad")) == [
+        "arms_grow", "wta"]
+    for name in ("census_from2", "ad_census_grad"):
+        check_supported(get_model("census_wta").replace(cost=name))
+        check_supported(get_model("census_wta").replace(cost=name, d_stream_block=4))
 
 
 @pytest.mark.parametrize("bad", [dict(aggregation="nl", d_stream_block=4),
-                                 dict(cost="census_from2"), dict(cost="qx_census"),
-                                 dict(cost="ad_census_grad")])
+                                 dict(cost="ssd", d_stream_block=4), dict(cost="qx_census"),
+                                 dict(cost="ad_census_zncc", d_stream_block=4)])
 def test_census_refusals(bad):
     """NL aggregation of a census cost streamed over disparity blocks (the
     JAX package has no streamed NL either; unstreamed, NL over the census
-    costs runs: tests/test_torch_nl.py::test_nl_accepts), and costs with no
-    block form under aggregation "none", are refused."""
+    costs runs: tests/test_torch_nl.py::test_nl_accepts), the NL flow's
+    census under aggregation "none", and the costs with no block form
+    streamed (``ssd`` and ``ad_census_zncc``: the JAX block builder refuses
+    them too) are refused. census_from2 and ad_census_grad, refused here
+    before, run (test_presets_are_supported_with_their_kernels)."""
     with pytest.raises(NotImplementedError):
         check_supported(get_model("census_wta").replace(**bad))
 

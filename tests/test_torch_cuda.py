@@ -1138,3 +1138,93 @@ def test_taps_probe_refusals(cuda):
     with pytest.raises(ValueError, match="compiled"):
         ck.taps_probe_static(vol, arms, arms, 8, 10)
     assert torch.equal(ck.taps_probe_slice(vol, arms, arms, "dyn", 5, axis=2), vol)
+
+
+@pytest.mark.parametrize("shape", [(45, 70), (150, 261)])
+@pytest.mark.parametrize("mode", ["multilevel", "adaptive"])
+def test_arms_grow_kernel_on_the_new_schedules(cuda, mode, shape):
+    """Kernel A on the multilevel (thresholds 20/30/30 to 17/23/34 steps,
+    neighbour threshold 20) and adaptive (int(30 - 20 k / 17), then 6)
+    schedules equals the plain growth, through ``build_arms``."""
+    img = _t(_arms_image(np.random.default_rng(shape[1]), shape, False), cuda)
+    cfg = port.default_config(cbca_arm_mode=mode)
+    sched, neigh = arms.arm_schedule(cfg)
+    assert len(sched) == cfg.arm_l_out
+    ck.reset_launches()
+    got = arms.build_arms(img, cfg)
+    assert ck.launches["arms_grow"] == 1
+    assert torch.equal(got, arms.grow_arms_plain(img, sched, neigh, cfg.cbca_min_arm))
+
+
+# frames of ROADMAP §1 item 5 at 96x128, D=16: name -> (overrides of the
+# default preset, whether the card's maps must equal the CPU port's: every
+# operation of these rounds alike on both, exp32 and fma32 included;
+# ad_census_zncc's ZNCC is held against the plain path on the card only)
+ITEM5_FRAMES = {
+    "ad": (dict(cost="ad"), True),
+    "sd": (dict(cost="sd"), True),
+    "grad": (dict(cost="grad"), True),
+    "grad_1dir_norm": (dict(cost="grad", grad_use_2dir=False, is_grad_norm=True), True),
+    "ssd": (dict(cost="ssd"), True),
+    "census_from2": (dict(cost="census_from2"), True),
+    "census_from2_first": (dict(cost="census_from2", census_from2_blend="first"), True),
+    "ad_census_grad": (dict(cost="ad_census_grad"), True),
+    "ad_census_zncc": (dict(cost="ad_census_zncc"), False),
+    "multilevel": (dict(cbca_arm_mode="multilevel"), True),
+    "adaptive": (dict(cbca_arm_mode="adaptive"), True),
+    "pyramid2": (dict(pyramid_levels=2), True),
+    "pyramid2_bf16": (dict(pyramid_levels=2, vol_dtype="bfloat16"), True),
+    "ad_census_grad_streamed": (dict(cost="ad_census_grad", d_stream_block=4), True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ITEM5_FRAMES))
+def test_item5_frame_on_cuda_equals_plain_path(cuda, name):
+    """A 96x128 frame of each new cost, arm mode and the pyramid on the
+    card: exactly the kernels of ``kernels_launched`` (A and B once a
+    pyramid level), the maps equal to the plain path's on the card and,
+    where ``ITEM5_FRAMES`` says so, to the CPU port's."""
+    overrides, on_cpu = ITEM5_FRAMES[name]
+    pair = make_synthetic_pair(h=96, w=128, max_disp=15, seed=6)
+    cfg = port.default_config(max_disp=pair.max_disp, **overrides)
+    pipe = port.StereoPipeline(cfg, device=cuda)
+    ck.reset_launches()
+    gpu = pipe(pair.left, pair.right)
+    counts = {k: n for k, n in ck.launches.items() if n}
+    assert list(counts) == kernels_launched(cfg)
+    assert counts["arms_grow"] == 2 * cfg.pyramid_levels
+    with mock.patch.object(ck, "on_cuda", lambda t: False):
+        plain = pipe(pair.left, pair.right)
+    assert set(gpu) == set(plain)
+    for key in gpu:
+        assert torch.equal(gpu[key], plain[key]), key
+    if on_cpu:
+        cpu = port.StereoPipeline(cfg, device="cpu")(pair.left, pair.right)
+        for key in gpu:
+            assert torch.equal(gpu[key].cpu(), cpu[key]), key
+
+
+def _same_with_nan(got, want):
+    """Equal bits where not NaN, and NaN at the same entries."""
+    return (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(torch.nan_to_num(got, nan=0.0), torch.nan_to_num(want, nan=0.0)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nd", [31, 60])
+def test_sgm_kernels_carry_nan_as_plain(cuda, nd, dtype):
+    """Kernels C and E take a NaN cost as their plain versions do (torch's
+    amin and minimum, and jnp's, return NaN where an operand is NaN): from
+    a NaN on a line the path costs run NaN to the line's end. ZNCC's cost is
+    NaN where rounding makes a window's variance negative, which
+    ad_census_zncc carries into SGM."""
+    vol, ps = _sgm_inputs(cuda, nd + 5, (2, nd, 23, 29), dtype)
+    vol[0, 3, 5, 7] = float("nan")
+    vol[1, nd - 1, 20, 2] = float("nan")
+    for axis, reverse in [(2, False), (2, True), (3, False), (3, True)]:
+        got = ck.sgm_scan(vol, ps, 1.0, 3.0, axis, reverse)
+        assert bool(torch.isnan(got).any())
+        assert _same_with_nan(got, sgm.sgm_scan_plain(vol, ps, 1.0, 3.0, axis, reverse))
+    for rv, ru in sgm.DIRECTIONS_8[4:]:
+        assert _same_with_nan(ck.sgm_diag_scan(vol, ps, 1.0, 3.0, rv, ru),
+                              sgm.sgm_diag_scan_plain(vol, ps, 1.0, 3.0, rv, ru)), (rv, ru)

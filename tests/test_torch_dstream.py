@@ -201,11 +201,13 @@ def test_streamed_volume_is_the_dense_one(pair):
 
 
 def test_streaming_is_supported_with_the_dense_kernels():
-    for kw in CONFIGS.values():
+    """Streaming runs the dense path's kernels, census_from2's blocks too;
+    double-window CBCA and ZNCC, which have no block form, are refused."""
+    for kw in list(CONFIGS.values()) + [dict(cost="census_from2")]:
         cfg = get_model("fullres_occfill", max_disp=255, d_stream_block=32, **kw)
         check_supported(cfg)
         assert kernels_launched(cfg) == kernels_launched(cfg.replace(d_stream_block=0))
-    for bad in (dict(cbca_double_win=True), dict(cost="census_from2")):
+    for bad in (dict(cbca_double_win=True), dict(cost="zncc")):
         with pytest.raises(NotImplementedError):
             check_supported(get_model("fullres_occfill", max_disp=255, d_stream_block=32,
                                       **bad))

@@ -153,7 +153,10 @@ PORTED_FROM_THIS_LIST = [dict(do_refine=True, lrc_classify=True),
                          dict(cost="trunc_ad", aggregation="bf"), dict(aggregation="aws"),
                          dict(aggregation="fif"), dict(aggregation="gfnl"),
                          dict(cost="bt", aggregation="gf"),
-                         dict(cost="zncc", aggregation="nl"), dict(cost="bt", aggregation="nl")]
+                         dict(cost="zncc", aggregation="nl"), dict(cost="bt", aggregation="nl"),
+                         dict(pyramid_levels=2), dict(cbca_arm_mode="multilevel"),
+                         dict(cost="census_from2", d_stream_block=4),
+                         dict(cost="zncc", aggregation="none"), dict(cost="zncc")]
 
 
 @pytest.mark.parametrize("overrides", [
@@ -205,7 +208,10 @@ def test_unported_stage_raises(overrides):
     GFNL: their cases run, and the list gains what they cannot run with
     (streaming, bfloat16, GFNL on an 8-neighbour tree, BT under NL). NL
     over every cost runs too (ROADMAP §1 item 4): ZNCC and BT under NL are
-    accepted, and a frame must run."""
+    accepted, and a frame must run. So do the remaining costs, the
+    multilevel and adaptive arms and the cross-scale pyramid (ROADMAP §1
+    item 5): the pyramid, the multilevel arms, census_from2 streamed and
+    ZNCC under CBCA or no aggregation are accepted, and a frame must run."""
     cfg = port.default_config(max_disp=7, **{"do_refine": False, **overrides})
 
     def run():

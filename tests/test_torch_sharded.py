@@ -264,6 +264,11 @@ REFUSED = [
     dict(aggregation="fif"),
     dict(aggregation="nl"),
     dict(pyramid_levels=2),
+    dict(pyramid_levels=3),
+    dict(cbca_arm_mode="multilevel"),
+    dict(cbca_arm_mode="adaptive"),
+    dict(cost="census_from2"),
+    dict(cost="ad_census_grad"),
     dict(optimization="so"),
     dict(do_vmtop=True),
     dict(do_pkr=True),
