@@ -225,12 +225,29 @@ Phases, each of which raises (exit code 1) on failure:
    two-level, multilevel and adaptive schedules, each against its plain
    version with its bound (bytes at 3.35 TB/s and at ``COPY_BYTES_PER_S``)
    and the steps its walk takes;
-17. timing: ms/frame and MP*disp/s of the kernel path and of the same
+17. refinement variants (ROADMAP §1 item 6): the default preset on
+   ``make_synthetic_pair(seed=0)`` at 375x450, D=60, in two
+   configurations (``ITEM6``) that between them turn on every item-6 flag:
+   (a) the classifying LR check, the census border fill, PKR, RV_combine_BG
+   (``interpolate_type=3``, ``reg_vote_type=2``, ``bg_ip_dir=4``), the
+   KITTI fill, the whole-image vote and double-window CBCA merged by PKR's
+   blend (``cbca_combine=1``); (b) the histogram region vote
+   (``rv_int_ratio_quirk=False``), CBBI, WM, DA and the last median. Each
+   with the launch counts set to 0 just before its frame: exactly the
+   kernels of ``kernels_launched``, each as many times a frame as
+   ``ITEM6_FRAMES`` says (``arm_reduce`` two launches a histogram vote), the
+   maps equal to the card's plain path's and, on the top-left 96x128 crop
+   (the card running the crop too), to the CPU port's (0 px); the median
+   ms/frame of 3 frames and the peak device memory. Then ``arm_reduce``'s
+   sum (both passes of a vote) against its plain version on (b)'s first
+   vote's [61, 375, 450] stack and on a seeded [257, 1988, 2880] stack with
+   arms up to 34, each with its byte bound;
+18. timing: ms/frame and MP*disp/s of the kernel path and of the same
    pipeline with every kernel replaced by its plain torch version, for the
    full default configuration and for ``do_refine=False``, in alternating
    rounds; the refine chain alone, kernel and plain; and the peak device
    memory of a frame;
-18. profile: ``torch.profiler`` over frames of the full default
+19. profile: ``torch.profiler`` over frames of the full default
    configuration: device time, idle share, launches per frame, the largest
    device kernels and each hand kernel's device time a launch; ``region_vote``
    must launch twice a frame and ``arm_reduce`` never, and the frame must make
@@ -250,8 +267,8 @@ on one scan of that step, with 0 launches (the path launches it only
 within the step row that ``within`` names); the rows ``*_frame_c`` at frame C's
 shapes, with its launches; ``copy_bw`` on the 4 GiB buffer, on no frame's
 path, with the main path's launches, which must be 0, as must
-``arm_reduce``'s (its rows measure region vote's four integer passes, on
-no path since region vote became one kernel); the rows ``*_nl``
+``arm_reduce``'s on the default preset (its rows measure the unanimity
+vote's four integer passes, which that vote no longer runs); the rows ``*_nl``
 of A, D, ``arm_reduce``, ``region_vote`` and ``pi_scan`` at the
 nl_tree_filter frame's shapes, with its launches; the probes ``gather_rows``, ``gather_cols``,
 ``cumsum_rows`` and ``cumsum_cols`` on micro4.py's plane and, as ``*_nl``,
@@ -268,7 +285,11 @@ frame's, kernel B's time on the same values as ``kernel_b_ms`` and the
 largest difference to it as ``kernel_b_max_diff``; the rows
 ``arms_grow_multilevel`` and ``arms_grow_adaptive`` of kernel A on the
 Teddy image under those schedules, with the launches of that arm mode's
-frame and the bound at ``COPY_BYTES_PER_S`` as ``bound_copy_ms``; ``ms_from`` says
+frame and the bound at ``COPY_BYTES_PER_S`` as ``bound_copy_ms``; the rows
+``arm_reduce_hist`` and ``arm_reduce_hist_frame_c`` of the histogram
+vote's two sum passes on item 6 (b)'s stack, with that frame's launches,
+and on the seeded frame-C-sized stack, with 0 (no frame of the script
+runs it there); ``ms_from`` says
 whether ``ms`` came from the profiler or from CUDA events); the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -2726,6 +2747,114 @@ def phase_item5(dev, card_line: str):
                   for mode in ARM_MODES if mode != "two_level"}
 
 
+# ROADMAP §1 item 6, the refinement variants, on the default preset at Teddy
+# size: configuration -> its overrides. Between them they turn on every
+# item-6 flag: (a) the classifying LR check (so that OCC and MIS reach the
+# fill policy), the census border fill, PKR, RV_combine_BG (OCC to min(vote,
+# fill), the gated HV/tilted vote, the four-direction fill), the KITTI fill,
+# the whole-image vote and double-window CBCA merged by PKR's blend; (b) the
+# histogram region vote, CBBI, WM, DA and the last median
+ITEM6 = {
+    "a": dict(lrc_classify=True, do_fill_surrounding=True, do_pkr=True, rv_use_combine_bg=True,
+              interpolate_type=3, reg_vote_type=2, bg_ip_dir=4, do_bg_ipol=True,
+              bg_ipol_kitti=True, do_rv_whole_image=True, cbca_double_win=True,
+              cbca_combine=1),
+    "b": dict(rv_int_ratio_quirk=False, do_cbbi=True, do_wm=True, do_da=True,
+              do_last_median=True),
+}
+# each one's launches a frame: (a) A and B twice the default's (two windows),
+# arm_reduce twice a histogram vote (the gated vote's HV half in each of the
+# two RV_combine_BG passes, and the whole-image vote), no region_vote; (b)
+# arm_reduce twice a histogram pass, two passes; the tilted arms, CBBI, WM and
+# DA are plain torch
+ITEM6_FRAMES = {
+    "a": {"arms_grow": 4, "arm_taps": 16, "sgm_scan": 4, "wta": 2, "arm_reduce": 6,
+          "pi_scan": 2},
+    "b": {"arms_grow": 2, "arm_taps": 8, "sgm_scan": 4, "wta": 2, "arm_reduce": 4,
+          "pi_scan": 2},
+}
+ITEM6_CROP = (96, 128)
+ITEM6_STACK_ARM = 34  # the seeded frame-C stack's longest arm (max_arm)
+
+
+def hist_vote_case(stack, arms0, m):
+    """The histogram vote's sums of a [D + 1, H, W] one-hot stack, as the
+    vote calls ``arm_reduce``: along W with the left/right arms, then along
+    H with the up/down arms, as (kernel, plain, bytes, operations). Each
+    pass reads the stack and its two [H, W] arm planes and writes its
+    output once; one add a tap."""
+    left, right, up, down = (a.contiguous() for a in arms0[:4].unbind(0))
+
+    def run(fn):
+        return fn(fn(stack, left, right, 2, m, "sum"), up, down, 1, m, "sum")
+
+    c = stack.shape[0]
+    per_pass = 2 * stack.numel() * 4 + 2 * left.numel() * 4
+    nops = c * (taps(left, right, 1, m) + taps(up, down, 0, m))
+    return (lambda: run(ck.arm_reduce), lambda: run(arms_ops.arm_bounded_reduce_plain),
+            2 * per_pass, nops)
+
+
+def item6_stack_rows(left, out, cfg, counts, card_line: str) -> dict:
+    """arm_reduce's sum against its plain version on the histogram stack of
+    configuration (b)'s first vote (its LR map, [61, 375, 450]) and on a
+    seeded [257, 1988, 2880] stack with arms up to 34, each a kernels line
+    row, its bound by bytes (a pass: the stack read and written once and two
+    arm planes; 83.7 MB and 11.82 GB)."""
+    rows = {}
+    lrc = refine_ops.lr_consistency(out["disp_left_raw"], out["disp_right_raw"],
+                                    cfg.lr_max_diff)
+    stack = refine_ops.vote_stack(lrc, cfg.num_disp)
+    arms0 = arms_ops.build_arms(left, cfg)
+    rows["arm_reduce_hist"] = run_case(
+        "arm_reduce", f"item 6 (b) {TEDDY['h']}x{TEDDY['w']} D={cfg.num_disp}: the histogram "
+        f"vote's two sum passes on its first vote's stack {list(stack.shape)} (a frame "
+        f"launches it {counts['arm_reduce']} times)",
+        hist_vote_case(stack, arms0, cfg.arm_l_out), card_line)
+    del stack
+    gen = torch.Generator(device=left.device).manual_seed(0)
+    h, w = FULLRES
+    disp = torch.randint(-1, 256, (h, w), generator=gen, device=left.device, dtype=torch.int32)
+    arms_c = torch.randint(0, ITEM6_STACK_ARM + 1, (4, h, w), generator=gen,
+                           device=left.device, dtype=torch.int32)
+    stack = refine_ops.vote_stack(disp, 256)
+    rows["arm_reduce_hist_frame_c"] = run_case(
+        "arm_reduce", f"the histogram vote's two sum passes on a seeded {list(stack.shape)} "
+        f"stack (frame C's shape, D=256, arms up to {ITEM6_STACK_ARM}; no frame of this "
+        "script runs a histogram vote at this shape)",
+        hist_vote_case(stack, arms_c, ITEM6_STACK_ARM), card_line)
+    del stack, disp, arms_c
+    for name in ("arm_reduce_hist", "arm_reduce_hist_frame_c"):
+        row = rows[name]
+        print(f"  {name}: a pass {row['ms'] / 2:.4f} ms device against its byte bound "
+              f"{row['bound_ms'] / 2:.4f} ms [{card_line}]")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_item6(dev, card_line: str):
+    """ROADMAP §1 item 6 (see the module's docstring, phase 17): each
+    ``ITEM6`` frame (:func:`checked_frame`: the launches of ``ITEM6_FRAMES``,
+    the maps equal to the plain path's and, on the ``ITEM6_CROP`` crop, to
+    the CPU port's), then arm_reduce on the histogram stacks
+    (:func:`item6_stack_rows`). Returns (its rows, (b)'s frame launches)."""
+    pair = make_synthetic_pair(**TEDDY)
+    left = torch.from_numpy(pair.left).to(dev, torch.float32)
+    right = torch.from_numpy(pair.right).to(dev, torch.float32)
+    counts, maps = {}, {}
+    for name, overrides in ITEM6.items():
+        cfg = get_model("census_grad_cbca_sgm", max_disp=TEDDY["max_disp"], **overrides)
+        counts[name], maps[name] = checked_frame(
+            f"item 6 ({name}) {TEDDY['h']}x{TEDDY['w']} D={cfg.num_disp}", cfg,
+            ITEM6_FRAMES[name], left, right, dev, card_line, on_cpu=True, crop=ITEM6_CROP,
+            time_plain=False)
+    cfg_b = get_model("census_grad_cbca_sgm", max_disp=TEDDY["max_disp"], **ITEM6["b"])
+    rows = item6_stack_rows(left, maps["b"], cfg_b, counts["b"], card_line)
+    del maps
+    torch.cuda.empty_cache()
+    return rows, counts["b"]
+
+
 def timed(phase, *args):
     t0 = time.perf_counter()
     result = phase(*args)
@@ -2758,6 +2887,7 @@ def main() -> int:
     taps_rows = timed(phase_taps_probes, dev, card_line, build_log)
     timed(phase_presets, dev, card_line)
     arm_rows, arm_counts = timed(phase_item5, dev, card_line)
+    hist_rows, item6_counts = timed(phase_item6, dev, card_line)
     timed(phase_timing, dev, card_line)
     timed(phase_profile, dev, card_line)
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
@@ -2824,6 +2954,13 @@ def main() -> int:
     kernels += [dict(name=row, route="cuda", source=KERNELS["arms_grow"][0],
                      replaces=KERNELS["arms_grow"][1], launches=arm_counts[row], **arm_rows[row])
                 for row in arm_rows]
+    # arm_reduce on the histogram vote's stacks: configuration (b)'s frame
+    # launches it at Teddy size; no frame of this script runs it at frame C's
+    kernels += [dict(name=row, route="cuda", source=KERNELS["arm_reduce"][0],
+                     replaces=KERNELS["arm_reduce"][1],
+                     launches=item6_counts["arm_reduce"] if row == "arm_reduce_hist" else 0,
+                     **hist_rows[row])
+                for row in hist_rows]
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,9 +3,12 @@
 //
 // Replaces the TPU kernel `_taps_kernel` with op="min" | "max" | "sum" on
 // int32 (mystereomatching_tpu/ops/pallas_kernels.py), as region vote reaches
-// it: refine.region_vote -> arms.arm_bounded_reduce -> _try_pallas ->
-// arm_bounded_sum_pallas -> _sublane_pass. Kernel B (arm_taps.cu) keeps the
-// float32 sum and CBCA area modes; this file is its integer sibling.
+// it: refine.region_vote / vote_hv -> arms.arm_bounded_reduce -> _try_pallas
+// -> arm_bounded_sum_pallas -> _sublane_pass. Kernel B (arm_taps.cu) keeps the
+// float32 sum and CBCA area modes; this file is its integer sibling. The port
+// runs it for the histogram votes (refine.vote_sums: the sum of a [D + 1, H,
+// W] one-hot stack along W, then along H); the unanimity vote runs
+// region_vote.cu.
 //
 // What it computes, for each element x of a [C, H, W] int32 volume:
 //   out[x] = op over k in [-an[x], ap[x]] of vol[x + k e]
@@ -21,8 +24,9 @@
 //
 // What bounds it on the H100: memory. Each element reads its taps (2 max_arm
 // + 1 at most); neighbouring threads share them through L1/L2, so DRAM sees
-// about one read of vol and the arm planes and one write of out. Region vote
-// calls it on [2, H, W] (min) and [1, H, W] (sum) planes: a few MB a pass.
+// about one read of vol and the arm planes and one write of out. The
+// histogram votes call it on [D + 1, H, W] stacks: 83.7 MB a pass at 375x450,
+// D=60, 11.8 GB at 1988x2880, D=256.
 //
 // Design: one thread per output element, reducing along H or W by stride, as
 // kernel B does. Threads of a warp are neighbours along W: an H pass reads

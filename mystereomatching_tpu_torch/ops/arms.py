@@ -2,16 +2,18 @@
 
 Counterpart of ``mystereomatching_tpu/ops/arms.py``: ``cross_arms``,
 ``cross_arms_multilevel``, ``cross_arms_adaptive`` and ``build_arms`` (the
-three ``cbca_arm_mode`` schedules, grown along the four axis directions;
-the tilted arms are not ported), ``_border_floor``, ``intersect_arms``
-and its disparity-block form ``intersect_arms_block``,
-the arm-bounded sums CBCA runs and the integer arm-bounded reductions
-(region vote's plain version runs them). Arm growth is CUDA kernel A
-(``csrc/arms_grow.cu``), the arm-bounded sums are kernel B
+three ``cbca_arm_mode`` schedules, grown along the four axis directions or
+the four tilted ones, ``TILT_DIRECTIONS``), ``_border_floor``,
+``intersect_arms`` and its disparity-block form ``intersect_arms_block``,
+the arm-bounded sums CBCA runs, the integer arm-bounded reductions (the
+histogram region votes run their sums) and ``arm_bounded_sum_dir``, the
+tilted vote's sum along a diagonal. Arm growth along the axes is CUDA
+kernel A (``csrc/arms_grow.cu``), the arm-bounded sums are kernel B
 (``csrc/arm_taps.cu``) and the integer reductions its integer mode
-(``csrc/arm_reduce.cu``, on no pipeline path: region vote runs
-``csrc/region_vote.cu`` on the card); their plain torch versions sit
-beside the functions that dispatch to them.
+(``csrc/arm_reduce.cu``); their plain torch versions sit beside the
+functions that dispatch to them. The tilted arms and the diagonal sums are
+plain torch on every device, as they are plain jnp in the JAX package
+(only the axis directions go to its Pallas kernel, arms.py:98).
 
 Arm rule (calHorVerDis cpp:3009-3024): the arm in direction a reaches
 length k iff for every j <= k, p + j a is inside the image,
@@ -31,7 +33,10 @@ from mystereomatching_tpu_torch.ops import cuda_kernels as ck
 from mystereomatching_tpu_torch.ops.volume import shifted_stack, valid_mask
 
 # the reference's cross channel order (cpp:2976-2995): left, right, up, down
-DIRECTIONS = ((0, -1), (0, 1), (-1, 0), (1, 0))
+DIRECTIONS = ck.ARM_DIRECTIONS
+# the tilted (45-degree) cross of calTileDis (cpp:3362-3381): left-up,
+# right-down, right-up, left-down
+TILT_DIRECTIONS = ((-1, -1), (1, 1), (-1, 1), (1, -1))
 
 _PAD_FAIL = 10000.0  # off-image colour that fails every threshold
 
@@ -59,12 +64,13 @@ def border_floor(h: int, w: int, dv: int, du: int, min_arm: int, device) -> torc
 
 
 def grow_arms_plain(img: torch.Tensor, sched: Sequence[float],
-                    neigh_thresh: float, min_arm: int) -> torch.Tensor:
-    """Plain torch arm growth: [H, W, 3] -> int32 [4, H, W] (L, R, U, D)."""
+                    neigh_thresh: float, min_arm: int, directions=DIRECTIONS) -> torch.Tensor:
+    """Plain torch arm growth: [H, W, 3] -> int32 [len(directions), H, W],
+    in the order of ``directions`` (L, R, U, D by default)."""
     img = img.to(torch.float32)
     h, w = img.shape[:2]
     arms = []
-    for dv, du in DIRECTIONS:
+    for dv, du in directions:
         alive = torch.ones((h, w), dtype=torch.bool, device=img.device)
         arm = torch.zeros((h, w), dtype=torch.int32, device=img.device)
         prev = img
@@ -80,12 +86,15 @@ def grow_arms_plain(img: torch.Tensor, sched: Sequence[float],
 
 
 def grow_arms(img: torch.Tensor, sched: Sequence[float], neigh_thresh: float,
-              min_arm: int) -> torch.Tensor:
-    """Cross arms of an [H, W, 3] image, int32 [4, H, W] (L, R, U, D)."""
+              min_arm: int, directions=DIRECTIONS) -> torch.Tensor:
+    """Cross arms of an [H, W, 3] image, int32 [4, H, W] in the order of
+    ``directions``: the axis arms (L, R, U, D) through kernel A on the card,
+    any other directions (``TILT_DIRECTIONS``) plain torch on every device."""
     img = img.to(torch.float32).contiguous()
-    if ck.on_cuda(img):
+    directions = tuple(map(tuple, directions))
+    if directions == DIRECTIONS and ck.on_cuda(img):
         return ck.arms_grow(img, sched, neigh_thresh, min_arm)
-    return grow_arms_plain(img, sched, neigh_thresh, min_arm)
+    return grow_arms_plain(img, sched, neigh_thresh, min_arm, directions)
 
 
 def two_level_schedule(l_in: int = 17, l_out: int = 34, c_in: int = 20,
@@ -118,25 +127,30 @@ def adaptive_schedule(l_in: int = 17, l_out: int = 34, c_in: int = 20,
 
 
 def cross_arms(img: torch.Tensor, l_in: int = 17, l_out: int = 34,
-               c_in: int = 20, c_out: int = 6, min_arm: int = 1) -> torch.Tensor:
+               c_in: int = 20, c_out: int = 6, min_arm: int = 1,
+               directions=DIRECTIONS) -> torch.Tensor:
     """Two-level arms: anchor threshold c_in up to l_in, c_out beyond."""
-    return grow_arms(img, two_level_schedule(l_in, l_out, c_in, c_out), float(c_in), min_arm)
+    return grow_arms(img, two_level_schedule(l_in, l_out, c_in, c_out), float(c_in), min_arm,
+                     directions)
 
 
 def cross_arms_multilevel(img: torch.Tensor, levels_l=(17, 23, 34), levels_t=(20, 30, 30),
-                          neigh_thresh: int = 20, min_arm: int = 1) -> torch.Tensor:
+                          neigh_thresh: int = 20, min_arm: int = 1,
+                          directions=DIRECTIONS) -> torch.Tensor:
     """Multilevel arms (:func:`multilevel_schedule`), the neighbour
     threshold ``neigh_thresh`` (the vector overload hard-codes 20,
     cpp:3209)."""
     return grow_arms(img, multilevel_schedule(levels_l, levels_t), float(neigh_thresh),
-                     min_arm)
+                     min_arm, directions)
 
 
 def cross_arms_adaptive(img: torch.Tensor, l_in: int = 17, l_out: int = 34,
-                        c_in: int = 20, c_out: int = 6, min_arm: int = 1) -> torch.Tensor:
+                        c_in: int = 20, c_out: int = 6, min_arm: int = 1,
+                        directions=DIRECTIONS) -> torch.Tensor:
     """Adaptive arms (:func:`adaptive_schedule`), the neighbour threshold
     c_in."""
-    return grow_arms(img, adaptive_schedule(l_in, l_out, c_in, c_out), float(c_in), min_arm)
+    return grow_arms(img, adaptive_schedule(l_in, l_out, c_in, c_out), float(c_in), min_arm,
+                     directions)
 
 
 def arm_schedule(cfg):
@@ -153,12 +167,13 @@ def arm_schedule(cfg):
     return two_level_schedule(*args), float(cfg.cbca_c_thresh)
 
 
-def build_arms(img: torch.Tensor, cfg) -> torch.Tensor:
+def build_arms(img: torch.Tensor, cfg, directions=DIRECTIONS) -> torch.Tensor:
     """The calArms family (cpp:5354-5472): the cross arms of ``img`` under
-    ``cfg.cbca_arm_mode``'s schedule (:func:`arm_schedule`), through
-    kernel A on the card."""
+    ``cfg.cbca_arm_mode``'s schedule (:func:`arm_schedule`) along
+    ``directions``: the axis arms through kernel A on the card, the tilted
+    ones (``TILT_DIRECTIONS``) plain torch."""
     sched, neigh = arm_schedule(cfg)
-    return grow_arms(img, sched, neigh, cfg.cbca_min_arm)
+    return grow_arms(img, sched, neigh, cfg.cbca_min_arm, directions)
 
 
 def intersect_arms(arms_l: torch.Tensor, arms_r: torch.Tensor, num_disp: int,
@@ -293,3 +308,25 @@ def arm_bounded_reduce(vol: torch.Tensor, arm_neg: torch.Tensor,
     if ck.on_cuda(vol):
         return ck.arm_reduce(vol, arm_neg, arm_pos, axis, max_arm, op)
     return arm_bounded_reduce_plain(vol, arm_neg, arm_pos, axis, max_arm, op)
+
+
+def arm_bounded_sum_dir(vol: torch.Tensor, arm_neg: torch.Tensor, arm_pos: torch.Tensor,
+                        step, max_arm: int = 34) -> torch.Tensor:
+    """Arm-bounded sum of an int32 [C, H, W] volume along the 2-D step
+    (dv, du) (the tilted supports, cal_histogram_for_Tile cpp:6864-6910):
+    out[x] = sum over k in [-arm_neg[x], arm_pos[x]] of vol[x + k step],
+    zero off the image; arms [H, W] (or broadcastable), bounded by
+    ``max_arm`` taps each way. The JAX ``arm_bounded_sum_dir``'s taps in
+    its order (integer sums, exact in any); plain torch on every device,
+    as in the JAX package."""
+    dv, du = step
+    h, w = vol.shape[-2:]
+    m = max_arm
+    padded = F.pad(vol, (m, m, m, m))
+    out = torch.zeros_like(vol)
+    zero = torch.zeros((), dtype=vol.dtype, device=vol.device)
+    for k in range(-m, m + 1):
+        ov, ou = m + k * dv, m + k * du
+        shifted = padded[..., ov:ov + h, ou:ou + w]
+        out += torch.where((k >= -arm_neg) & (k <= arm_pos), shifted, zero)
+    return out

@@ -20,9 +20,10 @@ in-image mask, which the row-band pipeline runs, are a kernel of their own
 (:func:`sgm_scan_table`, each scan a :class:`ChunkScan`) and writes into
 the caller's buffers in place, counted apart as ``sgm_scan_ext``, its scans
 in :data:`launches_scans`.
-Region vote runs one pass a launch (``csrc/region_vote.cu``);
+Region vote's unanimity form runs one pass a launch (``csrc/region_vote.cu``);
 ``arm_reduce`` (``csrc/arm_reduce.cu``), the single-axis integer
-reduction it was built from, is on no pipeline path.
+reduction it was built from, sums the histogram region votes' one-hot
+stacks, two launches a pass.
 ``copy_bw`` (``csrc/copy_bw.cu``), the gather and prefix-sum probes
 ``gather_rows``, ``gather_cols``, ``cumsum_rows`` and ``cumsum_cols``
 (``csrc/plane_probes.cu``) and the SGM-layout probes ``sgm_probe_hdw``,
@@ -69,6 +70,7 @@ SCAN_TABLE_MAX = 32  # scans in one sgm_scan_ext launch (the kernel's kMaxScans)
 SCAN_TABLE_LINES = (16, 4)  # the block widths, in columns, it is built for
 REDUCE_OPS = {"sum": 0, "min": 1, "max": 2}
 MAX_ARM = 127  # the longest arm kernels A and region_vote take (the config's bound)
+ARM_DIRECTIONS = ((0, -1), (0, 1), (-1, 0), (1, 0))  # kernel A's walks: L, R, U, D
 # the SGM-layout probes: entry point -> (its index, the kinds it takes)
 SGM_PROBES = {"sgm_probe_hdw": (0, ("full",)), "sgm_probe_g": (1, ("full",)),
               "sgm_probe_rolled": (2, ("copy", "prev", "full")),
@@ -228,10 +230,15 @@ def _launch_vol(name: str, lib: ctypes.CDLL, entry: str, vol: torch.Tensor, *arg
 
 
 def arms_grow(img: torch.Tensor, sched: Sequence[float], neigh_thresh: float,
-              min_arm: int) -> torch.Tensor:
+              min_arm: int, directions=ARM_DIRECTIONS) -> torch.Tensor:
     """Kernel A. img: [H, W, 3] float32 -> int32 [4, H, W] arms (L, R, U, D);
     the anchor schedule (1 to 127 thresholds, rounded to float32) goes to
-    the kernel as a launch parameter, with no copy to the card."""
+    the kernel as a launch parameter, with no copy to the card. It walks the
+    four axis directions only: any other ``directions`` (the tilted arms)
+    raise, as the JAX package sends only those four to its Pallas kernel."""
+    if tuple(map(tuple, directions)) != ARM_DIRECTIONS:
+        raise ValueError(f"arms_grow: grows the axis directions {ARM_DIRECTIONS} only, "
+                         f"not {tuple(directions)}")
     if img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"arms_grow: expected [H, W, 3], got {tuple(img.shape)}")
     _check(img, "arms_grow img", torch.float32)

@@ -395,8 +395,11 @@ def _match_pair_band(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
 def check_sharded_support(cfg: MatchConfig, n_disp: int = 1) -> None:
     """Raise NotImplementedError, naming the flag, for every configuration
     the band path would not run with the dense path's meaning: whatever the
-    dense port refuses (``pipeline.check_supported``), NL, box-filter and
-    guided-filter aggregation, double-window CBCA, the vmTop decision, the
+    dense port refuses (``pipeline.check_supported``), the refinement
+    stages beyond the default chain (the census border fill, PKR,
+    RV_combine_BG, the histogram region vote, CBBI, the KITTI fill, the
+    weighted median, discontinuity adjustment and the whole-image vote), NL,
+    box-filter and guided-filter aggregation, double-window CBCA, the vmTop decision, the
     cross-scale pyramid, the multilevel and adaptive arms, any cost but
     census_grad and any optimization but SGM, ``d_stream_block``
     (a 'disp' axis splits the disparities instead, as in the JAX package)
@@ -406,6 +409,22 @@ def check_sharded_support(cfg: MatchConfig, n_disp: int = 1) -> None:
     refuses it instead. ValueError where n_disp does not divide the
     disparities."""
     check_supported(cfg)
+    refining = cfg.do_refine
+    for hit, flag in (
+            (refining and cfg.do_fill_surrounding, "do_fill_surrounding"),
+            (refining and cfg.do_pkr, "do_pkr"),
+            (refining and cfg.do_region_vote and cfg.rv_use_combine_bg, "rv_use_combine_bg"),
+            (refining and cfg.do_region_vote and not cfg.rv_use_combine_bg
+             and not cfg.rv_int_ratio_quirk, "rv_int_ratio_quirk=False"),
+            (refining and cfg.do_cbbi, "do_cbbi"),
+            (refining and cfg.do_bg_ipol and cfg.bg_ipol_kitti, "bg_ipol_kitti"),
+            (refining and cfg.do_wm, "do_wm"),
+            (refining and cfg.do_da, "do_da"),
+            (refining and cfg.do_rv_whole_image, "do_rv_whole_image")):
+        if hit:
+            raise NotImplementedError(
+                f"sharded pipeline: {flag} (its band form, in the JAX parallel/sharded.py, is "
+                "not ported)")
     if cfg.pyramid_levels > 1:
         raise NotImplementedError(
             f"sharded pipeline: pyramid_levels={cfg.pyramid_levels} (the band form of the "

@@ -9,7 +9,7 @@ normalised or not), ``zncc``, ``ssd``, truncated AD (``trunc_ad``),
 Birchfield-Tomasi (``bt``) and the NL flow's ``qx_ad_grad`` and
 ``qx_census``. Aggregation: cross arms (in any ``cbca_arm_mode``: two
 levels, multilevel or adaptive) and CBCA (at one arm scale, or at two
-merged by ``combine2Vm_2``, ``_3`` or ``_4``: ``cbca_double_win``), or
+merged by ``combine2Vm``, ``_2``, ``_3`` or ``_4``: ``cbca_double_win``), or
 none, in float32 or bfloat16 volumes, whole or, for the costs with a
 block form, streamed over blocks of ``d_stream_block`` disparities
 (``trunc_ad`` and ``bt`` whole and in float32 only; ``zncc``, ``ssd`` and
@@ -23,10 +23,14 @@ Gaussian pyramid fused into the finest by ``crossscale.solve_all``.
 Optimization: 4- or 8-path SGM, or none,
 then WTA on the left and right volumes, or the cooperative WTA of the left volume alone, and the
 uniqueness check; or the vmTop decision in place of WTA; or scanline
-optimisation (``"so"``), which decides each volume itself. Refinement: LR
-check (plain or classifying), region vote, proper interpolation, the
-background fill, and either the median or subpixel enhancement with its
-median, and the decision-time subpixel (``sub_ipol``). And the standalone
+optimisation (``"so"``), which decides each volume itself. Refinement: every
+stage of the JAX package's chain (the census border fill, LR check plain
+or classifying, PKR, region vote in its unanimity and histogram forms or
+RV_combine_BG with its HV, tilted and gated votes and its background
+fills, CBBI, proper interpolation, the background fill plain or KITTI's,
+the weighted median, discontinuity adjustment, either the median or
+subpixel enhancement with its median, and the whole-image vote), and the
+decision-time subpixel (``sub_ipol``). And the standalone
 qx NL flow (``nl_post_process``, ``ops/nl.nl_disparity``), which owns its
 decision and refinement. That covers the presets ``census_grad_cbca_sgm``
 (with or without ``do_refine``), ``ad_census_wta``, ``census_wta``,
@@ -58,6 +62,7 @@ import torch
 from mystereomatching_tpu_torch.config import MatchConfig, as_port_config
 from mystereomatching_tpu_torch.ops import aggregation as agg_ops
 from mystereomatching_tpu_torch.ops import arms as arms_ops
+from mystereomatching_tpu_torch.ops import cbbi as cbbi_ops
 from mystereomatching_tpu_torch.ops import combine as combine_ops
 from mystereomatching_tpu_torch.ops import cost as cost_ops
 from mystereomatching_tpu_torch.ops import crossscale
@@ -132,6 +137,11 @@ def _level_disparities(cfg: MatchConfig) -> List[int]:
     return out
 
 
+def _needs_vote_arms(cfg: MatchConfig) -> bool:
+    """The region votes read the left image's cross arms (with refinement on)."""
+    return cfg.do_region_vote or cfg.do_rv_whole_image
+
+
 def _n_views(cfg: MatchConfig) -> int:
     """The volumes built: left, and right when the LR check reads one."""
     return 2 if (cfg.compute_both_volumes and cfg.do_lr_consis) else 1
@@ -139,18 +149,7 @@ def _n_views(cfg: MatchConfig) -> int:
 
 def check_supported(cfg: MatchConfig) -> None:
     """Raise NotImplementedError for a stage this package does not run yet."""
-    refining = cfg.do_refine
     unported = [
-        (refining and cfg.do_fill_surrounding, "do_fill_surrounding"),
-        (refining and cfg.do_pkr, "do_pkr"),
-        (refining and cfg.do_region_vote and cfg.rv_use_combine_bg, "rv_use_combine_bg"),
-        (refining and cfg.do_region_vote and not cfg.rv_use_combine_bg
-         and not cfg.rv_int_ratio_quirk, "rv_int_ratio_quirk=False (histogram region vote)"),
-        (refining and cfg.do_cbbi, "do_cbbi"),
-        (refining and cfg.do_bg_ipol and cfg.bg_ipol_kitti, "bg_ipol_kitti"),
-        (refining and cfg.do_wm, "do_wm"),
-        (refining and cfg.do_da, "do_da"),
-        (refining and cfg.do_rv_whole_image, "do_rv_whole_image"),
         (cfg.cost not in COSTS, f"cost {cfg.cost!r}"),
         (cfg.aggregation in ("cbca", "none") and cfg.cost not in WHOLE_COSTS,
          f"cost {cfg.cost!r} with aggregation {cfg.aggregation!r}"),
@@ -173,8 +172,6 @@ def check_supported(cfg: MatchConfig) -> None:
         (cfg.aggregation == "gfnl" and cfg.nl_neighbors != 4,
          f"nl_neighbors={cfg.nl_neighbors} with GFNL aggregation (the JAX package filters "
          "its tree with 4-neighbour slots)"),
-        (_double_win(cfg) and cfg.cbca_combine == 1,
-         "cbca_combine=1 with cbca_double_win (combine2vm_pkr needs PKR)"),
         (_double_win(cfg) and cfg.vol_dtype != "float32",
          f"vol_dtype {cfg.vol_dtype!r} with cbca_double_win"),
         (cfg.optimization not in ("sgm", "wta", "so"), f"optimization {cfg.optimization!r}"),
@@ -208,14 +205,21 @@ def kernels_launched(cfg: MatchConfig) -> List[str]:
     if cfg.aggregation == "cbca":
         used.add("arm_taps")
     if cfg.aggregation == "cbca" or _needs_arms_for_cost(cfg) or (
-            refining and cfg.do_region_vote):
+            refining and _needs_vote_arms(cfg)):
         used.add("arms_grow")
     if cfg.optimization == "sgm" and not _nl_flow(cfg):
         used.add("sgm_scan")
         if cfg.sgm_scan_num > 4:
             used.add("sgm_diag")
-    if refining and cfg.do_region_vote:
-        used.add("region_vote")
+    if refining and cfg.do_region_vote and not cfg.rv_use_combine_bg:
+        used.add("region_vote" if cfg.rv_int_ratio_quirk else "arm_reduce")
+    if refining and (cfg.do_rv_whole_image and not cfg.do_subpixel or (
+            cfg.do_region_vote and cfg.rv_use_combine_bg and cfg.interpolate_type != 1
+            and cfg.reg_vote_type != 1)):
+        # the histogram votes over the HV support: the whole-image vote
+        # (after the early return of do_subpixel) and RV_combine_BG's vote of
+        # types 0 and 2
+        used.add("arm_reduce")
     if refining and cfg.do_proper_ipol:
         used.add("pi_scan")
     return [name for name in ck.launches if name in used]
@@ -243,7 +247,7 @@ def compute_volumes(left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig,
     gl, gr = to_gray(left), to_gray(right)
     n_imgs = _n_views(cfg)
     images = (left, right)
-    region_vote = cfg.do_refine and cfg.do_region_vote
+    region_vote = cfg.do_refine and _needs_vote_arms(cfg)
     arms_pair = tuple(
         arms_ops.build_arms(images[lor], cfg)
         if cfg.aggregation == "cbca" or (_needs_arms_for_cost(cfg) and lor < n_imgs)
@@ -419,38 +423,71 @@ def optimize(vols, left: torch.Tensor, right: torch.Tensor, cfg: MatchConfig):
 
 def refine(d_left: torch.Tensor, d_right, vol_left, left: torch.Tensor,
            arms0: torch.Tensor, cfg: MatchConfig) -> torch.Tensor:
-    """L4 (refine() cpp:1347-1511) for the stages ported: LR check (plain,
-    or classifying failures as DISP_OCC or DISP_MIS), region vote, proper
-    interpolation, the background fill, then subpixel enhancement from
-    vol_left (the left volume after SGM; only read with ``do_subpixel``)
-    and its median, or the last median, in the JAX package's order, on the
-    left map. arms0:
-    the left image's [4, H, W] cross arms. Returns a float32 map with
+    """L4 (refine() cpp:1347-1511) on the left map, in the JAX package's
+    stage order: the census border filled on both maps
+    (``do_fill_surrounding``); the LR check (plain, or classifying failures
+    as DISP_OCC or DISP_MIS), whose failures the weighted median reads;
+    PKR from vol_left; ``region_vote_iters`` passes of the region vote
+    (unanimity or histogram) or of RV_combine_BG (the tilted arms built from
+    the left image for vote types 1 and 2); CBBI; proper interpolation; the
+    background fill (KITTI's or the plain one); the weighted median;
+    discontinuity adjustment from vol_left; then subpixel enhancement from
+    vol_left and its median (returned at once), or the last median and the
+    whole-image vote. vol_left is the left volume after SGM; arms0 the left
+    image's [4, H, W] cross arms. Returns a float32 map with
     ``do_subpixel``, else int32."""
     d = d_left
+    if cfg.do_fill_surrounding:
+        # fillSurronding (cpp:2214-2260) on both maps before the LR check
+        d = refine_ops.fill_surrounding(d, cfg.census_rv, cfg.census_ru, cfg.disp_inv)
+        if d_right is not None:
+            d_right = refine_ops.fill_surrounding(d_right, cfg.census_rv, cfg.census_ru,
+                                                  cfg.disp_inv)
     if cfg.do_lr_consis and d_right is not None:
         if cfg.lrc_classify:
             d = refine_ops.lr_consistency_classify(d, d_right, cfg.num_disp, cfg.lr_max_diff,
                                                    cfg.disp_occ, cfg.disp_mis)
         else:
             d = refine_ops.lr_consistency(d, d_right, cfg.lr_max_diff)
+    lrc_fail = d < 0
+    if cfg.do_pkr:
+        d = refine_ops.apply_pkr(d, vol_left, cfg.pkr_thresh, cfg.disp_pkr)
     if cfg.do_region_vote:
+        arms_tilt = None
+        if cfg.rv_use_combine_bg and cfg.reg_vote_type > 0:
+            arms_tilt = arms_ops.build_arms(left, cfg, directions=arms_ops.TILT_DIRECTIONS)
         for _ in range(cfg.region_vote_iters):
-            d = refine_ops.region_vote(d, arms0, cfg.num_disp, cfg.rv_s_thres,
-                                       cfg.rv_h_ratio, cfg.rv_int_ratio_quirk,
-                                       max_arm=cfg.arm_l_out)
+            if cfg.rv_use_combine_bg:
+                d = refine_ops.rv_combine_bg(
+                    d, arms0, arms_tilt, left, cfg.num_disp, cfg.rv_s_thres, cfg.rv_h_ratio,
+                    cfg.interpolate_type, cfg.reg_vote_type, cfg.bg_ipl_depth, cfg.bg_ip_dir,
+                    cfg.disp_occ, cfg.disp_mis, max_arm=cfg.arm_l_out)
+            else:
+                d = refine_ops.region_vote(d, arms0, cfg.num_disp, cfg.rv_s_thres,
+                                           cfg.rv_h_ratio, cfg.rv_int_ratio_quirk,
+                                           max_arm=cfg.arm_l_out)
+    if cfg.do_cbbi:
+        d = cbbi_ops.cbbi(d, left, cfg)
     if cfg.do_proper_ipol:
         for _ in range(cfg.proper_ipol_iters):
             d = refine_ops.proper_interpolation(d, left, cfg.pi_search_depth,
                                                 cfg.disp_occ)
     if cfg.do_bg_ipol:
-        d = refine_ops.bg_interpolation(d, cfg.num_disp)
+        d = (refine_ops.interpolate_background_kitti(d, cfg.ipol_threshold)
+             if cfg.bg_ipol_kitti else refine_ops.bg_interpolation(d, cfg.num_disp))
+    if cfg.do_wm:
+        d = refine_ops.weighted_median(d, left, lrc_fail, cfg.num_disp, cfg.wm_win,
+                                       cfg.wm_sigma_c, cfg.wm_sigma_s)
+    if cfg.do_da:
+        d = refine_ops.discontinuity_adjust(d, vol_left)
     if cfg.do_subpixel:
         # the float map; the reference keeps a separate SE buffer
         return refine_ops.median_blur_disp(refine_ops.subpixel_enhance(d, vol_left),
                                            cfg.median_kernel)
     if cfg.do_last_median:
         d = refine_ops.median_blur_disp(d, cfg.median_kernel)
+    if cfg.do_rv_whole_image:
+        d = refine_ops.region_vote_whole_image(d, arms0, cfg.num_disp, max_arm=cfg.arm_l_out)
     return d
 
 
@@ -543,7 +580,7 @@ def match_pair_nl_batch(lefts: torch.Tensor, rights: torch.Tensor,
             "from its match_pair's)")
     lefts = lefts.to(torch.float32)
     rights = rights.to(torch.float32)
-    need_arms = _needs_arms_for_cost(cfg) or (cfg.do_refine and cfg.do_region_vote)
+    need_arms = _needs_arms_for_cost(cfg) or (cfg.do_refine and _needs_vote_arms(cfg))
     vdt = VOL_DTYPES[cfg.vol_dtype]
     arms0, vols = [], []
     for left, right in zip(lefts, rights):

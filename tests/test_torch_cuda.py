@@ -1228,3 +1228,109 @@ def test_sgm_kernels_carry_nan_as_plain(cuda, nd, dtype):
     for rv, ru in sgm.DIRECTIONS_8[4:]:
         assert _same_with_nan(ck.sgm_diag_scan(vol, ps, 1.0, 3.0, rv, ru),
                               sgm.sgm_diag_scan_plain(vol, ps, 1.0, 3.0, rv, ru)), (rv, ru)
+
+
+# ROADMAP §1 item 6 on the card: configuration (a) and (b) of chip_smoke.py's
+# phase_item6
+ITEM6_FRAMES = {
+    "a": dict(lrc_classify=True, do_fill_surrounding=True, do_pkr=True, rv_use_combine_bg=True,
+              interpolate_type=3, reg_vote_type=2, bg_ip_dir=4, do_bg_ipol=True,
+              bg_ipol_kitti=True, do_rv_whole_image=True, cbca_double_win=True,
+              cbca_combine=1),
+    "b": dict(rv_int_ratio_quirk=False, do_cbbi=True, do_wm=True, do_da=True,
+              do_last_median=True),
+}
+
+
+def _one_hot_stack(dev, num_disp, h, w, seed):
+    """A [D + 1, H, W] histogram stack of a seeded map with holes, its
+    arms (up to 34) and the map."""
+    rng = np.random.default_rng(seed)
+    disp = rng.integers(-1, num_disp, (h, w)).astype(np.int32)
+    arms0 = _t(rng.integers(0, 35, (4, h, w)).astype(np.int32), dev)
+    return refine.vote_stack(_t(disp, dev), num_disp), arms0, _t(disp, dev)
+
+
+@pytest.mark.parametrize("num_disp,h,w", [(16, 45, 70), (60, 96, 128)])
+def test_arm_reduce_sum_on_vote_stack(cuda, num_disp, h, w):
+    """arm_reduce's sum on a [D + 1, H, W] one-hot stack, along W then H,
+    equals its plain version (integer sums, exact)."""
+    stack, arms0, _ = _one_hot_stack(cuda, num_disp, h, w, num_disp)
+    l_, r_, u_, d_ = (a.contiguous() for a in arms0.unbind(0))
+    got = ck.arm_reduce(ck.arm_reduce(stack, l_, r_, 2, 34, "sum"), u_, d_, 1, 34, "sum")
+    want = arms.arm_bounded_reduce_plain(arms.arm_bounded_reduce_plain(stack, l_, r_, 2, 34,
+                                                                       "sum"),
+                                         u_, d_, 1, 34, "sum")
+    assert torch.equal(got, want)
+    assert int(got[-1].max()) > 1
+
+
+def test_histogram_vote_kernel_path_equals_plain(cuda):
+    """The histogram region vote and the whole-image vote on the card: two
+    arm_reduce launches a pass, the maps equal to the plain path's."""
+    _, arms0, disp = _one_hot_stack(cuda, 24, 80, 100, 3)
+    ck.reset_launches()
+    got = refine.region_vote(disp, arms0, 24, 5, 0.4, False, 34)
+    whole = refine.region_vote_whole_image(disp, arms0, 24, 34)
+    assert ck.launches["arm_reduce"] == 4 and ck.launches["region_vote"] == 0
+    with mock.patch.object(ck, "on_cuda", lambda t: False):
+        assert torch.equal(got, refine.region_vote(disp, arms0, 24, 5, 0.4, False, 34))
+        assert torch.equal(whole, refine.region_vote_whole_image(disp, arms0, 24, 34))
+
+
+def test_arms_grow_kernel_refuses_tilted_directions(cuda):
+    """Kernel A walks the axis directions only: the tilted ones raise there,
+    and build_arms grows them in plain torch on the card (no launch), equal
+    to the CPU's."""
+    img = _t(np.random.default_rng(0).integers(0, 256, (30, 40, 3)).astype(np.float32), cuda)
+    with pytest.raises(ValueError, match="axis directions"):
+        ck.arms_grow(img, SCHED, 20.0, 1, directions=arms.TILT_DIRECTIONS)
+    cfg = port.default_config()
+    ck.reset_launches()
+    tilt = arms.build_arms(img, cfg, directions=arms.TILT_DIRECTIONS)
+    assert ck.launches["arms_grow"] == 0
+    assert torch.equal(tilt.cpu(), arms.build_arms(img.cpu(), cfg,
+                                                   directions=arms.TILT_DIRECTIONS))
+
+
+def test_canny_and_wm_forms_on_cuda_equal_cpu(cuda):
+    """The Canny angle (float64 atan2 rounded once, one FMA), the blur's FMA
+    chains, the gray mix and the weighted median's weights (fma32, exp32) on
+    the card give the CPU's bits."""
+    from mystereomatching_tpu_torch.ops import canny, cbbi
+
+    rng = np.random.default_rng(1)
+    gy, gx = (torch.from_numpy((rng.standard_normal(200_000) * 300).astype(np.float32))
+              for _ in range(2))
+    assert torch.equal(canny.gradient_degrees(gy.to(cuda), gx.to(cuda)).cpu(),
+                       canny.gradient_degrees(gy, gx))
+    img = torch.from_numpy(rng.integers(0, 256, (60, 80)).astype(np.float32))
+    for ksize in (3, 7):
+        assert torch.equal(canny.gaussian_blur(img.to(cuda), ksize, 4.0).cpu(),
+                           canny.gaussian_blur(img, ksize, 4.0))
+    rgb = torch.from_numpy((rng.random((3, 60, 80)) * 255).astype(np.float32))
+    assert torch.equal(cbbi.gray_mix(*rgb.to(cuda)).cpu(), cbbi.gray_mix(*rgb))
+    cdis = torch.from_numpy(rng.uniform(0, 60000, 200_000).astype(np.float32))
+    assert torch.equal(refine.wm_weight(cdis.to(cuda), 3, -5).cpu(), refine.wm_weight(cdis, 3, -5))
+    e = canny.canny_edges(img.to(cuda), equalize=True, blur_sigma=4.0)
+    assert torch.equal(e.cpu(), canny.canny_edges(img, equalize=True, blur_sigma=4.0))
+
+
+@pytest.mark.parametrize("name", sorted(ITEM6_FRAMES))
+def test_item6_frame_on_cuda_equals_plain_path_and_cpu(cuda, name):
+    """A 96x128 frame of each item-6 configuration on the card: exactly the
+    kernels of ``kernels_launched`` (arm_reduce for the histogram votes),
+    the maps equal to the plain path's on the card and to the CPU port's."""
+    pair = make_synthetic_pair(h=96, w=128, max_disp=15, seed=6)
+    cfg = port.default_config(max_disp=pair.max_disp, **ITEM6_FRAMES[name])
+    pipe = port.StereoPipeline(cfg, device=cuda)
+    ck.reset_launches()
+    gpu = pipe(pair.left, pair.right)
+    assert [k for k, n in ck.launches.items() if n] == kernels_launched(cfg)
+    with mock.patch.object(ck, "on_cuda", lambda t: False):
+        plain = pipe(pair.left, pair.right)
+    cpu = port.StereoPipeline(cfg, device="cpu")(pair.left, pair.right)
+    assert set(gpu) == set(plain) == set(cpu)
+    for key in gpu:
+        assert torch.equal(gpu[key], plain[key]), key
+        assert torch.equal(gpu[key].cpu(), cpu[key]), key

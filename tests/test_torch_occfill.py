@@ -226,8 +226,17 @@ def test_fullres_occfill_is_supported_with_its_kernels():
         check_supported(cfg)
         assert kernels_launched(cfg) == ["arms_grow", "arm_taps", "sgm_scan", "wta",
                                          "region_vote", "pi_scan"]
+    # the KITTI fill (ROADMAP §1 item 6) runs, with the same kernels, and a frame runs
+    kitti = get_model("fullres_occfill", max_disp=7, bg_ipol_kitti=True)
+    check_supported(kitti)
+    assert kernels_launched(kitti) == ["arms_grow", "arm_taps", "sgm_scan", "wta",
+                                       "region_vote", "pi_scan"]
+    out = StereoPipeline(kitti, device="cpu")(np.zeros((8, 12, 3), np.uint8),
+                                              np.zeros((8, 12, 3), np.uint8))
+    assert tuple(out["disparity"].shape) == (8, 12)
     for bad in (dict(d_stream_block=32, cbca_double_win=True),
-                dict(d_stream_block=32, cost="bt"), dict(bg_ipol_kitti=True),
+                dict(d_stream_block=32, cost="bt"),
+                dict(bg_ipol_kitti=True, d_stream_block=32, cost="zncc"),
                 dict(vol_dtype="float16")):
         with pytest.raises(NotImplementedError):
             check_supported(get_model("fullres_occfill", max_disp=255, **bad))

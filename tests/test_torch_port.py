@@ -45,6 +45,8 @@ MODULES = [
     "mystereomatching_tpu_torch.ops.arms",
     "mystereomatching_tpu_torch.ops.aws",
     "mystereomatching_tpu_torch.ops.bandwidth",
+    "mystereomatching_tpu_torch.ops.canny",
+    "mystereomatching_tpu_torch.ops.cbbi",
     "mystereomatching_tpu_torch.ops.census",
     "mystereomatching_tpu_torch.ops.combine",
     "mystereomatching_tpu_torch.ops.cost",
@@ -156,7 +158,17 @@ PORTED_FROM_THIS_LIST = [dict(do_refine=True, lrc_classify=True),
                          dict(cost="zncc", aggregation="nl"), dict(cost="bt", aggregation="nl"),
                          dict(pyramid_levels=2), dict(cbca_arm_mode="multilevel"),
                          dict(cost="census_from2", d_stream_block=4),
-                         dict(cost="zncc", aggregation="none"), dict(cost="zncc")]
+                         dict(cost="zncc", aggregation="none"), dict(cost="zncc"),
+                         dict(do_refine=True, do_fill_surrounding=True),
+                         dict(do_refine=True, do_pkr=True),
+                         dict(do_refine=True, rv_use_combine_bg=True),
+                         dict(do_refine=True, rv_int_ratio_quirk=False),
+                         dict(do_refine=True, do_cbbi=True), dict(do_refine=True, do_wm=True),
+                         dict(do_refine=True, do_da=True),
+                         dict(do_refine=True, do_rv_whole_image=True),
+                         dict(do_refine=True, do_bg_ipol=True, bg_ipol_kitti=True),
+                         dict(cbca_double_win=True, cbca_combine=1),
+                         dict(cbca_double_win=True, cbca_combine=1, do_refine=True)]
 
 
 @pytest.mark.parametrize("overrides", [
@@ -190,6 +202,17 @@ PORTED_FROM_THIS_LIST = [dict(do_refine=True, lrc_classify=True),
     dict(aggregation="fif", d_stream_block=4), dict(aggregation="aws", vol_dtype="bfloat16"),
     dict(aggregation="jbf", d_stream_block=4), dict(aggregation="gfnl", nl_neighbors=8),
     dict(cost="bt", aggregation="nl"),
+    dict(cbca_double_win=True, cbca_combine=1, vol_dtype="bfloat16"),
+    dict(cbca_double_win=True, cbca_combine=1, d_stream_block=4),
+    dict(do_refine=True, do_pkr=True, aggregation="bf", vol_dtype="bfloat16"),
+    dict(do_refine=True, do_wm=True, aggregation="gf", d_stream_block=4),
+    dict(do_refine=True, do_da=True, cost="bt", d_stream_block=4),
+    dict(do_refine=True, do_cbbi=True, optimization="so", vol_dtype="bfloat16"),
+    dict(do_refine=True, rv_int_ratio_quirk=False, vol_dtype="float16"),
+    dict(do_refine=True, rv_use_combine_bg=True, aggregation="fif", d_stream_block=4),
+    dict(do_refine=True, do_fill_surrounding=True, aggregation="gfnl", nl_neighbors=8),
+    dict(do_refine=True, do_rv_whole_image=True, do_vmtop=True, vol_dtype="bfloat16"),
+    dict(do_refine=True, do_bg_ipol=True, bg_ipol_kitti=True, cost="zncc", d_stream_block=4),
 ])
 def test_unported_stage_raises(overrides):
     """A stage the port does not run raises NotImplementedError. The
@@ -211,7 +234,13 @@ def test_unported_stage_raises(overrides):
     accepted, and a frame must run. So do the remaining costs, the
     multilevel and adaptive arms and the cross-scale pyramid (ROADMAP §1
     item 5): the pyramid, the multilevel arms, census_from2 streamed and
-    ZNCC under CBCA or no aggregation are accepted, and a frame must run."""
+    ZNCC under CBCA or no aggregation are accepted, and a frame must run.
+    So do the refinement variants (ROADMAP §1 item 6): the census border
+    fill, PKR and its merge ``cbca_combine=1``, RV_combine_BG, the
+    histogram region vote, CBBI, the KITTI fill, WM, DA and the whole-image
+    vote are accepted, and a frame must run; the list gains each of them
+    with what it still cannot run with (bfloat16 or streaming where those
+    are refused, GFNL on an 8-neighbour tree, float16)."""
     cfg = port.default_config(max_disp=7, **{"do_refine": False, **overrides})
 
     def run():

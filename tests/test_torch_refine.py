@@ -127,9 +127,13 @@ def test_region_vote_on_cpu_never_reaches_cuda_kernels():
 
 
 def test_region_vote_histogram_form_raises():
-    with pytest.raises(NotImplementedError):
-        refine.region_vote(torch.zeros((4, 5), dtype=torch.int32),
-                           torch.ones((4, 4, 5), dtype=torch.int32), 3, int_ratio_quirk=False)
+    """The histogram form runs (tests/test_torch_refine_variants.py holds it
+    against JAX); like every kernel-backed op it raises on a tensor that is
+    neither on the CPU nor on a CUDA device, rather than fall back."""
+    with pytest.raises(ValueError, match="unsupported device"):
+        refine.region_vote(torch.zeros((4, 5), dtype=torch.int32, device="meta"),
+                           torch.ones((4, 4, 5), dtype=torch.int32, device="meta"), 3,
+                           int_ratio_quirk=False)
 
 
 @pytest.mark.parametrize("flat", [False, True])

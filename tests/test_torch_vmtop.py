@@ -120,8 +120,11 @@ def test_combine_exact(merge):
 
 
 def test_combine_pkr_is_refused():
-    with pytest.raises(NotImplementedError, match="PKR"):
-        combine.combine(*(torch.zeros(2, 3, 4) for _ in range(2)), 1,
+    """PKR's merge (``cbca_combine=1``) runs now (tests/test_torch_refine_variants.py
+    holds it against JAX); a merge the JAX package does not know is
+    refused, as its ``compute_volumes`` refuses it."""
+    with pytest.raises(ValueError, match="unknown cbca_combine"):
+        combine.combine(*(torch.zeros(2, 3, 4) for _ in range(2)), 5,
                         torch.zeros(4, 3, 4), torch.zeros(4, 3, 4))
 
 
